@@ -1,0 +1,76 @@
+"""Multi-view test driver (counterpart of slowfast_tpu/engine/tester.py:52-145,
+classification branch; reference tools/test_net.py).
+
+Each batch of uint8 clips goes through the eval step on the device; the
+per-clip predictions are ensembled per video by ``TestMeter``, which logs
+``test_final`` with ``top1_acc``/``top5_acc``.
+"""
+
+import pickle
+import pprint
+
+from slowfast_tpu_torch.data import construct_loader
+from slowfast_tpu_torch.engine.steps import make_eval_step
+from slowfast_tpu_torch.models.build import build_model, resolve_device
+from slowfast_tpu_torch.utils import checkpoint as cu
+from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.meters import TestMeter
+
+logger = logging_utils.get_logger(__name__)
+
+
+def perform_test(test_loader, eval_fn, test_meter):
+    test_meter.iter_tic()
+    for cur_iter, (inputs, labels, video_idx, _, _) in enumerate(test_loader):
+        preds = eval_fn({"inputs": inputs}).float().cpu().numpy()
+        test_meter.iter_toc()
+        test_meter.update_stats(preds, labels, video_idx)
+        test_meter.log_iter_stats(cur_iter)
+        test_meter.iter_tic()
+    test_meter.finalize_metrics()
+    return test_meter
+
+
+def test(cfg, device="cuda"):
+    """Test entry, looping over TEST.NUM_TEMPORAL_CLIPS view counts; returns
+    one stats dict per view count."""
+    device = resolve_device(device)
+    logging_utils.setup_logging(cfg.OUTPUT_DIR)
+    logger.info("Test with config:")
+    logger.info(pprint.pformat(cfg.to_dict()))
+
+    view_counts = cfg.TEST.NUM_TEMPORAL_CLIPS or [cfg.TEST.NUM_ENSEMBLE_VIEWS]
+    results = []
+    for num_view in view_counts:
+        cfg = cfg.clone()
+        cfg.TEST.NUM_ENSEMBLE_VIEWS = num_view
+        results.append(test_one(cfg, device))
+    for views, stats in zip(view_counts, results):
+        logger.info("Views %d: %s", views, stats)
+    return results
+
+
+def test_one(cfg, device):
+    if cfg.DETECTION.ENABLE or cfg.DATA.MULTI_LABEL:
+        raise NotImplementedError("only single-label classification test is ported")
+    model = build_model(cfg, device)
+    cu.load_test_checkpoint(cfg, model)
+    eval_fn = make_eval_step(cfg, model)
+    test_loader = construct_loader(cfg, "test", device)
+
+    num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    dataset = test_loader.dataset
+    if dataset.num_videos % num_clips:
+        raise ValueError("total test clips must be divisible by views x crops")
+    test_meter = TestMeter(
+        dataset.num_videos // num_clips,
+        num_clips,
+        cfg.MODEL.NUM_CLASSES,
+        ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
+        output_dir=cfg.OUTPUT_DIR,
+    )
+    perform_test(test_loader, eval_fn, test_meter)
+    if cfg.TEST.SAVE_RESULTS_PATH:
+        with open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:
+            pickle.dump([test_meter.video_preds, test_meter.video_labels], f)
+    return dict(test_meter.stats)

@@ -1,0 +1,90 @@
+"""Common building blocks on NTHWC tensors (counterpart of
+slowfast_tpu/models/common.py; reference slowfast/models/common.py).
+
+Public tensors are NTHWC, as in the JAX package. Inside a module,
+``x.permute(0, 4, 1, 2, 3)`` is a free NCTHW view with ``channels_last_3d``
+strides, which ``conv3d`` and the ATen pools take directly, so no layout
+copy appears between layers.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def to_ncthw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def to_nthwc(x):
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def msra_fill_(weight, generator=None):
+    """MSRA/He fan-out normal init (JAX ``variance_scaling(2, fan_out,
+    normal)``, reference c2_msra_fill) for a (O, I/groups, kt, kh, kw) conv
+    weight."""
+    fan_out = weight.shape[0] * math.prod(weight.shape[2:])
+    with torch.no_grad():
+        return weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+class Conv3D(nn.Module):
+    """3D conv on NTHWC inputs with torch-style symmetric integer padding.
+
+    The weight is fp32 in torch layout (O, I/groups, kt, kh, kw) and is cast
+    to the input dtype at each call, as slowfast_tpu/models/common.py:48
+    does.
+    """
+
+    def __init__(self, dim_in, dim_out, kernel, stride=(1, 1, 1),
+                 padding=(0, 0, 0), groups=1, bias=False, dilation=(1, 1, 1)):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.dilation = tuple(dilation)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in // groups, *kernel))
+        self.bias = nn.Parameter(torch.zeros(dim_out)) if bias else None
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        y = F.conv3d(to_ncthw(x), w, b, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return to_nthwc(y)
+
+
+def max_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
+    """Torch MaxPool3d on NTHWC input."""
+    y = F.max_pool3d(to_ncthw(x), tuple(kernel), tuple(stride or kernel), tuple(padding))
+    return to_nthwc(y)
+
+
+def avg_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
+    """Torch AvgPool3d on NTHWC input (padding counted, as flax's avg_pool).
+
+    Sums in fp32 and rounds once to the input dtype, which is what ATen's
+    CUDA kernel does for bf16 and what its CPU kernel, which has no bf16
+    version, then does too.
+    """
+    y = F.avg_pool3d(to_ncthw(x).float(), tuple(kernel), tuple(stride or kernel),
+                     tuple(padding))
+    return to_nthwc(y).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (reference slowfast/models/common.py:46-70): identity
+    in eval and at rate 0. Training with a nonzero rate comes with the
+    training slice."""
+
+    def __init__(self, rate=0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("drop-path in training is not ported yet")
+        return x

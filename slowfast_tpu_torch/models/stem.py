@@ -1,0 +1,43 @@
+"""Video model stems on NTHWC tensors (counterpart of
+slowfast_tpu/models/stem.py; reference stem_helper.py)."""
+
+import torch.nn.functional as F
+from torch import nn
+
+from .common import Conv3D, max_pool3d
+
+
+class ResNetBasicStem(nn.Module):
+    """Conv(Txkxk) -> BN -> ReLU -> MaxPool(1x3x3, stride 1,2,2, pad 0,1,1).
+
+    The direct path of slowfast_tpu/models/stem.py:116-127; the T-folded
+    block-Toeplitz formulation there is a TPU layout workaround.
+    """
+
+    def __init__(self, dim_in, dim_out, kernel, stride, padding, norm):
+        super().__init__()
+        self.conv = Conv3D(dim_in, dim_out, kernel, stride, padding)
+        self.bn = norm(dim_out)
+
+    def forward(self, x):
+        x = F.relu(self.bn(self.conv(x)))
+        return max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+
+
+class VideoModelStem(nn.Module):
+    """One stem per pathway, named ``pathway{p}_stem`` as in the reference."""
+
+    def __init__(self, dim_in, dim_out, kernel, stride, padding, norm):
+        super().__init__()
+        self.num_pathways = len(dim_in)
+        for p in range(self.num_pathways):
+            self.add_module(
+                f"pathway{p}_stem",
+                ResNetBasicStem(dim_in[p], dim_out[p], kernel[p], stride[p],
+                                padding[p], norm),
+            )
+
+    def forward(self, xs):
+        if len(xs) != self.num_pathways:
+            raise ValueError(f"Input has {len(xs)} pathways, expected {self.num_pathways}")
+        return [getattr(self, f"pathway{p}_stem")(x) for p, x in enumerate(xs)]

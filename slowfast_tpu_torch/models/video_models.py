@@ -1,0 +1,164 @@
+"""SlowFast on NTHWC tensors (counterpart of slowfast_tpu/models/video_models.py;
+reference video_model_builder.py:36-441).
+
+The model takes a list of NTHWC pathway tensors and returns logits (train)
+or activated, position-averaged predictions (eval), per the head contract.
+The T-folded fuse, remat and ``TPU.TRUNCATE_AT`` machinery of the JAX
+package are TPU workarounds and are not ported; nor is the detection head.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .batchnorm import norm_builder
+from .common import Conv3D, max_pool3d
+from .heads import ResNetBasicHead
+from .resnet import ResStage
+from .stem import VideoModelStem
+
+# Stage depths per ResNet depth (reference video_model_builder.py:37).
+MODEL_STAGE_DEPTH = {18: (2, 2, 2, 2), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+# Per-arch temporal kernel basis for [stem, res2..res5]
+# (reference video_model_builder.py:41-98).
+TEMPORAL_KERNEL_BASIS = {
+    "2d": [[[1]], [[1]], [[1]], [[1]], [[1]]],
+    "c2d": [[[1]], [[1]], [[1]], [[1]], [[1]]],
+    "slow_c2d": [[[1]], [[1]], [[1]], [[1]], [[1]]],
+    "i3d": [[[5]], [[3]], [[3, 1]], [[3, 1]], [[1, 3]]],
+    "slow_i3d": [[[5]], [[3]], [[3, 1]], [[3, 1]], [[1, 3]]],
+    "slow": [[[1]], [[1]], [[1]], [[3]], [[3]]],
+    "slowfast": [[[1], [5]], [[1], [3]], [[1], [3]], [[3], [3]], [[3], [3]]],
+    "x3d": [[[5]], [[3]], [[3]], [[3]], [[3]]],
+    "csn": [[[3]], [[3]], [[3]], [[3]], [[3]]],
+    "r2plus1d": [[[1]], [[1]], [[1]], [[1]], [[1]]],
+}
+
+# Post-res2 temporal pooling per arch (reference video_model_builder.py:100-109).
+POOL1 = {
+    "2d": [[1, 1, 1]],
+    "c2d": [[2, 1, 1]],
+    "slow_c2d": [[1, 1, 1]],
+    "i3d": [[2, 1, 1]],
+    "slow_i3d": [[1, 1, 1]],
+    "slow": [[1, 1, 1]],
+    "slowfast": [[1, 1, 1], [1, 1, 1]],
+    "x3d": [[1, 1, 1]],
+    "csn": [[1, 1, 1]],
+    "r2plus1d": [[1, 1, 1]],
+}
+
+
+def compute_dtype(cfg):
+    return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
+
+
+def _per_pathway(value):
+    """A per-pathway config entry: a single value applies to both pathways."""
+    return list(value) * 2 if len(value) == 1 else list(value)
+
+
+class FuseFastToSlow(nn.Module):
+    """Time-strided conv on the fast pathway, concatenated onto the slow one
+    (reference video_model_builder.py:112-169)."""
+
+    def __init__(self, dim_in, fusion_conv_channel_ratio, fusion_kernel, alpha, norm):
+        super().__init__()
+        dim_fuse = dim_in * fusion_conv_channel_ratio
+        self.conv_f2s = Conv3D(dim_in, dim_fuse, (fusion_kernel, 1, 1),
+                               (alpha, 1, 1), (fusion_kernel // 2, 0, 0))
+        self.bn = norm(dim_fuse)
+
+    def forward(self, xs):
+        x_s, x_f = xs
+        fuse = F.relu(self.bn(self.conv_f2s(x_f)))
+        return [torch.cat([x_s, fuse], dim=-1), x_f]
+
+
+class SlowFast(nn.Module):
+    """Two-pathway SlowFast network (reference video_model_builder.py:172-441)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.DETECTION.ENABLE:
+            raise NotImplementedError("the detection head is not ported yet")
+        if cfg.CONTRASTIVE.NUM_MLP_LAYERS > 1:
+            raise NotImplementedError("the MLP projection head is not ported yet")
+        self.dtype = compute_dtype(cfg)
+        norm = norm_builder(cfg)
+        self.pool1 = POOL1[cfg.MODEL.ARCH]
+        depths = MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
+        num_groups = cfg.RESNET.NUM_GROUPS
+        w = cfg.RESNET.WIDTH_PER_GROUP
+        dim_inner = num_groups * w
+        beta_inv = cfg.SLOWFAST.BETA_INV
+        ratio = cfg.SLOWFAST.FUSION_CONV_CHANNEL_RATIO
+        out_dim_ratio = beta_inv // ratio
+        tk = TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH]
+        fuse = dict(fusion_conv_channel_ratio=ratio,
+                    fusion_kernel=cfg.SLOWFAST.FUSION_KERNEL_SZ,
+                    alpha=cfg.SLOWFAST.ALPHA, norm=norm)
+
+        self.s1 = VideoModelStem(
+            dim_in=cfg.DATA.INPUT_CHANNEL_NUM,
+            dim_out=[w, w // beta_inv],
+            kernel=[tk[0][0] + [7, 7], tk[0][1] + [7, 7]],
+            stride=[[1, 2, 2]] * 2,
+            padding=[[tk[0][0][0] // 2, 3, 3], [tk[0][1][0] // 2, 3, 3]],
+            norm=norm,
+        )
+        self.s1_fuse = FuseFastToSlow(w // beta_inv, **fuse)
+
+        # Per-stage channels (reference :246-367): the slow input includes
+        # the fused fast channels; fast channels are slow / beta_inv.
+        ins = [w, w * 4, w * 8, w * 16]
+        outs = [w * 4, w * 8, w * 16, w * 32]
+        inners = [dim_inner, dim_inner * 2, dim_inner * 4, dim_inner * 8]
+        for i in range(4):
+            stage = ResStage(
+                dim_in=[ins[i] + ins[i] // out_dim_ratio, ins[i] // beta_inv],
+                dim_out=[outs[i], outs[i] // beta_inv],
+                dim_inner=[inners[i], inners[i] // beta_inv],
+                temp_kernel_sizes=tk[i + 1],
+                stride=[cfg.RESNET.SPATIAL_STRIDES[i][0]] * 2,
+                num_blocks=[depths[i]] * 2,
+                num_groups=[num_groups] * 2,
+                num_block_temp_kernel=_per_pathway(cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[i]),
+                nonlocal_inds=_per_pathway(cfg.NONLOCAL.LOCATION[i]),
+                trans_func_name=cfg.RESNET.TRANS_FUNC,
+                norm=norm,
+                stride_1x1=cfg.RESNET.STRIDE_1X1,
+                dilation=[cfg.RESNET.SPATIAL_DILATIONS[i][0]] * 2,
+                zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
+                drop_connect_rate=cfg.MODEL.DROPCONNECT_RATE,
+            )
+            self.add_module(f"s{i + 2}", stage)
+            if i < 3:
+                self.add_module(f"s{i + 2}_fuse", FuseFastToSlow(outs[i] // beta_inv, **fuse))
+
+        p0, p1 = self.pool1
+        t, crop, alpha = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.SLOWFAST.ALPHA
+        pool = None if (cfg.MULTIGRID.SHORT_CYCLE
+                        or cfg.MODEL.MODEL_NAME == "ContrastiveModel") else [
+            [t // alpha // p0[0], crop // 32 // p0[1], crop // 32 // p0[2]],
+            [t // p1[0], crop // 32 // p1[1], crop // 32 // p1[2]],
+        ]
+        self.head = ResNetBasicHead(
+            dim_in=[w * 32, w * 32 // beta_inv],
+            num_classes=cfg.MODEL.NUM_CLASSES,
+            pool_size=pool,
+            dropout_rate=cfg.MODEL.DROPOUT_RATE,
+            act_func=cfg.MODEL.HEAD_ACT,
+        )
+
+    def forward(self, xs):
+        xs = [x.to(self.dtype) for x in xs]
+        xs = self.s1_fuse(self.s1(xs))
+        xs = self.s2_fuse(self.s2(xs))
+        # Post-res2 pooling (identity for slowfast's [1, 1, 1]).
+        xs = [max_pool3d(x, k, k) if any(v > 1 for v in k) else x
+              for x, k in zip(xs, self.pool1)]
+        xs = self.s3_fuse(self.s3(xs))
+        xs = self.s4_fuse(self.s4(xs))
+        return self.head(self.s5(xs))

@@ -1,0 +1,42 @@
+"""Logging utilities (counterpart of slowfast_tpu/utils/logging.py).
+
+Logs go to stdout and ``stdout.log`` in the output dir; machine-readable
+stats are emitted as ``json_stats:`` lines (and ``json_stats.log``).
+"""
+
+import json
+import logging
+import os
+import sys
+
+_FORMAT = "[%(asctime)s][%(levelname)s] %(filename)s: %(lineno)3d: %(message)s"
+
+
+def setup_logging(output_dir=None):
+    """Configure the root logger: stdout, plus ``stdout.log`` in output_dir."""
+    logger = logging.getLogger()
+    logger.setLevel(logging.INFO)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    formatter = logging.Formatter(_FORMAT, datefmt="%m/%d %H:%M:%S")
+    handlers = [logging.StreamHandler(stream=sys.stdout)]
+    if output_dir:
+        handlers.append(logging.FileHandler(os.path.join(output_dir, "stdout.log")))
+    for h in handlers:
+        h.setFormatter(formatter)
+        logger.addHandler(h)
+
+
+def get_logger(name):
+    return logging.getLogger(name)
+
+
+def log_json_stats(stats, output_dir=None):
+    """Log a dict as a single ``json_stats:`` line (+ json_stats.log file)."""
+    stats = {k: round(v, 5) if isinstance(v, float) else v for k, v in stats.items()}
+    line = "json_stats: {:s}".format(json.dumps(stats, sort_keys=True))
+    get_logger(__name__).info(line)
+    if output_dir:
+        with open(os.path.join(output_dir, "json_stats.log"), "a") as f:
+            f.write(line + "\n")
