@@ -1,0 +1,282 @@
+// MViT pooled-attention forwards for Hopper (sm_90a): softmax(q k^T) v for
+// one (q tile, head, batch) per block, with the (Nq, Nk) matrix kept out of
+// device memory.
+//
+// Replaces two Pallas kernels of slowfast_tpu/ops/pallas_attention.py:
+//   * :375 _flash_fwd_kernel (flash_pooled_attention :502), the constant-shift
+//     softmax that is also the numerics of models/attention.py:211
+//     _attention_core: e = round(exp(min(l, 50) - 20)), s = max(sum e, 1e-30),
+//     o = (e v) / s, with e rounded to the input type before both the sum and
+//     the product;
+//   * :39 _fwd_kernel (pooled_attention :171), the exact softmax: m = max l,
+//     p = exp(l - m), s = sum p in fp32 (unrounded), o = (round(p) v) / s.
+// q (B, Nq, nh, dq) and k (B, Nk, nh, dq) arrive pre-scaled and rel-pos
+// augmented (dq = 96 + kt + kh + kw in MViTv2-S), v is (B, Nk, nh, dv); all
+// bf16 or all fp32, contiguous. Both products accumulate in fp32. The TPU
+// kernels' 128-lane padding is a TPU layout rule and is not carried over:
+// this kernel takes the real dq, dv and Nk and masks the ragged edges.
+//
+// Bound: operations. One call does 2 B nh Nq Nk (dq + dv) flops and
+// B nh Nq Nk exponentials but moves only q, k, v and o once: MViTv2-S at
+// B=8 in bf16 needs about 265 GFLOP per forward against some 0.2 GB, so at
+// the H100's 989 TFLOP/s (bf16 tensor cores) and 3.35 TB/s the flops bind
+// by two orders of magnitude.
+//
+// Design. The Pallas kernel holds the whole pooled K/V row in VMEM; on Hopper
+// K alone can exceed shared memory (Nk = 1569, dq = 132: 414 KB in bf16), so
+// a block keeps its 64-row q tile in shared memory and loops over K/V in
+// 64-key chunks. The constant shift needs no row max, so s and o accumulate
+// over the chunks in one pass. The exact softmax takes two passes over the
+// chunks: the row max first, then p, s and o; that reproduces _fwd_kernel's
+// rounding exactly, which an online-softmax rescale would not. Tiles are
+// converted to fp32 in shared memory and both products run as fp32 FMA loops
+// on a 16x16 thread grid, each thread owning a 4x4 logit tile and a
+// 4 x (dv/16) output tile in registers. This is the simple first version: it
+// runs on the CUDA cores, not the tensor cores, so it sits far from the
+// flop bound; mma/wgmma tiles are later work. expf (not __expf) keeps the
+// kernel within summation order of its plain PyTorch version.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define PA_BQ 64          // q rows per block
+#define PA_BK 64          // keys per chunk
+#define PA_THREADS 256    // 16 x 16 threads
+#define PA_MAX_DQ 256
+#define PA_MAX_DV 128
+#define PA_P_STRIDE (PA_BK + 16)  // rows 16 banks apart: no conflicts
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// Round an fp32 value to the input type and back (identity for fp32).
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Copy rows [r0, r0 + rows) of a (N, nh, d) head slice into shared memory
+// as fp32 with row stride `ld`, zero-filling rows >= n and columns >= d.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int r0, int rows, int n, int nh,
+                                          int d, int ld) {
+  for (int idx = threadIdx.x; idx < rows * ld; idx += PA_THREADS) {
+    const int r = idx / ld;
+    const int c = idx - r * ld;
+    float v = 0.f;
+    if (r0 + r < n && c < d)
+      v = load_f(src + (static_cast<int64_t>(r0 + r) * nh) * d + c);
+    dst[idx] = v;
+  }
+}
+
+// Logits of the block's 4x4 tile of (q row, key) pairs for the chunk in
+// shared memory: rows ty + 16 i, keys tx + 16 j.
+__device__ __forceinline__ void chunk_logits(const float* q_s, const float* k_s,
+                                             int dq, int dqs, int ty, int tx,
+                                             float (&l)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) l[i][j] = 0.f;
+  for (int d = 0; d < dq; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * dqs + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = k_s[(tx + 16 * j) * dqs + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) l[i][j] = fmaf(a[i], b[j], l[i][j]);
+  }
+}
+
+// Reduce over the 16 threads (tx) that share a row: lanes 0-15 and 16-31 of
+// a warp are two rows.
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float row_max16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <typename T, bool kExact, int kDvPT>
+__global__ void __launch_bounds__(PA_THREADS, 2)
+pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out, int nq,
+                        int nk, int nh, int dq, int dv) {
+  extern __shared__ float smem[];
+  const int dqs = dq | 1;          // odd row stride: 16 key rows, 16 banks
+  const int dvs = kDvPT * 16;      // v columns >= dv are zero
+  float* q_s = smem;               // [PA_BQ][dqs]
+  float* k_s = q_s + PA_BQ * dqs;  // [PA_BK][dqs]
+  float* v_s = k_s + PA_BK * dqs;  // [PA_BK][dvs]
+  float* p_s = v_s + PA_BK * dvs;  // [PA_BQ][PA_P_STRIDE]
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * PA_BQ;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const T* qb = q + (b * nq * nh + h) * dq;
+  const T* kb = k + (b * nk * nh + h) * dq;
+  const T* vb = v + (b * nk * nh + h) * dv;
+  const T* tag = nullptr;  // selects round_as for T
+
+  load_tile(q_s, qb, q0, PA_BQ, nq, nh, dq, dqs);
+
+  float m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY;
+  if (kExact) {  // pass 1: the row max over every chunk
+    for (int k0 = 0; k0 < nk; k0 += PA_BK) {
+      __syncthreads();
+      load_tile(k_s, kb, k0, PA_BK, nk, nh, dq, dqs);
+      __syncthreads();
+      float l[4][4];
+      chunk_logits(q_s, k_s, dq, dqs, ty, tx, l);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + tx + 16 * j < nk) m[i] = fmaxf(m[i], l[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[i] = row_max16(m[i]);
+  }
+
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  float o[4][kDvPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kDvPT; ++j) o[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < nk; k0 += PA_BK) {
+    __syncthreads();  // the previous chunk's products are done
+    load_tile(k_s, kb, k0, PA_BK, nk, nh, dq, dqs);
+    load_tile(v_s, vb, k0, PA_BK, nk, nh, dv, dvs);
+    __syncthreads();
+    float l[4][4];
+    chunk_logits(q_s, k_s, dq, dqs, ty, tx, l);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = 0.f;
+        if (k0 + tx + 16 * j < nk) {
+          if (kExact) {
+            const float e = expf(l[i][j] - m[i]);
+            s[i] += e;  // the exact softmax sums the unrounded p
+            p = round_as(e, tag);
+          } else {
+            p = round_as(expf(fminf(l[i][j], 50.f) - 20.f), tag);
+            s[i] += p;  // the constant shift sums the rounded e
+          }
+        }
+        p_s[(ty + 16 * i) * PA_P_STRIDE + tx + 16 * j] = p;
+      }
+    }
+    __syncthreads();
+    for (int kk = 0; kk < PA_BK; ++kk) {
+      float p[4], w[kDvPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = p_s[(ty + 16 * i) * PA_P_STRIDE + kk];
+#pragma unroll
+      for (int j = 0; j < kDvPT; ++j) w[j] = v_s[kk * dvs + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kDvPT; ++j) o[i][j] = fmaf(p[i], w[j], o[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float sum = row_sum16(s[i]);
+    if (!kExact) sum = fmaxf(sum, 1e-30f);
+    const int row = q0 + ty + 16 * i;
+    if (row >= nq) continue;
+    T* ob = out + ((b * nq + row) * nh + h) * dv;
+#pragma unroll
+    for (int j = 0; j < kDvPT; ++j) {
+      const int col = tx + 16 * j;
+      if (col < dv) store_f(ob + col, o[i][j] / sum);
+    }
+  }
+}
+
+static size_t smem_bytes(int dq, int dv_pt) {
+  const size_t dqs = static_cast<size_t>(dq | 1);
+  return sizeof(float) * ((PA_BQ + PA_BK) * dqs + PA_BK * dv_pt * 16 +
+                          PA_BQ * PA_P_STRIDE);
+}
+
+template <typename T, bool kExact, int kDvPT>
+static int launch(const void* q, const void* k, const void* v, void* out,
+                  long long b, long long nq, long long nk, long long nh,
+                  long long dq, long long dv, cudaStream_t stream) {
+  auto kernel = pooled_attention_kernel<T, kExact, kDvPT>;
+  const size_t smem = smem_bytes(static_cast<int>(dq), kDvPT);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((nq + PA_BQ - 1) / PA_BQ),
+                  static_cast<unsigned>(nh), static_cast<unsigned>(b));
+  kernel<<<grid, PA_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), static_cast<int>(nq), static_cast<int>(nk),
+      static_cast<int>(nh), static_cast<int>(dq), static_cast<int>(dv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kExact>
+static int dispatch_dv(const void* q, const void* k, const void* v, void* out,
+                       long long b, long long nq, long long nk, long long nh,
+                       long long dq, long long dv, cudaStream_t stream) {
+  if (dv <= 96)
+    return launch<T, kExact, 6>(q, k, v, out, b, nq, nk, nh, dq, dv, stream);
+  return launch<T, kExact, 8>(q, k, v, out, b, nq, nk, nh, dq, dv, stream);
+}
+
+// out = softmax(q k^T) v per (batch, head), on `stream`. exact != 0 selects
+// the max-subtracted softmax of _fwd_kernel, else the constant shift of
+// _flash_fwd_kernel; is_bf16 != 0 selects bf16 tensors, else fp32. All
+// pointers are device pointers to contiguous tensors. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
+// the kernel does not take (dq > 256, dv > 128, grid limits).
+extern "C" int sf_pooled_attention(const void* q, const void* k, const void* v,
+                                   void* out, long long b, long long nq,
+                                   long long nk, long long nh, long long dq,
+                                   long long dv, int exact, int is_bf16,
+                                   void* stream) {
+  if (b <= 0 || nq <= 0 || nk <= 0 || nh <= 0 || dq <= 0 || dv <= 0 ||
+      dq > PA_MAX_DQ || dv > PA_MAX_DV || b > 65535 || nh > 65535 ||
+      (nq + PA_BQ - 1) / PA_BQ > 0x7fffffffLL ||
+      b * nq * nh * (dq > dv ? dq : dv) > (1LL << 62))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return exact ? dispatch_dv<__nv_bfloat16, true>(q, k, v, out, b, nq, nk, nh, dq, dv, s)
+                 : dispatch_dv<__nv_bfloat16, false>(q, k, v, out, b, nq, nk, nh, dq, dv, s);
+  }
+  return exact ? dispatch_dv<float, true>(q, k, v, out, b, nq, nk, nh, dq, dv, s)
+               : dispatch_dv<float, false>(q, k, v, out, b, nq, nk, nh, dq, dv, s);
+}

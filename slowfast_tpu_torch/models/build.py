@@ -3,16 +3,18 @@ reference slowfast/models/build.py).
 
 ``build_model`` builds the registered model, initializes it with the JAX
 package's distributions (not its bits) from a ``torch.Generator`` seeded by
-``cfg.RNG_SEED``, and moves it to the device in ``channels_last_3d``.
+``cfg.RNG_SEED``, and moves it to the device, with its 5-D (conv) weights in
+``channels_last_3d``.
 """
 
 import torch
 from torch import nn
 
-from .common import Conv3D, msra_fill_
+from .common import Conv3D, msra_fill_, trunc_normal_
+from .mvit import MViT
 from .video_models import SlowFast
 
-MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast}
+MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT}
 
 
 def resolve_device(device):
@@ -39,6 +41,29 @@ def init_weights(model, cfg, generator):
             nn.init.zeros_(m.bias)
 
 
+def init_mvit_weights(model, cfg, generator):
+    """MViT's init (slowfast_tpu/models/attention.py:31-34, mvit.py, stem.py,
+    heads.py): Linear and conv weights, rel-pos tables and the cls token
+    trunc_normal(0.02); Linear and LayerNorm biases 0.02, LayerNorm scales 1;
+    the patch-stem conv bias 0; the head trunc_normal(0.02 * HEAD_INIT_SCALE)
+    with a zero bias. Rel-pos tables are 0 under REL_POS_ZERO_INIT; layer
+    scales keep their constant."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "head.projection.weight":
+            trunc_normal_(p, 0.02 * cfg.MVIT.HEAD_INIT_SCALE, generator)
+        elif name in ("head.projection.bias", "patch_embed.proj.bias"):
+            nn.init.zeros_(p)
+        elif leaf.startswith("rel_pos") and cfg.MVIT.REL_POS_ZERO_INIT:
+            nn.init.zeros_(p)
+        elif leaf == "weight" and p.dim() == 1:  # LayerNorm scale
+            nn.init.ones_(p)
+        elif leaf == "bias":
+            nn.init.constant_(p, 0.02)
+        elif leaf == "weight" or leaf.startswith("rel_pos") or leaf == "cls_token":
+            trunc_normal_(p, 0.02, generator)
+
+
 def build_model(cfg, device="cuda"):
     """Build, initialize and place the model for ``cfg.MODEL.MODEL_NAME``."""
     device = resolve_device(device)
@@ -47,5 +72,6 @@ def build_model(cfg, device="cuda"):
         raise NotImplementedError(f"model {name!r} is not ported yet; "
                                   f"available: {sorted(MODEL_REGISTRY)}")
     model = MODEL_REGISTRY[name](cfg)
-    init_weights(model, cfg, torch.Generator().manual_seed(cfg.RNG_SEED))
+    init = init_mvit_weights if isinstance(model, MViT) else init_weights
+    init(model, cfg, torch.Generator().manual_seed(cfg.RNG_SEED))
     return model.to(device=device, memory_format=torch.channels_last_3d)

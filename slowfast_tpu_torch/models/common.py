@@ -22,6 +22,47 @@ def to_nthwc(x):
     return x.permute(0, 2, 3, 4, 1)
 
 
+def trunc_normal_(tensor, std=0.02, generator=None):
+    """Normal(0, std) truncated at ±2 std (flax ``truncated_normal(std)``,
+    slowfast_tpu/models/attention.py:33)."""
+    with torch.no_grad():
+        return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def linear(x, layer, dtype):
+    """``layer`` applied as flax ``nn.Dense(dtype=dtype)`` does: input,
+    weight and bias cast to ``dtype``."""
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def layer_norm(x, ln):
+    """``nn.LayerNorm`` ``ln`` computed in fp32 with an fp32 output, as flax
+    ``nn.LayerNorm`` without a ``dtype`` gives on fp32 parameters."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+
+
+def gelu_exact(x):
+    """Exact-erf GELU computed in fp32 and cast back
+    (slowfast_tpu/models/common.py:198 ``_gelu_exact_fwd``)."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2 in the compute dtype (reference
+    slowfast/models/common.py:7-34). Dropout is identity in eval."""
+
+    def __init__(self, in_features, hidden_features, out_features, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+
+    def forward(self, x):
+        return linear(gelu_exact(linear(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+
+
 def msra_fill_(weight, generator=None):
     """MSRA/He fan-out normal init (JAX ``variance_scaling(2, fan_out,
     normal)``, reference c2_msra_fill) for a (O, I/groups, kt, kh, kw) conv

@@ -1,16 +1,29 @@
-"""Classification head on NTHWC tensors (counterpart of
-slowfast_tpu/models/heads.py:29-91; reference head_helper.py:198-350).
+"""Classification heads (counterpart of slowfast_tpu/models/heads.py:29-91
+and :262; reference head_helper.py:198-350, 491-563).
 
-Training returns raw logits. Eval applies the activation per position and
-then, for fully-convolutional inference on crops larger than the training
-crop, averages over the remaining T/H/W positions.
+Training returns raw logits. Eval applies the activation; the ResNet head
+applies it per position and then, for fully-convolutional inference on
+crops larger than the training crop, averages over the remaining T/H/W
+positions.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .common import avg_pool3d
+from .common import avg_pool3d, linear
+
+
+def _check_act(act_func):
+    if act_func not in ("softmax", "sigmoid", "none"):
+        raise NotImplementedError(f"{act_func} is not supported as an activation function.")
+
+
+def _activate(x, act_func):
+    if act_func == "softmax":
+        return torch.softmax(x, dim=-1)
+    if act_func == "sigmoid":
+        return torch.sigmoid(x)
+    return x
 
 
 class ResNetBasicHead(nn.Module):
@@ -23,8 +36,7 @@ class ResNetBasicHead(nn.Module):
     def __init__(self, dim_in, num_classes, pool_size, dropout_rate=0.0,
                  act_func="softmax"):
         super().__init__()
-        if act_func not in ("softmax", "sigmoid", "none"):
-            raise NotImplementedError(f"{act_func} is not supported as an activation function.")
+        _check_act(act_func)
         self.pool_size = pool_size
         self.dropout_rate = dropout_rate
         self.act_func = act_func
@@ -40,13 +52,29 @@ class ResNetBasicHead(nn.Module):
         x = torch.cat(pooled, dim=-1)
         if self.training and self.dropout_rate > 0.0:
             raise NotImplementedError("head dropout in training is not ported yet")
-        x = F.linear(x, self.projection.weight.to(x.dtype),
-                     self.projection.bias.to(x.dtype))
+        x = linear(x, self.projection, x.dtype)
         if not self.training:
-            if self.act_func == "softmax":
-                x = torch.softmax(x, dim=-1)
-            elif self.act_func == "sigmoid":
-                x = torch.sigmoid(x)
+            x = _activate(x, self.act_func)
             if x.shape[1:4] != (1, 1, 1):
                 x = x.mean(dim=(1, 2, 3), keepdim=True)
         return x.reshape(x.shape[0], -1)
+
+
+class TransformerBasicHead(nn.Module):
+    """Dropout (identity in eval) -> linear in the compute dtype -> (eval)
+    activation, on ``(B, C)`` features."""
+
+    def __init__(self, dim_in, num_classes, dropout_rate=0.0, act_func="softmax",
+                 dtype=torch.float32):
+        super().__init__()
+        _check_act(act_func)
+        self.dropout_rate = dropout_rate
+        self.act_func = act_func
+        self.dtype = dtype
+        self.projection = nn.Linear(dim_in, num_classes)
+
+    def forward(self, x):
+        if self.training and self.dropout_rate > 0.0:
+            raise NotImplementedError("head dropout in training is not ported yet")
+        x = linear(x, self.projection, self.dtype)
+        return x if self.training else _activate(x, self.act_func)

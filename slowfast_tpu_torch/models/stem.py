@@ -41,3 +41,23 @@ class VideoModelStem(nn.Module):
         if len(xs) != self.num_pathways:
             raise ValueError(f"Input has {len(xs)} pathways, expected {self.num_pathways}")
         return [getattr(self, f"pathway{p}_stem")(x) for p, x in enumerate(xs)]
+
+
+class PatchEmbed(nn.Module):
+    """MViT patchification: one ``Conv3D`` with bias on NTHWC input
+    (slowfast_tpu/models/stem.py:220, reference stem_helper.py:288-320).
+
+    Returns ``(tokens (B, T'*H'*W', C), [T', H', W'])``. The 2D (image) stem
+    is not ported yet.
+    """
+
+    def __init__(self, dim_in=3, dim_out=768, kernel=(1, 16, 16), stride=(1, 4, 4),
+                 padding=(1, 7, 7), conv_2d=False):
+        super().__init__()
+        if conv_2d:
+            raise NotImplementedError("the 2D patch stem is not ported yet")
+        self.proj = Conv3D(dim_in, dim_out, kernel, stride, padding, bias=True)
+
+    def forward(self, x):
+        x = self.proj(x)
+        return x.reshape(x.shape[0], -1, x.shape[-1]), list(x.shape[1:4])

@@ -54,6 +54,18 @@ def compute_dtype(cfg):
     return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
 
 
+def round_width(width, multiplier, min_width=1, divisor=1):
+    """X3D/MViT width rounding (reference slowfast/models/utils.py:10-25)."""
+    if not multiplier:
+        return width
+    width *= multiplier
+    min_width = min_width or divisor
+    width_out = max(min_width, int(width + divisor / 2) // divisor * divisor)
+    if width_out < 0.9 * width:
+        width_out += divisor
+    return int(width_out)
+
+
 def _per_pathway(value):
     """A per-pathway config entry: a single value applies to both pathways."""
     return list(value) * 2 if len(value) == 1 else list(value)

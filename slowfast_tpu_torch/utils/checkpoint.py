@@ -2,12 +2,18 @@
 
 Port modules use the reference PySlowFast ``state_dict`` names
 (``s2.pathway0_res0.branch2.a.weight``, ``...a_bn.running_var``,
-``head.projection.weight``). They mirror the flax paths of the JAX package
-one for one (slowfast_tpu/utils/checkpoint.py:329 maps the other way), so
-the conversion is mechanical: conv kernels (kt,kh,kw,I,O) -> (O,I,kt,kh,kw),
-dense kernels (I,O) -> (O,I), BN scale/bias/mean/var ->
-weight/bias/running_mean/running_var.
+``blocks.0.attn.qkv.weight``, ``cls_token``, ``head.projection.weight``).
+They mirror the flax paths of the JAX package one for one
+(slowfast_tpu/utils/checkpoint.py:333 maps the other way), so the conversion
+is mechanical: flax ``blocks_{i}`` -> ``blocks.{i}``, conv kernels
+(kt,kh,kw,I,O) -> (O,I,kt,kh,kw) (the MViT pool kernels (kt,kh,kw,1,d) ->
+(d,1,kt,kh,kw)), dense kernels (I,O) -> (O,I), BN and LayerNorm
+scale/bias/mean/var -> weight/bias/running_mean/running_var, and parameter
+tables (``cls_token``, ``rel_pos_*``, ``pos_embed*``, layer-scale
+``gamma_*``) copied as they are.
 """
+
+import re
 
 import numpy as np
 import torch
@@ -18,6 +24,12 @@ logger = get_logger(__name__)
 
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_TABLE_PREFIXES = ("cls_token", "rel_pos_", "pos_embed", "gamma_")
+
+
+def _torch_path(mods):
+    """Flax module names -> torch ``state_dict`` prefixes."""
+    return tuple(re.sub(r"^blocks_(\d+)$", r"blocks.\1", m) for m in mods)
 
 
 def _flatten(tree, prefix=()):
@@ -35,7 +47,7 @@ def state_dict_from_jax(variables):
     sd = {}
     for path, val in _flatten(variables["params"]).items():
         val = np.asarray(val, np.float32)
-        mods, leaf = path[:-1], path[-1]
+        mods, leaf = _torch_path(path[:-1]), path[-1]
         if leaf == "kernel":
             if val.ndim == 5:
                 val = val.transpose(4, 3, 0, 1, 2)
@@ -46,11 +58,11 @@ def state_dict_from_jax(variables):
             leaf = "weight"
         elif leaf in _PARAM_LEAF:
             leaf = _PARAM_LEAF[leaf]
-        else:
+        elif not leaf.startswith(_TABLE_PREFIXES):
             raise ValueError(f"unexpected parameter {path}")
         sd[".".join(mods + (leaf,))] = torch.from_numpy(np.ascontiguousarray(val))
     for path, val in _flatten(variables.get("batch_stats", {})).items():
-        mods, leaf = path[:-1], path[-1]
+        mods, leaf = _torch_path(path[:-1]), path[-1]
         if leaf not in _STAT_LEAF:
             raise ValueError(f"unexpected batch statistic {path}")
         sd[".".join(mods + (_STAT_LEAF[leaf],))] = torch.from_numpy(

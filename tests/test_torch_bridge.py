@@ -27,6 +27,8 @@ from slowfast_tpu_torch.utils.checkpoint import load_test_checkpoint, state_dict
 
 YAML = os.path.join(os.path.dirname(__file__), "..", "configs", "Kinetics",
                     "SLOWFAST_4x16_R50.yaml")
+MVIT_YAML = os.path.join(os.path.dirname(__file__), "..", "configs", "Kinetics",
+                         "MVITv2_S_16x4.yaml")
 
 
 def _cfg(get, depth):
@@ -42,10 +44,25 @@ def _cfg(get, depth):
     return cfg
 
 
+def _mvit_cfg(get):
+    """MViTv2-S at depth 4 and width 16, with a stage transition (dim and
+    heads double, q stride 2) and layer scale, so gamma_1/gamma_2 exist."""
+    cfg = get()
+    cfg.merge_from_file(MVIT_YAML)
+    cfg.merge_from_list([
+        "MVIT.DEPTH", "4", "MVIT.EMBED_DIM", "16", "MVIT.DIM_MUL", "[[1,2.0],[3,2.0]]",
+        "MVIT.HEAD_MUL", "[[1,2.0],[3,2.0]]", "MVIT.POOL_Q_STRIDE", "[[1,1,2,2],[3,1,2,2]]",
+        "MVIT.LAYER_SCALE_INIT_VALUE", "0.1", "DATA.NUM_FRAMES", "4",
+        "DATA.TRAIN_CROP_SIZE", "56", "DATA.TEST_CROP_SIZE", "56",
+        "MODEL.NUM_CLASSES", "16", "NUM_GPUS", "1", "TPU.COMPUTE_DTYPE", "float32",
+    ])
+    return cfg
+
+
 def _jax_variables(depth, seed):
     """Seeded values in the JAX variable tree of the narrow model (shaped by
     a traced init, never run), and a zero tree of the same shapes."""
-    cfg = _cfg(jax_get_cfg, depth)
+    cfg = _cfg(jax_get_cfg, depth) if depth else _mvit_cfg(jax_get_cfg)
     model = jax_build_model(cfg)
     shapes = jax.eval_shape(
         lambda: init_model(model, cfg, rng=jax.random.PRNGKey(0), train=False))
@@ -56,18 +73,26 @@ def _jax_variables(depth, seed):
     return traverse_util.unflatten_dict(values), traverse_util.unflatten_dict(zeros)
 
 
-@pytest.fixture(scope="module", params=[18, 50])
+def _port_cfg(depth):
+    return _cfg(get_cfg, depth) if depth else _mvit_cfg(get_cfg)
+
+
+@pytest.fixture(scope="module", params=[18, 50, 0], ids=["r18", "r50", "mvit"])
 def bridged(request):
+    """SlowFast at depth 18 and 50, and MViTv2-S cut to depth 4 (depth 0)."""
     depth = request.param
     variables, zeros = _jax_variables(depth, depth)
-    model = build_model(_cfg(get_cfg, depth), device="cpu")
+    model = build_model(_port_cfg(depth), device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return variables, zeros, model, depth
 
 
 def test_state_dict_loads_strict_with_every_value(bridged):
-    variables, _, model, _ = bridged
+    variables, _, model, depth = bridged
     sd = model.state_dict()
+    if not depth:
+        _check_mvit_names(variables, sd)
+        return
     flat = traverse_util.flatten_dict(variables["params"])
     conv = sd["s2.pathway0_res0.branch2.a.weight"].numpy()
     np.testing.assert_array_equal(
@@ -79,6 +104,30 @@ def test_state_dict_loads_strict_with_every_value(bridged):
         variables["batch_stats"]["s1"]["pathway1_stem"]["bn"]["var"])
 
 
+def _check_mvit_names(variables, sd):
+    """PySlowFast's MViT names, with the layouts of its torch modules."""
+    flat = traverse_util.flatten_dict(variables["params"])
+    for name, path, layout in [
+        ("patch_embed.proj.weight", ("patch_embed", "proj", "kernel"), (4, 3, 0, 1, 2)),
+        ("cls_token", ("cls_token",), None),
+        ("blocks.0.attn.qkv.weight", ("blocks_0", "attn", "qkv", "kernel"), (1, 0)),
+        ("blocks.1.attn.pool_q.weight", ("blocks_1", "attn", "pool_q", "kernel"),
+         (4, 3, 0, 1, 2)),
+        ("blocks.1.attn.norm_q.weight", ("blocks_1", "attn", "norm_q", "scale"), None),
+        ("blocks.1.attn.rel_pos_h", ("blocks_1", "attn", "rel_pos_h"), None),
+        ("blocks.2.attn.rel_pos_t", ("blocks_2", "attn", "rel_pos_t"), None),
+        ("blocks.1.proj.weight", ("blocks_1", "proj", "kernel"), (1, 0)),
+        ("blocks.3.gamma_2", ("blocks_3", "gamma_2"), None),
+        ("blocks.0.mlp.fc1.weight", ("blocks_0", "mlp", "fc1", "kernel"), (1, 0)),
+        ("norm.weight", ("norm", "scale"), None),
+        ("head.projection.weight", ("head", "projection", "kernel"), (1, 0)),
+    ]:
+        want = flat[path] if layout is None else flat[path].transpose(layout)
+        np.testing.assert_array_equal(sd[name].numpy(), want, err_msg=name)
+    # Block 1 has 2 heads of 16: the pool kernel is (d, 1, kt, kh, kw).
+    assert sd["blocks.1.attn.pool_q.weight"].shape == (16, 1, 3, 3, 3)
+
+
 def test_round_trip_through_jax_importer(bridged):
     """Port state_dict -> JAX load_torch_checkpoint_dict gives the JAX
     variables back exactly, with nothing missing or unexpected."""
@@ -86,7 +135,7 @@ def test_round_trip_through_jax_importer(bridged):
     new_vars, missing, unexpected = load_torch_checkpoint_dict(model.state_dict(), zeros)
     assert missing == [] and unexpected == []
     for col in ("params", "batch_stats"):
-        want = traverse_util.flatten_dict(variables[col])
+        want = traverse_util.flatten_dict(variables.get(col, {}))
         got = traverse_util.flatten_dict(new_vars[col])
         assert got.keys() == want.keys()
         for k in want:
@@ -100,7 +149,7 @@ def test_load_test_checkpoint_reads_reference_pyth(bridged, tmp_path):
     path = tmp_path / "ref.pyth"
     torch.save({"epoch": 196, "model_state": model.state_dict(),
                 "optimizer_state": {}, "cfg": "MODEL: {}"}, path)
-    cfg = _cfg(get_cfg, depth)
+    cfg = _port_cfg(depth)
     cfg.TEST.CHECKPOINT_FILE_PATH = str(path)
     fresh = build_model(cfg, device="cpu")
     load_test_checkpoint(cfg, fresh)
