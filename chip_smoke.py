@@ -28,7 +28,25 @@ Phases, each printing one JSON line:
   9. mvit_slice  the MViTv2-S multi-view test (engine.tester.test) in bf16
               on synthetic video: 4 videos x 5 views x 1 crop in batches of
               8; the constant-shift kernel must launch 16 times a batch.
- 10. kernels  one line per kernel with its launches on its path, error,
+ 10. attn_bwd_kernel  both pooled-attention backward kernels against their
+              plain backwards on the q, k, v that the 16 blocks of one
+              full-width MViTv2-S train forward at 16 clips in bf16 hand
+              their core (with a seeded output gradient), at block 1 at one
+              clip in fp32, and at ragged and extreme cases; the wrappers'
+              autograd on the card; per distinct block shape the device
+              time, the plain time, SDPA's backward time and backend, and
+              the bound.
+ 11. mvit_train_fp32  one train step of full-width MViTv2-S on one clip on
+              the card against the CPU on the same weights, fp32, TF32 off,
+              once with each core: loss, grad norm, every gradient and the
+              updated parameters; no parameter may lack a gradient or have
+              an all-zero one, unless it is zero in exact arithmetic.
+ 12. mvit_train_slice  run_net.main training MViTv2-S 16x4 for one epoch on
+              synthetic video: 4 steps of 16 clips (8 videos, 2 samples
+              each) with mixup, drop path, dropout, AdamW and warmup, a val
+              epoch of 4 batches and the epoch-1 checkpoint, which must
+              reload into a fresh model with an identical eval output.
+ 13. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without printing that line.
@@ -62,6 +80,25 @@ EXP_PER_S = 16 * 132 * 1.98e9
 # convex combinations of v's rows): fp32 differs only in summation order;
 # bf16 may round e, and the output, one bf16 ulp (2^-8) the other way.
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Backward kernel vs its plain backward, max abs error of each of dq, dk, dv
+# as a share of its max: fp32 differs in summation order only; in bf16 the
+# rounded e, do_n and dl may round the other way (one ulp, 2^-8), and an
+# element of dq, dk or dv sums hundreds of such terms.
+ATTN_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# One fp32 train step, card (TF32 off) vs CPU, with random weights whose
+# gradient norm is above 100. Past the last residual max pool (block 14's),
+# in block 15, the final norm and the head, each parameter's gradient is
+# held within TRAIN_GRAD_TOL_TAIL of its own max |grad| (sums taken in
+# other orders). Upstream of it the max pools' argmax flips wherever two
+# entries of a window are closer than the forward's fp32 difference (about
+# 1e-6), which sends those gradient entries elsewhere: all gradients
+# together within TRAIN_GRAD_L2_TOL (relative L2), each parameter within
+# TRAIN_GRAD_TOL of its max; the loosest are rel-pos tables, small sums
+# over up to 25,089 query rows of terms that cancel.
+TRAIN_GRAD_TOL_TAIL = 1e-4
+TRAIN_GRAD_L2_TOL = 1e-3
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_CLIPS = 16  # TRAIN.BATCH_SIZE 8 x AUG.NUM_SAMPLE 2, bench.py's B for MViTv2-S
 
 
 def emit(obj):
@@ -111,6 +148,7 @@ def reset_launches():
     from slowfast_tpu_torch.ops import preprocess as pp
 
     pp.launches = ta.flash_launches = ta.exact_launches = 0
+    ta.flash_bwd_launches = ta.exact_bwd_launches = 0
 
 
 def read_launches():
@@ -118,7 +156,9 @@ def read_launches():
     from slowfast_tpu_torch.ops import preprocess as pp
 
     return {"preprocess_u8": pp.launches, "attention_flash": ta.flash_launches,
-            "attention_exact": ta.exact_launches}
+            "attention_exact": ta.exact_launches,
+            "attention_flash_bwd": ta.flash_bwd_launches,
+            "attention_exact_bwd": ta.exact_bwd_launches}
 
 
 def phase_device():
@@ -566,6 +606,405 @@ def phase_mvit_fp32():
     return launches
 
 
+def attention_bwd_bound(q, k, v):
+    """The least time one pooled-attention backward could take on the card:
+    2 B nh Nq Nk (3 dq + 2 dv) operations (the logits once, dpn, dv, dq,
+    dk) over the peak rate for the input type, or q, k, v, do, dq, dk and dv
+    moved once over the memory rate, whichever is larger."""
+    B, Nq, nh, dq = q.shape
+    Nk, dv = v.shape[1], v.shape[3]
+    flops = 2 * B * nh * Nq * Nk * (3 * dq + 2 * dv)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * Nq * nh * dv) * q.element_size()
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "bytes": nbytes}
+
+
+def capture_mvit_train_attention(num_clips):
+    """The (q, k, v) that each block of one full-width MViTv2-S 16x4 train
+    forward (bf16, seeded random weights and clips, drop path and dropout
+    on) hands its attention core."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.ops import attention as ta
+
+    cfg = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"])
+    model = build_model(cfg, device="cuda")
+    model.train()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    size = (num_clips, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE,
+            cfg.DATA.TRAIN_CROP_SIZE, 3)
+    clips = torch.randint(0, 256, size, dtype=torch.uint8, device="cuda", generator=gen)
+    captured, core = [], ta.flash_pooled_attention
+
+    def recording_core(q, k, v):
+        captured.append((q.clone(), k.clone(), v.clone()))
+        return core(q, k, v)
+
+    ta.flash_pooled_attention = recording_core
+    try:
+        with torch.no_grad():
+            model(maybe_device_preprocess(cfg, [clips]))
+    finally:
+        ta.flash_pooled_attention = core
+    check(len(captured) == cfg.MVIT.DEPTH, f"captured {len(captured)} attention calls")
+    return captured
+
+
+def phase_attn_bwd_kernel():
+    """Both backward kernels against their plain backwards, and their times
+    at each distinct block shape of the MViTv2-S train step at 16 clips."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from slowfast_tpu_torch.ops import attention as ta
+
+    plains = {"flash": ta.flash_bwd_plain, "exact": ta.exact_bwd_plain}
+    wrappers = {"flash": ta.flash_pooled_attention, "exact": ta.pooled_attention}
+    max_abs = {name: 0.0 for name in plains}
+    max_share = {name: 0.0 for name in plains}
+    n_checked = 0
+
+    def grad_out(q, v, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        shape = (q.shape[0], q.shape[1], q.shape[2], v.shape[3])
+        return torch.randn(shape, device="cuda", generator=gen).to(v.dtype)
+
+    def compare(name, q, k, v, do):
+        """The kernel against its plain backward; returns the three grads and
+        the largest error share of dq, dk, dv."""
+        nonlocal n_checked
+        got = ta._launch_bwd(q, k, v, do, exact=name == "exact")
+        want = plains[name](q, k, v, do)
+        shares = []
+        for g, w, t in zip(got, want, (q, k, v)):
+            check(g.shape == t.shape and g.dtype == t.dtype, f"{name}: grad {g.shape} {g.dtype}")
+            check(torch.isfinite(g).all().item(), f"{name}: non-finite gradient")
+            err = (g.float() - w.float()).abs().max().item()
+            scale = max(w.float().abs().max().item(), 1e-30)
+            shares.append(err / scale)
+            max_abs[name] = max(max_abs[name], err)
+        check(max(shares) <= ATTN_BWD_TOL[q.dtype],
+              f"{name} backward differs from plain by {shares} of max at q "
+              f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+        max_share[name] = max(max_share[name], max(shares))
+        n_checked += 1
+        return got, max(shares)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums
+    try:
+        captured = capture_mvit_train_attention(TRAIN_CLIPS)
+        dos = [grad_out(q, v, 100 + i) for i, (q, k, v) in enumerate(captured)]
+        block_err = [{name: compare(name, q, k, v, do)[1] for name in plains}
+                     for (q, k, v), do in zip(captured, dos)]
+        block1 = [t[:1].float().contiguous() for t in captured[1]]
+        fp32_err = {name: compare(name, *block1, grad_out(block1[0], block1[2], 7))[1]
+                    for name in plains}
+        extreme_zero = True
+        for shape in [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                for extreme in (False, True):
+                    q, k, v = attention_inputs(shape, dtype, 5, extreme)
+                    do = grad_out(q, v, 8)
+                    for name in plains:
+                        (dq, _, _), _ = compare(name, q, k, v, do)
+                        if extreme and name == "flash":
+                            extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
+        check(extreme_zero, "underflowing rows have a nonzero dq")
+
+        # The wrappers on the card: an output with a grad_fn whose gradients
+        # are the backward kernel's, one launch each.
+        q, k, v = (t[:2].clone().requires_grad_() for t in captured[2])
+        do = dos[2][:2].contiguous()
+        autograd_launches = {}
+        for name, fn in wrappers.items():
+            reset_launches()
+            out = fn(q, k, v)
+            check(out.grad_fn is not None, f"{name}: the output has no grad_fn")
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            want = ta._launch_bwd(q.detach(), k.detach(), v.detach(), do, exact=name == "exact")
+            check(all(torch.equal(g, w) for g, w in zip(grads, want)),
+                  f"{name}: autograd on the card is not the backward kernel")
+            autograd_launches[name] = read_launches()
+            check(autograd_launches[name][f"attention_{name}_bwd"] == 2,
+                  f"{name}: launches {autograd_launches[name]}")
+
+        groups = {}
+        for i, (q, k, v) in enumerate(captured):
+            groups.setdefault((tuple(q.shape), k.shape[1], v.shape[3]), []).append(i)
+        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+                  for name in plains}
+        for blocks in groups.values():
+            q, k, v = captured[blocks[0]]
+            do = dos[blocks[0]]
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, scale=1.0)).name
+            out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+            do_t = do.transpose(1, 2).contiguous()
+            library_ms = device_ms(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True), 10)
+            del out
+            bound = attention_bwd_bound(q, k, v)
+            row = {"phase": "attn_bwd_kernel", "blocks": blocks, "B": q.shape[0],
+                   "Nq": q.shape[1], "Nk": k.shape[1], "nh": q.shape[2], "dq": q.shape[3],
+                   "dv": v.shape[3], "dtype": "bfloat16", **bound,
+                   "library_ms": library_ms, "library_backend": backend}
+            for name in plains:
+                exact = name == "exact"
+                ms = device_ms(lambda: ta._launch_bwd(q, k, v, do, exact), 10)
+                plain_ms = device_ms(lambda: plains[name](q, k, v, do), 5)
+                row[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "roofline_share": bound["bound_ms"] / ms,
+                             "max_err_share": max(block_err[i][name] for i in blocks)}
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound["bound_ms"]), ("library_ms", library_ms)):
+                    totals[name][key] += len(blocks) * val
+            emit(row)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    summary = {"phase": "attn_bwd_kernel", "clips": TRAIN_CLIPS, "cases_checked": n_checked,
+               "max_abs_err": max_abs, "max_err_share": max_share,
+               "fp32_block1_err_share": fp32_err,
+               "tolerance_share": {"float32": ATTN_BWD_TOL[torch.float32],
+                                   "bfloat16": ATTN_BWD_TOL[torch.bfloat16]},
+               "per_backward": totals, "bound_by": "operations",
+               "autograd_launches": autograd_launches}
+    emit(summary)
+    return summary
+
+
+def structurally_zero(name, depth):
+    """Gradients that vanish in exact arithmetic: a bias on every key shifts
+    each logit row by a constant, which the softmax ignores (norm_k.bias);
+    the last block's q pooling and rel-pos tables act only on non-cls query
+    rows, and only the cls row reaches the head."""
+    last = f"blocks.{depth - 1}.attn."
+    return name.endswith("norm_k.bias") or (
+        name.startswith(last) and name[len(last):].startswith(("pool_q.", "rel_pos")))
+
+
+def train_one_step(cfg, model, clip, label, epoch_exact):
+    """One ``make_train_step`` step; returns (metrics, gradients before the
+    clip, parameters after the update), all on the CPU."""
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    opt = construct_optimizer(model, cfg)
+    grads, update = {}, opt.step
+
+    def recording_update(lr):
+        grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        return update(lr)
+
+    opt.step = recording_update
+    dev = next(model.parameters()).device
+    m = make_train_step(cfg, model, opt)({"inputs": [clip.to(dev)], "labels": label.to(dev),
+                                           "epoch_exact": epoch_exact})
+    metrics = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "lr": m["lr"]}
+    params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    return metrics, grads, params
+
+
+def phase_mvit_train_fp32():
+    """One train step of full-width MViTv2-S on one clip, card vs CPU, fp32
+    with TF32 off, with each core against the CPU run of the same core. The
+    two CPU runs compute the same softmax in fp32 and differ only in
+    rounding; their distance is reported as the noise floor."""
+    from slowfast_tpu_torch.models.build import build_model
+
+    base = ["TPU.COMPUTE_DTYPE", "float32", "AUG.NUM_SAMPLE", "1", "MIXUP.ENABLE", "False",
+            "MVIT.DROPPATH_RATE", "0.0", "MODEL.DROPOUT_RATE", "0.0"]
+    cfg = mvit_cfg(base)
+    depth = cfg.MVIT.DEPTH
+    cpu_model = build_model(cfg, device="cpu")
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    clip = torch.from_numpy(np.random.RandomState(8).randint(
+        0, 255, (1, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE, 3)
+    ).astype(np.uint8))
+    label = torch.tensor([17])
+    epoch_exact = 15.0  # mid-warmup: a nonzero LR
+    cores = (("flash", []), ("exact", ["TPU.PALLAS_ATTENTION", "True"]))
+    cpu, cpu_s = {}, {}
+    for core, extra in cores:
+        cfg = mvit_cfg(base + extra)
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(state, strict=True)
+        t0 = time.perf_counter()
+        cpu[core] = train_one_step(cfg, model, clip, label, epoch_exact)
+        cpu_s[core] = time.perf_counter() - t0
+
+    def rel_l2(a, b, names):
+        diff = sum((a[n] - b[n]).double().pow(2).sum().item() for n in names)
+        return (diff / sum(b[n].double().pow(2).sum().item() for n in names)) ** 0.5
+
+    launches = {}
+    for core, extra in cores:
+        want, want_grads, want_params = cpu[core]
+        gmax = max(g.abs().max().item() for g in want_grads.values())
+        cfg = mvit_cfg(base + extra)
+        model = build_model(cfg, device="cuda")
+        model.load_state_dict(state, strict=True)
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            reset_launches()
+            got, grads, params = train_one_step(cfg, model, clip, label, epoch_exact)
+            torch.cuda.synchronize()
+            launches[core] = read_launches()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        missing = [n for n, p in model.named_parameters() if p.requires_grad and (
+            n not in grads or (grads[n].abs().max().item() == 0.0
+                               and not structurally_zero(n, depth)))]
+        check(not missing, f"{core}: parameters with no or an all-zero gradient: {missing}")
+        shares = {}
+        for n, g in grads.items():
+            w = want_grads[n]
+            if structurally_zero(n, depth):
+                # rounding noise on both sides: small against the largest gradient
+                check(g.abs().max().item() <= 1e-3 * gmax, f"{core}: {n} is not ~0")
+                continue
+            shares[n] = (g - w).abs().max().item() / w.abs().max().item()
+        worst = sorted(shares.items(), key=lambda kv: -kv[1])[:6]
+        tail = max(v for n, v in shares.items()
+                   if n.startswith((f"blocks.{depth - 1}.", "norm.", "head.")))
+        l2_err = rel_l2(grads, want_grads, shares)
+        cpu_spread = rel_l2(cpu["exact"][1], cpu["flash"][1], shares)
+        param_err = max((params[n] - want_params[n]).abs().max().item() for n in params)
+        loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+        norm_err = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        other = "exact" if core == "flash" else "flash"
+        emit({"phase": "mvit_train_fp32", "core": core, "loss": got["loss"],
+              "cpu_loss": want["loss"], "loss_rel_err": loss_err,
+              "grad_norm": got["grad_norm"], "grad_norm_rel_err": norm_err,
+              "grad_rel_l2_err": l2_err, "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+              "cpu_flash_vs_exact_grad_rel_l2": cpu_spread,
+              "max_grad_err_share_after_last_pool": tail,
+              "grad_tol_share_after_last_pool": TRAIN_GRAD_TOL_TAIL,
+              "worst_grad_err_shares": worst, "grad_tol_share": TRAIN_GRAD_TOL,
+              "median_grad_err_share": statistics.median(shares.values()),
+              "max_param_err_after_update": param_err,
+              "lr": got["lr"], "params_checked": len(grads), "cpu_step_s": cpu_s[core],
+              "launches": launches[core]})
+        check(loss_err <= 1e-5, f"{core}: loss {got['loss']} vs CPU {want['loss']}")
+        check(norm_err <= 1e-4, f"{core}: grad norm {got['grad_norm']} vs {want['grad_norm']}")
+        check(tail <= TRAIN_GRAD_TOL_TAIL, f"{core}: gradients past the last pool differ by {tail}")
+        check(l2_err <= TRAIN_GRAD_L2_TOL, f"{core}: gradients differ by {l2_err} (L2)")
+        check(worst[0][1] <= TRAIN_GRAD_TOL, f"{core}: gradients differ: {worst}")
+        # Adam's first step moves each parameter by about lr times the sign
+        # of its gradient; where a gradient is rounding noise the sign may
+        # differ, so the bound is twice the LR.
+        check(param_err <= 2.0 * want["lr"] + 1e-6, f"{core}: parameters differ by {param_err}")
+        check(launches[core][f"attention_{core}_bwd"] == depth
+              and launches[core][f"attention_{other}_bwd"] == 0
+              and launches[core][f"attention_{core}"] == depth
+              and launches[core][f"attention_{other}"] == 0,
+              f"{core}: launches {launches[core]}")
+    return launches
+
+
+def phase_mvit_train_slice(attn_bwd, attn_fwd):
+    """``run_net.main`` training MViTv2-S 16x4 on the card: one epoch of 4
+    steps of 16 clips, a val epoch and the epoch-1 checkpoint."""
+    import shutil
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.engine import trainer
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    out_dir = os.path.join(OUT_DIR, "mvit_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, models = [], []
+    make_step = trainer.make_train_step
+
+    def recording_make_step(cfg, model, optimizer, generator):
+        """The trainer's step, timed on the host clock to a synchronize."""
+        models.append(model)
+        step = make_step(cfg, model, optimizer, generator)
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                          "grad_norm": m["grad_norm"].item(), "lr": m["lr"],
+                          "clips": batch["labels"].shape[0]})
+            return m
+
+        return timed
+
+    argv = ["--cfg", MVIT_YAML, "--opts", "NUM_GPUS", "1", "TRAIN.DATASET", "syntheticvideo",
+            "DATA.SYNTHETIC_SIZE", "32", "TRAIN.BATCH_SIZE", "8", "SOLVER.MAX_EPOCH", "1",
+            "TEST.ENABLE", "False", "OUTPUT_DIR", out_dir]
+    trainer.make_train_step = recording_make_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run_net.main(argv)
+    finally:
+        trainer.make_train_step = make_step
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    cfg = mvit_cfg([])
+    depth = cfg.MVIT.DEPTH
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    types = [s["_type"] for s in logged]
+    check(len(steps) == 4 and all(s["clips"] == TRAIN_CLIPS for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
+          f"non-finite loss: {steps}")
+    check("train_epoch" in types and "val_epoch" in types, f"logged {types}")
+    check(launches["attention_flash_bwd"] == depth * 4,
+          f"backward launched {launches['attention_flash_bwd']} times for 4 steps")
+    check(launches["attention_flash"] == depth * (4 + 4),
+          f"forward launched {launches['attention_flash']} times for 4 + 4 batches")
+    check(launches["attention_exact"] == launches["attention_exact_bwd"] == 0,
+          f"exact core launched: {launches}")
+    check(launches["preprocess_u8"] == 4 + 4, f"preprocess launches {launches}")
+
+    path = cu.get_path_to_checkpoint(out_dir, 1)
+    check(os.path.exists(path), f"no checkpoint at {path}")
+    trained = models[0]
+    fresh = build_model(cfg, device="cuda")
+    fresh.load_state_dict(torch.load(path, map_location="cuda", weights_only=True)["model_state"],
+                          strict=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    clips = torch.randint(0, 256, (2, cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE,
+                                   cfg.DATA.TEST_CROP_SIZE, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    a = make_eval_step(cfg, trained)({"inputs": [clips]})
+    b = make_eval_step(cfg, fresh)({"inputs": [clips]})
+    check(torch.equal(a, b), f"reloaded checkpoint differs: {(a - b).abs().max().item()}")
+    ckpt_bytes = os.path.getsize(path)
+    os.remove(path)  # weights and AdamW state: too large to keep among the run's files
+
+    step_ms = statistics.median(s["ms"] for s in steps)
+    bwd_ms = attn_bwd["per_backward"]["flash"]["ms"]
+    row = {"phase": "mvit_train_slice", "steps": len(steps), "clips_per_step": TRAIN_CLIPS,
+           "step_p50_ms": step_ms, "train_clips_per_s": TRAIN_CLIPS / step_ms * 1e3,
+           "first_step_ms": steps[0]["ms"], "max_memory_allocated": peak,
+           "attn_bwd_ms_per_step": bwd_ms, "attn_bwd_share_of_step": bwd_ms / step_ms,
+           # the forward kernel's time at 8 clips (phase attn_kernel), twice
+           "attn_fwd_ms_per_step_est": 2 * attn_fwd["per_forward"]["flash"]["ms"],
+           "per_step": [{k: s[k] for k in ("ms", "loss", "grad_norm", "lr")} for s in steps],
+           "val_epoch": [s for s in logged if s["_type"] == "val_epoch"][-1],
+           "train_wall_s": wall, "checkpoint": os.path.relpath(path, ROOT),
+           "checkpoint_bytes": ckpt_bytes,
+           "reload_identical": True, "launches": launches}
+    emit(row)
+    return launches
+
+
 def count_conv_flops(model, step, batch):
     """Operations (2 per multiply-add) of every conv in one eval step, from
     the shapes the step gives them."""
@@ -639,6 +1078,9 @@ def main():
     attn = phase_attn_kernel()
     fp32_launches = phase_mvit_fp32()
     mvit_launches = phase_mvit_slice()
+    attn_bwd = phase_attn_bwd_kernel()
+    train_fp32_launches = phase_mvit_train_fp32()
+    train_launches = phase_mvit_train_slice(attn_bwd, attn)
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
@@ -664,6 +1106,25 @@ def main():
             "replaces": replaces, "launches": n, "max_abs_err": attn["max_abs_err"][core],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": attn["bound_by"], "library_ms": tot["library_ms"],
+        })
+    # Attention backwards: per MViTv2-S train step at 16 clips in bf16,
+    # summed over its 16 blocks. The constant-shift backward's launches are
+    # the train slice's; the exact one runs on the model path only under
+    # TPU.PALLAS_ATTENTION, so its launches are those of phase
+    # mvit_train_fp32's exact run.
+    for core, replaces, n in (
+            ("flash", "slowfast_tpu/ops/pallas_attention.py:392",
+             train_launches["attention_flash_bwd"]),
+            ("exact", "slowfast_tpu/ops/pallas_attention.py:58",
+             train_fp32_launches["exact"]["attention_exact_bwd"])):
+        tot = attn_bwd["per_backward"][core]
+        lines.append({
+            "name": f"attention_{core}_bwd", "route": "cuda",
+            "source": "slowfast_tpu_torch/csrc/pooled_attention_bwd.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": attn_bwd["max_abs_err"][core],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": attn_bwd["bound_by"], "library_ms": tot["library_ms"],
         })
     emit({"kernels": lines})
     print(info["nvidia_smi"], flush=True)

@@ -36,10 +36,9 @@
 // flop bound; mma/wgmma tiles are later work. expf (not __expf) keeps the
 // kernel within summation order of its plain PyTorch version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "pooled_attention_common.cuh"
 
 #define PA_BQ 64          // q rows per block
 #define PA_BK 64          // keys per chunk
@@ -47,75 +46,6 @@
 #define PA_MAX_DQ 256
 #define PA_MAX_DV 128
 #define PA_P_STRIDE (PA_BK + 16)  // rows 16 banks apart: no conflicts
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Round an fp32 value to the input type and back (identity for fp32).
-__device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Copy rows [r0, r0 + rows) of a (N, nh, d) head slice into shared memory
-// as fp32 with row stride `ld`, zero-filling rows >= n and columns >= d.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int rows, int n, int nh,
-                                          int d, int ld) {
-  for (int idx = threadIdx.x; idx < rows * ld; idx += PA_THREADS) {
-    const int r = idx / ld;
-    const int c = idx - r * ld;
-    float v = 0.f;
-    if (r0 + r < n && c < d)
-      v = load_f(src + (static_cast<int64_t>(r0 + r) * nh) * d + c);
-    dst[idx] = v;
-  }
-}
-
-// Logits of the block's 4x4 tile of (q row, key) pairs for the chunk in
-// shared memory: rows ty + 16 i, keys tx + 16 j.
-__device__ __forceinline__ void chunk_logits(const float* q_s, const float* k_s,
-                                             int dq, int dqs, int ty, int tx,
-                                             float (&l)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) l[i][j] = 0.f;
-  for (int d = 0; d < dq; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * dqs + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = k_s[(tx + 16 * j) * dqs + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) l[i][j] = fmaf(a[i], b[j], l[i][j]);
-  }
-}
-
-// Reduce over the 16 threads (tx) that share a row: lanes 0-15 and 16-31 of
-// a warp are two rows.
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 template <typename T, bool kExact, int kDvPT>
 __global__ void __launch_bounds__(PA_THREADS, 2)
@@ -140,7 +70,7 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (b * nk * nh + h) * dv;
   const T* tag = nullptr;  // selects round_as for T
 
-  load_tile(q_s, qb, q0, PA_BQ, nq, nh, dq, dqs);
+  load_tile<PA_THREADS>(q_s, qb, q0, PA_BQ, nq, nh, dq, dqs);
 
   float m[4];
 #pragma unroll
@@ -148,10 +78,10 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (kExact) {  // pass 1: the row max over every chunk
     for (int k0 = 0; k0 < nk; k0 += PA_BK) {
       __syncthreads();
-      load_tile(k_s, kb, k0, PA_BK, nk, nh, dq, dqs);
+      load_tile<PA_THREADS>(k_s, kb, k0, PA_BK, nk, nh, dq, dqs);
       __syncthreads();
       float l[4][4];
-      chunk_logits(q_s, k_s, dq, dqs, ty, tx, l);
+      dot_tile(q_s, dqs, k_s, dqs, dq, ty, tx, l);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -171,11 +101,11 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < nk; k0 += PA_BK) {
     __syncthreads();  // the previous chunk's products are done
-    load_tile(k_s, kb, k0, PA_BK, nk, nh, dq, dqs);
-    load_tile(v_s, vb, k0, PA_BK, nk, nh, dv, dvs);
+    load_tile<PA_THREADS>(k_s, kb, k0, PA_BK, nk, nh, dq, dqs);
+    load_tile<PA_THREADS>(v_s, vb, k0, PA_BK, nk, nh, dv, dvs);
     __syncthreads();
     float l[4][4];
-    chunk_logits(q_s, k_s, dq, dqs, ty, tx, l);
+    dot_tile(q_s, dqs, k_s, dqs, dq, ty, tx, l);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll

@@ -1,1 +1,1 @@
-from .loader import DATASET_REGISTRY, build_dataset, construct_loader  # noqa
+from .loader import DATASET_REGISTRY, build_dataset, construct_loader, shuffle_dataset  # noqa

@@ -4,7 +4,11 @@ Clips are the same bytes as the JAX package's ``Syntheticvideo``:
 ``np.random.RandomState(index)`` frames, labels seeded by
 ``index // num_clips`` so every view of a video has one label, and
 ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` clips per video in test mode.
-Real Kinetics decoding is not ported yet.
+Train and val clips are ``TRAIN_CROP_SIZE`` square; in train mode with
+``AUG.ENABLE`` and ``AUG.NUM_SAMPLE > 1`` an item is that many copies of
+the clip (the repeated-augmentation contract, flattened into the batch by
+``loader.multiple_samples_collate``). Real Kinetics decoding is not ported
+yet.
 """
 
 import numpy as np
@@ -14,6 +18,8 @@ class Syntheticvideo:
     def __init__(self, cfg, mode):
         if not cfg.TPU.UINT8_PIPELINE:
             raise NotImplementedError("the port's loader ships uint8 clips only")
+        if cfg.AUG.GEN_MASK_LOADER or cfg.DETECTION.ENABLE:
+            raise NotImplementedError("loader masks and detection boxes are not ported yet")
         self.cfg = cfg
         self.mode = mode
         self._size = cfg.DATA.SYNTHETIC_SIZE or (256 if mode == "train" else 64)
@@ -39,4 +45,8 @@ class Syntheticvideo:
         frames = rng.randint(0, 255, (cfg.DATA.NUM_FRAMES, crop, crop, 3), np.uint8)
         label_rng = np.random.RandomState(index // self._num_clips)
         label = int(label_rng.randint(0, cfg.MODEL.NUM_CLASSES))
+        num_aug = cfg.AUG.NUM_SAMPLE if self.mode == "train" and cfg.AUG.ENABLE else 1
+        if num_aug > 1:
+            return ([[frames]] * num_aug, [label] * num_aug, [index] * num_aug,
+                    [np.zeros((1,))] * num_aug, [{}] * num_aug)
         return [frames], label, index, np.zeros((1,)), {}

@@ -1,10 +1,12 @@
-"""Test-split loader (counterpart of slowfast_tpu/data/loader.py for the
-eval path).
+"""Train, val and test loaders (counterpart of slowfast_tpu/data/loader.py:113-305).
 
 Samples are made by a thread pool a few batches ahead (numpy's generators
 release the GIL while they fill an array), stacked into uint8 NTHWC
 batches, and sent to the device from pinned memory with a non-blocking
-copy. Labels and clip ids stay on the host for the meter.
+copy. Labels and clip ids stay on the host. The train split is shuffled
+per epoch with ``np.random.RandomState(RNG_SEED + epoch).permutation`` and
+drops its last partial batch, as the JAX ``ShardedLoader`` does; val and
+test keep their order and their last batch.
 """
 
 import os
@@ -38,17 +40,44 @@ def collate(samples):
     return inputs, labels, index, times, {}
 
 
-class TestLoader:
-    """In-order batches of a dataset, inputs placed on ``device``."""
+def multiple_samples_collate(samples):
+    """Flatten repeated-augmentation items (each a list of ``NUM_SAMPLE``
+    clips with replicated labels and ids) into the batch axis (reference
+    loader.py:20-45)."""
+    return collate([flat for s in samples for flat in zip(*s)])
 
-    def __init__(self, dataset, batch_size, device, num_workers=1):
+
+class Loader:
+    """Batches of a dataset, inputs placed on ``device``.
+
+    ``shuffle`` reorders the dataset every epoch (``set_epoch``) from
+    ``seed + epoch``; ``drop_last`` drops the last partial batch.
+    """
+
+    def __init__(self, dataset, batch_size, device, num_workers=1, shuffle=False,
+                 drop_last=False, seed=0, collate_fn=collate):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.num_workers = max(1, min(num_workers, os.cpu_count() or 1))
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.collate_fn = collate_fn
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _indices(self):
+        n, bs = len(self.dataset), self.batch_size
+        order = (np.random.RandomState(self.seed + self.epoch).permutation(n)
+                 if self.shuffle else np.arange(n))
+        return [order[b * bs:(b + 1) * bs] for b in range(len(self))]
 
     def _to_device(self, x):
         t = torch.from_numpy(x)
@@ -57,8 +86,7 @@ class TestLoader:
         return t.to(self.device)
 
     def __iter__(self):
-        n, bs = len(self.dataset), self.batch_size
-        batches = iter([range(b * bs, min(n, (b + 1) * bs)) for b in range(len(self))])
+        batches = iter(self._indices())
         pool = ThreadPoolExecutor(self.num_workers)
         window = deque()
         try:
@@ -67,10 +95,10 @@ class TestLoader:
                     idx = next(batches, None)
                     if idx is None:
                         break
-                    window.append([pool.submit(self.dataset.__getitem__, i) for i in idx])
+                    window.append([pool.submit(self.dataset.__getitem__, int(i)) for i in idx])
                 if not window:
                     return
-                inputs, labels, index, times, meta = collate(
+                inputs, labels, index, times, meta = self.collate_fn(
                     [f.result() for f in window.popleft()])
                 yield [self._to_device(x) for x in inputs], labels, index, times, meta
         finally:
@@ -78,9 +106,23 @@ class TestLoader:
 
 
 def construct_loader(cfg, split, device="cuda"):
-    """The test-split loader (the only split the port runs yet)."""
-    if split != "test":
-        raise NotImplementedError(f"the {split!r} loader is not ported yet")
-    dataset = build_dataset(cfg.TEST.DATASET, cfg, split)
-    return TestLoader(dataset, cfg.TEST.BATCH_SIZE, device,
-                      num_workers=cfg.DATA_LOADER.NUM_WORKERS)
+    """The loader of ``split`` (``train``, ``val`` or ``test``)."""
+    if split not in ("train", "val", "test"):
+        raise ValueError(f"unknown split {split!r}")
+    if split == "test":
+        dataset_name, batch_size = cfg.TEST.DATASET, cfg.TEST.BATCH_SIZE
+    else:
+        dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
+    train = split == "train"
+    if train and cfg.MULTIGRID.SHORT_CYCLE:
+        raise NotImplementedError("multigrid short cycles are not ported yet")
+    dataset = build_dataset(dataset_name, cfg, split)
+    repeated = train and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1
+    return Loader(dataset, batch_size, device, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
+                  shuffle=train, drop_last=train, seed=cfg.RNG_SEED,
+                  collate_fn=multiple_samples_collate if repeated else collate)
+
+
+def shuffle_dataset(loader, cur_epoch):
+    """Set the epoch that seeds the train order (reference loader.py:174-207)."""
+    loader.set_epoch(cur_epoch)

@@ -1,15 +1,21 @@
-"""Eval step (counterpart of slowfast_tpu/engine/steps.py:205-275).
+"""Train and eval steps (counterpart of slowfast_tpu/engine/steps.py:54-275).
 
-A single uint8 NTHWC clip batch goes through the preprocess kernel
-(normalize, channel reverse per ``DATA.REVERSE_INPUT_CHANNEL``, slow-pathway
-index), then through the model under ``torch.inference_mode()`` in the
-configured compute dtype.
+A uint8 NTHWC clip batch goes through the preprocess kernel (normalize,
+channel reverse per ``DATA.REVERSE_INPUT_CHANNEL``, slow-pathway index),
+then through the model in the configured compute dtype with fp32
+parameters. The train step adds mixup, the fp32 loss, the backward, the
+global-norm clip and the AdamW update; the eval step runs under
+``torch.inference_mode()``.
 """
 
 import torch
 
+from slowfast_tpu_torch.data.mixup import mixup_batch
 from slowfast_tpu_torch.models.video_models import compute_dtype
 from slowfast_tpu_torch.ops.preprocess import device_preprocess
+from slowfast_tpu_torch.solver.losses import get_loss_func
+from slowfast_tpu_torch.solver.lr_policy import make_epoch_lr_fn
+from slowfast_tpu_torch.utils.metrics import topks_correct
 
 
 def num_pathways(cfg):
@@ -30,6 +36,50 @@ def maybe_device_preprocess(cfg, inputs):
     )
 
 
+def make_train_step(cfg, model, optimizer, mix_generator=None):
+    """``batch -> metrics`` for one training iteration.
+
+    ``batch`` holds ``"inputs"`` (``[clips_u8]`` or float pathways on the
+    model's device), integer ``"labels"`` on the same device and the
+    fractional epoch ``"epoch_exact"`` (a float) that sets the LR. In order:
+    preprocess, mixup (``cfg.MIXUP``, draws from ``mix_generator``), forward
+    in train mode, loss in fp32, backward, the gradient norm before the
+    clip, the clip, ``lr = lr_fn(epoch_exact)`` and the AdamW update.
+    Returns ``loss``, ``grad_norm`` and ``top1_err``/``top5_err`` against the
+    integer labels as device tensors (nothing is read back), and ``lr``.
+    """
+    if cfg.DETECTION.ENABLE or cfg.MASK.ENABLE or cfg.DATA.MULTI_LABEL:
+        raise NotImplementedError("only single-label classification training is ported")
+    loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
+    lr_fn = make_epoch_lr_fn(cfg)
+    mix = cfg.MIXUP
+
+    def step(batch):
+        model.train()
+        inputs = maybe_device_preprocess(cfg, batch["inputs"])
+        labels = batch["labels"]
+        loss_labels = labels
+        if mix.ENABLE:
+            inputs, loss_labels = mixup_batch(
+                mix_generator, inputs, labels, cfg.MODEL.NUM_CLASSES,
+                mixup_alpha=mix.ALPHA, cutmix_alpha=mix.CUTMIX_ALPHA, mix_prob=mix.PROB,
+                switch_prob=mix.SWITCH_PROB, label_smoothing=mix.LABEL_SMOOTH_VALUE)
+        for p in model.parameters():
+            p.grad = None
+        preds = model(inputs)
+        loss = loss_fun(preds, loss_labels)
+        loss.backward()
+        lr = lr_fn(batch["epoch_exact"])
+        grad_norm = optimizer.step(lr)
+        with torch.no_grad():
+            k1, k5 = topks_correct(preds.float(), labels, (1, 5))
+            b = preds.shape[0]
+            return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr,
+                    "top1_err": (1.0 - k1 / b) * 100.0, "top5_err": (1.0 - k5 / b) * 100.0}
+
+    return step
+
+
 def make_eval_step(cfg, model):
     """``batch -> preds`` for the eval/test loop; puts ``model`` in eval mode.
 
@@ -41,6 +91,7 @@ def make_eval_step(cfg, model):
     model.eval()
 
     def step(batch):
+        model.eval()  # a train step in between puts it back in train mode
         with torch.inference_mode():
             return model(maybe_device_preprocess(cfg, batch["inputs"]))
 

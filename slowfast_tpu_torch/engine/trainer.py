@@ -1,0 +1,138 @@
+"""Training loop (counterpart of slowfast_tpu/engine/trainer.py:48-196 and
+:298-479, the classification branch; reference tools/train_net.py).
+
+Each epoch shuffles the train loader, runs the train step on every batch,
+saves a checkpoint on the checkpoint cadence and runs a val epoch on the
+eval cadence. The step's metrics stay on the device and are read back only
+every ``LOG_PERIOD`` iterations and at the epoch's end, so the host does not
+wait for the card on every step; the NaN guard runs on the same cadence.
+"""
+
+import math
+import pprint
+
+import numpy as np
+import torch
+
+from slowfast_tpu_torch.data import construct_loader, shuffle_dataset
+from slowfast_tpu_torch.engine.steps import make_eval_step, make_train_step
+from slowfast_tpu_torch.models.build import build_model, resolve_device
+from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+from slowfast_tpu_torch.utils import checkpoint as cu
+from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.meters import EpochTimer, TrainMeter, ValMeter
+from slowfast_tpu_torch.utils.metrics import topks_correct
+
+logger = logging_utils.get_logger(__name__)
+
+
+def _check_supported(cfg):
+    unported = {
+        "MODEL.MODEL_NAME ContrastiveModel (SSL)": cfg.MODEL.MODEL_NAME == "ContrastiveModel",
+        "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
+        "MULTIGRID": cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
+        "DETECTION.ENABLE": cfg.DETECTION.ENABLE,
+        "MASK.ENABLE": cfg.MASK.ENABLE,
+        "DATA.MULTI_LABEL": cfg.DATA.MULTI_LABEL,
+        "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
+        "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
+    }
+    for name, on in unported.items():
+        if on:
+            raise NotImplementedError(f"training with {name} is not ported yet")
+
+
+def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
+    """One training epoch."""
+    data_size = len(train_loader)
+    device = train_loader.device
+    log_period = max(int(cfg.LOG_PERIOD), 1)
+    pending = []  # (cur_iter, device metrics, batch size)
+
+    def flush():
+        for it, m, bs in pending:
+            loss = float(m["loss"])
+            if math.isnan(loss):  # reference misc.check_nan_losses
+                raise RuntimeError(f"ERROR: Got NaN losses at epoch {cur_epoch} iter {it}")
+            meter.update_stats(float(m["top1_err"]), float(m["top5_err"]), loss, m["lr"], bs)
+            meter.log_iter_stats(cur_epoch, it)
+        pending.clear()
+
+    meter.iter_tic()
+    for cur_iter, (inputs, labels, _, _, _) in enumerate(train_loader):
+        meter.data_toc()
+        labels = torch.from_numpy(labels).to(device, non_blocking=True)
+        m = step_fn({"inputs": inputs, "labels": labels,
+                     "epoch_exact": cur_epoch + cur_iter / data_size})
+        pending.append((cur_iter, m, labels.shape[0]))
+        meter.iter_toc()
+        if (cur_iter + 1) % log_period == 0:
+            flush()
+        meter.iter_tic()
+    flush()
+    meter.log_epoch_stats(cur_epoch)
+    meter.reset()
+
+
+def eval_epoch(val_loader, eval_fn, meter, cur_epoch):
+    """One val epoch on the eval step; returns the ``val_epoch`` stats."""
+    meter.iter_tic()
+    for cur_iter, (inputs, labels, _, _, _) in enumerate(val_loader):
+        preds = eval_fn({"inputs": inputs}).float().cpu()
+        k1, k5 = topks_correct(preds, torch.from_numpy(labels), (1, 5))
+        b = preds.shape[0]
+        meter.update_stats((1.0 - float(k1) / b) * 100.0, (1.0 - float(k5) / b) * 100.0, b)
+        meter.iter_toc()
+        meter.log_iter_stats(cur_epoch, cur_iter)
+        meter.iter_tic()
+    stats = meter.log_epoch_stats(cur_epoch)
+    meter.reset()
+    return stats
+
+
+def train(cfg, device="cuda"):
+    """Train entry (slowfast_tpu/engine/trainer.py:298); returns the model."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    logging_utils.setup_logging(cfg.OUTPUT_DIR)
+    logger.info("Train with config:")
+    logger.info(pprint.pformat(cfg.to_dict()))
+    np.random.seed(cfg.RNG_SEED)
+
+    model = build_model(cfg, device)
+    if cfg.BN.USE_PRECISE_STATS and any(True for _ in model.buffers()):
+        raise NotImplementedError("precise BN is not ported yet")
+    optimizer = construct_optimizer(model, cfg)
+    start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
+
+    train_loader = construct_loader(cfg, "train", device)
+    val_loader = construct_loader(cfg, "val", device)
+    step_fn = make_train_step(cfg, model, optimizer,
+                              torch.Generator().manual_seed(cfg.RNG_SEED))
+    eval_fn = make_eval_step(cfg, model)
+    train_meter = TrainMeter(len(train_loader), cfg)
+    val_meter = ValMeter(len(val_loader), cfg)
+    epoch_timer = EpochTimer()
+
+    logger.info("Start epoch: %d", start_epoch + 1)
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        shuffle_dataset(train_loader, cur_epoch)
+        epoch_timer.epoch_tic()
+        train_epoch(train_loader, step_fn, train_meter, cur_epoch, cfg)
+        epoch_timer.epoch_toc()
+        logger.info("Epoch %d takes %.2fs. Epochs from %d to %d take %.2fs in average.",
+                    cur_epoch + 1, epoch_timer.last_epoch_time(), start_epoch + 1,
+                    cur_epoch + 1, epoch_timer.avg_epoch_time())
+        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+            cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg)
+        if is_eval_epoch(cfg, cur_epoch):
+            eval_epoch(val_loader, eval_fn, val_meter, cur_epoch)
+    logger.info("training done")
+    return model
+
+
+def is_eval_epoch(cfg, cur_epoch):
+    """(reference misc.is_eval_epoch :200-219, without multigrid)"""
+    if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
+        return True
+    return (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0

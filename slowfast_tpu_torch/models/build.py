@@ -4,7 +4,8 @@ reference slowfast/models/build.py).
 ``build_model`` builds the registered model, initializes it with the JAX
 package's distributions (not its bits) from a ``torch.Generator`` seeded by
 ``cfg.RNG_SEED``, and moves it to the device, with its 5-D (conv) weights in
-``channels_last_3d``.
+``channels_last_3d``. Drop path and dropout draw from one generator on the
+model's device, also seeded by ``cfg.RNG_SEED``.
 """
 
 import torch
@@ -74,4 +75,14 @@ def build_model(cfg, device="cuda"):
     model = MODEL_REGISTRY[name](cfg)
     init = init_mvit_weights if isinstance(model, MViT) else init_weights
     init(model, cfg, torch.Generator().manual_seed(cfg.RNG_SEED))
-    return model.to(device=device, memory_format=torch.channels_last_3d)
+    model = model.to(device=device, memory_format=torch.channels_last_3d)
+    set_generator(model, torch.Generator(device=device).manual_seed(cfg.RNG_SEED))
+    return model
+
+
+def set_generator(model, generator):
+    """Give every module that draws random numbers in training (drop path,
+    dropout) ``generator``."""
+    for m in model.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator

@@ -43,10 +43,30 @@ def layer_norm(x, ln):
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
 
 
+class _GeluExact(torch.autograd.Function):
+    """Exact-erf GELU with the JAX package's custom VJP
+    (slowfast_tpu/models/common.py:184-210): the forward computes
+    ``y = x Φ(x)`` in fp32 and saves the derivative ``Φ(x) + x φ(x)``
+    rounded to the input dtype; the backward is ``round(g · d)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x32 = x.float()
+        cdf = 0.5 * (1.0 + torch.erf(x32 * 2.0 ** -0.5))
+        pdf = torch.exp(-0.5 * x32 * x32) * (2.0 * math.pi) ** -0.5
+        ctx.save_for_backward((cdf + x32 * pdf).to(x.dtype))
+        return (x32 * cdf).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        return (g.float() * d.float()).to(g.dtype)
+
+
 def gelu_exact(x):
-    """Exact-erf GELU computed in fp32 and cast back
-    (slowfast_tpu/models/common.py:198 ``_gelu_exact_fwd``)."""
-    return F.gelu(x.float()).to(x.dtype)
+    """Exact-erf GELU computed in fp32 and cast back, with the saved-derivative
+    gradient of ``slowfast_tpu/models/common.py:184 gelu_exact``."""
+    return _GeluExact.apply(x)
 
 
 class Mlp(nn.Module):
@@ -117,15 +137,21 @@ def avg_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth (reference slowfast/models/common.py:46-70): identity
-    in eval and at rate 0. Training with a nonzero rate comes with the
-    training slice."""
+    """Stochastic depth (slowfast_tpu/models/common.py:161-181, reference
+    slowfast/models/common.py:46-70): in training each sample's branch is
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``;
+    identity in eval and at rate 0. The keep mask is drawn from
+    ``generator`` (the model's, set by ``models.build.build_model``)."""
 
     def __init__(self, rate=0.0):
         super().__init__()
         self.rate = rate
+        self.generator = None
 
     def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("drop-path in training is not ported yet")
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        return x / keep * (u < keep).to(x.dtype)

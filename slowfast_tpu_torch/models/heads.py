@@ -1,10 +1,11 @@
 """Classification heads (counterpart of slowfast_tpu/models/heads.py:29-91
 and :262; reference head_helper.py:198-350, 491-563).
 
-Training returns raw logits. Eval applies the activation; the ResNet head
-applies it per position and then, for fully-convolutional inference on
-crops larger than the training crop, averages over the remaining T/H/W
-positions.
+Training returns raw logits; the transformer head's dropout draws from the
+model's generator, the ResNet head's is not ported yet. Eval applies the
+activation; the ResNet head applies it per position and then, for
+fully-convolutional inference on crops larger than the training crop,
+averages over the remaining T/H/W positions.
 """
 
 import torch
@@ -16,6 +17,15 @@ from .common import avg_pool3d, linear
 def _check_act(act_func):
     if act_func not in ("softmax", "sigmoid", "none"):
         raise NotImplementedError(f"{act_func} is not supported as an activation function.")
+
+
+def dropout(x, rate, generator):
+    """flax ``nn.Dropout`` in training: each element kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask drawn from
+    ``generator``."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _activate(x, act_func):
@@ -62,7 +72,7 @@ class ResNetBasicHead(nn.Module):
 
 class TransformerBasicHead(nn.Module):
     """Dropout (identity in eval) -> linear in the compute dtype -> (eval)
-    activation, on ``(B, C)`` features."""
+    activation, on ``(B, C)`` features (slowfast_tpu/models/heads.py:262)."""
 
     def __init__(self, dim_in, num_classes, dropout_rate=0.0, act_func="softmax",
                  dtype=torch.float32):
@@ -72,9 +82,10 @@ class TransformerBasicHead(nn.Module):
         self.act_func = act_func
         self.dtype = dtype
         self.projection = nn.Linear(dim_in, num_classes)
+        self.generator = None  # the model's, set by models.build.build_model
 
     def forward(self, x):
         if self.training and self.dropout_rate > 0.0:
-            raise NotImplementedError("head dropout in training is not ported yet")
+            x = dropout(x, self.dropout_rate, self.generator)
         x = linear(x, self.projection, self.dtype)
         return x if self.training else _activate(x, self.act_func)

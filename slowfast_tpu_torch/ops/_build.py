@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into a shared library under ``slowfast_tpu_torch/_build/``,
-named by a hash of its source, so a stale build is never loaded. The build
+named by a hash of its source and of the headers in ``csrc/``, so a stale
+build is never loaded. The build
 happens at first use; ``build_all`` starts one ``nvcc`` per source at once.
 Libraries are loaded with ``ctypes``.
 """
@@ -40,6 +41,8 @@ def _nvcc():
 
 def _lib_path(name):
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

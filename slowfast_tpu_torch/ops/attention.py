@@ -1,23 +1,34 @@
-"""MViT pooled-attention cores: softmax(q kᵀ) v per (batch, head).
+"""MViT pooled-attention cores: softmax(q kᵀ) v per (batch, head), with
+their gradients.
 
-Two hand-written CUDA kernels in one source (``csrc/pooled_attention.cu``),
-the counterparts of the JAX package's Pallas kernels:
+Four hand-written CUDA kernels, the counterparts of the JAX package's
+Pallas kernels (``slowfast_tpu/ops/pallas_attention.py``):
 
-* ``flash_pooled_attention``, the port's default MViT core
-  (``slowfast_tpu/ops/pallas_attention.py:502``, kernel :375
-  ``_flash_fwd_kernel``): the constant-shift softmax
-  ``e = round(exp(min(l, 50) - 20))``, ``s = max(Σe, 1e-30)``,
-  ``o = (e v) / s``, with ``e`` rounded to the compute dtype before the sum
-  and the product. Rows whose every ``exp`` underflows give zeros, not NaN.
-* ``pooled_attention``, selected by ``TPU.PALLAS_ATTENTION``
-  (``pallas_attention.py:171``, kernel :39 ``_fwd_kernel``): the exact
-  softmax ``p = exp(l - max l)``, ``s = Σp`` in fp32, ``o = (round(p) v) / s``.
+* ``flash_pooled_attention``, the port's default MViT core. Forward
+  ``csrc/pooled_attention.cu`` (kernel :375 ``_flash_fwd_kernel``): the
+  constant-shift softmax ``e = round(exp(min(l, 50) - 20))``,
+  ``s = max(Σe, 1e-30)``, ``o = (e v) / s``, with ``e`` rounded to the
+  compute dtype before the sum and the product. Rows whose every ``exp``
+  underflows give zeros, not NaN. Backward ``csrc/pooled_attention_bwd.cu``
+  (kernel :392 ``_flash_bwd_kernel``): ``do_n = round(do / s)``,
+  ``dv = eᵀ do_n``, ``dpn = do_n vᵀ``, ``r = Σ dpn·e``,
+  ``dl = round(e (dpn - r / s))``, ``dq = dl k``, ``dk = dlᵀ q``. It has no
+  derivative of the clamp: a clamped logit gets ``e (dpn - r / s)`` as in
+  the JAX kernel, where autograd of the forward would give zero.
+* ``pooled_attention``, selected by ``TPU.PALLAS_ATTENTION``. Forward
+  (kernel :39 ``_fwd_kernel``): ``p = exp(l - max l)``, ``s = Σp`` in fp32,
+  ``o = (round(p) v) / s``. Backward (kernel :58 ``_bwd_kernel``):
+  ``p = e / s``, ``dp = do vᵀ`` in fp32, ``dl = p (dp - Σ dp·p)``,
+  ``dq = round(dl) k``, ``dk = round(dl)ᵀ q``, ``dv = round(p)ᵀ do``.
 
 Both take q ``(B, Nq, nh, dq)``, k ``(B, Nk, nh, dq)`` (pre-scaled and
 rel-pos augmented) and v ``(B, Nk, nh, dv)``, all bf16 or all fp32, and
-return ``(B, Nq, nh, dv)`` in v's dtype. ``flash_plain`` and ``exact_plain``
-are the same functions in plain PyTorch; the wrappers use them only for
-tensors on the CPU, and for a CUDA tensor launch the kernel or raise.
+return ``(B, Nq, nh, dv)`` in v's dtype; each is a ``torch.autograd.Function``
+whose gradients are rounded to the input dtype as the JAX kernels' are
+(dk and dv summed over every q row in fp32 first). ``flash_plain``,
+``exact_plain``, ``flash_bwd_plain`` and ``exact_bwd_plain`` are the same
+functions in plain PyTorch; the wrappers use them only for tensors on the
+CPU, and for a CUDA tensor launch the kernel or raise.
 """
 
 import ctypes
@@ -28,26 +39,66 @@ from . import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_DQ, _MAX_DV = 256, 128  # PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu
+_MAX_DQ_BWD = 192  # PB_MAX_DQ in csrc/pooled_attention_bwd.cu
 
-# Kernel launches since the last reset; only _launch adds to them.
+# Kernel launches since the last reset; only _launch and _launch_bwd add to them.
 flash_launches = 0
 exact_launches = 0
+flash_bwd_launches = 0
+exact_bwd_launches = 0
 
 
 def flash_pooled_attention(qh, kh, vh):
     """Constant-shift pooled attention (the port's default MViT core)."""
     _check(qh, kh, vh)
-    if qh.device.type == "cpu":
-        return flash_plain(qh, kh, vh)
-    return _launch(qh, kh, vh, exact=False)
+    return _FlashCore.apply(qh, kh, vh)
 
 
 def pooled_attention(qh, kh, vh):
     """Exact max-subtracted pooled attention (``TPU.PALLAS_ATTENTION``)."""
     _check(qh, kh, vh)
+    return _ExactCore.apply(qh, kh, vh)
+
+
+def _core_forward(ctx, qh, kh, vh, exact):
+    ctx.save_for_backward(qh, kh, vh)
     if qh.device.type == "cpu":
-        return exact_plain(qh, kh, vh)
-    return _launch(qh, kh, vh, exact=True)
+        return (exact_plain if exact else flash_plain)(qh, kh, vh)
+    return _launch(qh, kh, vh, exact=exact)
+
+
+def _core_backward(ctx, do, exact):
+    qh, kh, vh = ctx.saved_tensors
+    do = do.contiguous()
+    if qh.device.type == "cpu":
+        return (exact_bwd_plain if exact else flash_bwd_plain)(qh, kh, vh, do)
+    return _launch_bwd(qh, kh, vh, do, exact=exact)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The constant-shift forward kernel with its backward kernel (plain
+    versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh):
+        return _core_forward(ctx, qh, kh, vh, exact=False)
+
+    @staticmethod
+    def backward(ctx, do):
+        return _core_backward(ctx, do, exact=False)
+
+
+class _ExactCore(torch.autograd.Function):
+    """The exact forward kernel with its backward kernel (plain versions on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh):
+        return _core_forward(ctx, qh, kh, vh, exact=True)
+
+    @staticmethod
+    def backward(ctx, do):
+        return _core_backward(ctx, do, exact=True)
 
 
 def _logits(qh, kh):
@@ -60,10 +111,15 @@ def _weighted(p, vh, s):
     return (o / s.permute(0, 2, 1, 3)).to(vh.dtype)
 
 
+def _flash_e(qh, kh, dtype):
+    """``round(exp(min(l, 50) - 20))`` as fp32 values, ``(B, nh, Nq, Nk)``."""
+    return torch.exp(torch.clamp(_logits(qh, kh), max=50.0) - 20.0).to(dtype).float()
+
+
 def flash_plain(qh, kh, vh):
     """The plain PyTorch version of the constant-shift kernel."""
-    e = torch.exp(torch.clamp(_logits(qh, kh), max=50.0) - 20.0).to(vh.dtype)
-    s = torch.clamp(e.float().sum(dim=-1, keepdim=True), min=1e-30)
+    e = _flash_e(qh, kh, vh.dtype)
+    s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
     return _weighted(e, vh, s)
 
 
@@ -72,6 +128,38 @@ def exact_plain(qh, kh, vh):
     logits = _logits(qh, kh)
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     return _weighted(p.to(vh.dtype), vh, p.sum(dim=-1, keepdim=True))
+
+
+def _grads(dl, qh, kh):
+    """``dq = dl k`` and ``dk = dlᵀ q`` from the rounded ``dl``, in fp32."""
+    dq = torch.einsum("bnqk,bknc->bqnc", dl, kh.float())
+    dk = torch.einsum("bnqk,bqnc->bknc", dl, qh.float())
+    return dq.to(qh.dtype), dk.to(kh.dtype)
+
+
+def flash_bwd_plain(qh, kh, vh, do):
+    """The plain PyTorch version of the constant-shift backward kernel,
+    step by step as ``_flash_bwd_kernel``; returns ``(dq, dk, dv)``."""
+    ef = _flash_e(qh, kh, vh.dtype)
+    s = torch.clamp(ef.sum(dim=-1, keepdim=True), min=1e-30)  # (B, nh, Nq, 1)
+    do_n = (do.float() / s.permute(0, 2, 1, 3)).to(do.dtype).float()
+    dv = torch.einsum("bnqk,bqnc->bknc", ef, do_n)
+    dpn = torch.einsum("bqnc,bknc->bnqk", do_n, vh.float())
+    r = (dpn * ef).sum(dim=-1, keepdim=True)
+    dl = (ef * (dpn - r / s)).to(qh.dtype).float()
+    return (*_grads(dl, qh, kh), dv.to(vh.dtype))
+
+
+def exact_bwd_plain(qh, kh, vh, do):
+    """The plain PyTorch version of the exact backward kernel, step by step
+    as ``_bwd_kernel``; returns ``(dq, dk, dv)``."""
+    logits = _logits(qh, kh)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqnc,bknc->bnqk", do.float(), vh.float())
+    dl = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(qh.dtype).float()
+    dv = torch.einsum("bnqk,bqnc->bknc", p.to(do.dtype).float(), do.float())
+    return (*_grads(dl, qh, kh), dv.to(vh.dtype))
 
 
 def _check(qh, kh, vh):
@@ -88,32 +176,43 @@ def _check(qh, kh, vh):
         raise ValueError("q, k and v must lie on one device")
 
 
-def _kernel():
-    """``sf_pooled_attention`` from the built library, with its C signature."""
-    fn = _build.load("pooled_attention").sf_pooled_attention
+def _check_launch(tensors, max_dq):
+    qh, vh = tensors[0], tensors[2]
+    if qh.device.type != "cuda":
+        raise ValueError(f"no pooled-attention kernel for device {qh.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the pooled-attention kernels take contiguous tensors")
+    B, Nq, nh, dq = qh.shape
+    Nk, dv = vh.shape[1], vh.shape[3]
+    if dq > max_dq or dv > _MAX_DV or 0 in (B, Nq, Nk, nh, dq, dv):
+        raise ValueError(f"the pooled-attention kernel takes 0 < dq <= {max_dq} and "
+                         f"0 < dv <= {_MAX_DV} and no empty axis, got q "
+                         f"{tuple(qh.shape)} v {tuple(vh.shape)}")
+    return B, Nq, Nk, nh, dq, dv
+
+
+def _kernel(source, symbol, argtypes):
+    """``symbol`` from the library built from ``csrc/<source>.cu``, with its
+    C signature."""
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.restype = i32
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     return fn
+
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def _launch(qh, kh, vh, exact):
     global flash_launches, exact_launches
-    if qh.device.type != "cuda":
-        raise ValueError(f"no pooled-attention kernel for device {qh.device}")
-    if not (qh.is_contiguous() and kh.is_contiguous() and vh.is_contiguous()):
-        raise ValueError("the pooled-attention kernel takes contiguous q, k and v")
-    B, Nq, nh, dq = qh.shape
-    Nk, dv = vh.shape[1], vh.shape[3]
-    if dq > _MAX_DQ or dv > _MAX_DV or 0 in (B, Nq, Nk, nh, dq, dv):
-        raise ValueError(f"the pooled-attention kernel takes 0 < dq <= {_MAX_DQ} and "
-                         f"0 < dv <= {_MAX_DV} and no empty axis, got q "
-                         f"{tuple(qh.shape)} v {tuple(vh.shape)}")
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
     out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
-    err = _kernel()(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-                    B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16),
-                    torch.cuda.current_stream(vh.device).cuda_stream)
+    fn = _kernel("pooled_attention", "sf_pooled_attention",
+                 [_PTR] * 4 + [_I64] * 6 + [_I32, _I32, _PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16),
+             torch.cuda.current_stream(vh.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pooled-attention kernel launch failed: CUDA error {err}")
     if exact:
@@ -121,3 +220,31 @@ def _launch(qh, kh, vh, exact):
     else:
         flash_launches += 1
     return out
+
+
+def _launch_bwd(qh, kh, vh, do, exact):
+    """Both kernels of one backward: per q tile dq and the row statistics,
+    then per key chunk dk and dv over every q tile. The statistics
+    (``m``, ``s``, ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
+    global flash_bwd_launches, exact_bwd_launches
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do), _MAX_DQ_BWD)
+    if do.shape != (B, Nq, nh, dv) or do.dtype != vh.dtype:
+        raise ValueError(f"do must be {(B, Nq, nh, dv)} {vh.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    dq_out = torch.empty_like(qh)
+    dk_out = torch.empty_like(kh)
+    dv_out = torch.empty_like(vh)
+    stats = torch.empty((3, B, nh, Nq), dtype=torch.float32, device=qh.device)
+    fn = _kernel("pooled_attention_bwd", "sf_pooled_attention_bwd",
+                 [_PTR] * 8 + [_I64] * 6 + [_I32, _I32, _PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
+             dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(), stats.data_ptr(),
+             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16),
+             torch.cuda.current_stream(vh.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pooled-attention backward kernel launch failed: CUDA error {err}")
+    if exact:
+        exact_bwd_launches += 1
+    else:
+        flash_bwd_launches += 1
+    return dq_out, dk_out, dv_out

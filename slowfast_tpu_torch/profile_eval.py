@@ -1,8 +1,12 @@
-"""Where an eval step's device time goes: ``torch.profiler`` over a few eval
-steps on one seeded uint8 batch that already lies on the card.
+"""Where an eval or train step's device time goes: ``torch.profiler`` over a
+few steps on one seeded uint8 batch that already lies on the card.
 
     python -m slowfast_tpu_torch.profile_eval --cfg configs/Kinetics/MVITv2_S_16x4.yaml \\
-        [--steps 3] [--top 12] [--opts NUM_GPUS 1 TEST.BATCH_SIZE 8 ...]
+        [--train] [--steps 3] [--top 12] [--opts NUM_GPUS 1 TEST.BATCH_SIZE 8 ...]
+
+``--train`` profiles the train step (mixup, forward, backward, AdamW) on
+``TRAIN.BATCH_SIZE x AUG.NUM_SAMPLE`` clips of ``TRAIN_CROP_SIZE``; without
+it, the eval step on ``TEST.BATCH_SIZE`` clips of ``TEST_CROP_SIZE``.
 
 Prints one JSON line: the median step time on the host clock (each step
 ends in a synchronize), the kernel time per step, the device's idle share
@@ -22,11 +26,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from slowfast_tpu_torch.config import assert_and_infer_cfg, get_cfg
-from slowfast_tpu_torch.engine.steps import make_eval_step
+from slowfast_tpu_torch.engine.steps import make_eval_step, make_train_step
 from slowfast_tpu_torch.models.build import build_model
+from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 
 # First match wins; names are CUDA kernel names as the profiler reports them.
 CATEGORIES = [
+    ("attention_bwd", r"attention_bwd"),
     ("attention_core", r"pooled_attention"),
     ("preprocess", r"preprocess_u8"),
     ("conv", r"conv|cudnn|implicit|depthwise|winograd|fft|dgrad|wgrad|xmma_fprop"),
@@ -61,17 +67,27 @@ def merged_busy_us(intervals):
     return busy
 
 
-def profile_eval(cfg, steps=3, top=12):
-    """Profile ``steps`` eval steps of ``cfg``'s model on the card."""
+def profile_eval(cfg, steps=3, top=12, train=False):
+    """Profile ``steps`` eval (or train) steps of ``cfg``'s model on the card."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_eval needs a CUDA card")
     model = build_model(cfg, device="cuda")
-    step = make_eval_step(cfg, model)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    size = (cfg.TEST.BATCH_SIZE, cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE,
-            cfg.DATA.TEST_CROP_SIZE, 3)
+    if train:
+        batch_size = cfg.TRAIN.BATCH_SIZE * (cfg.AUG.NUM_SAMPLE if cfg.AUG.ENABLE else 1)
+        crop = cfg.DATA.TRAIN_CROP_SIZE
+        step = make_train_step(cfg, model, construct_optimizer(model, cfg),
+                               torch.Generator().manual_seed(cfg.RNG_SEED))
+    else:
+        batch_size, crop = cfg.TEST.BATCH_SIZE, cfg.DATA.TEST_CROP_SIZE
+        step = make_eval_step(cfg, model)
+    size = (batch_size, cfg.DATA.NUM_FRAMES, crop, crop, 3)
     batch = {"inputs": [torch.randint(0, 256, size, dtype=torch.uint8, device="cuda",
-                                      generator=gen)]}
+                                      generator=gen)],
+             "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (batch_size,), device="cuda",
+                                     generator=gen),
+             "epoch_exact": 0.0}
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(batch)
     torch.cuda.synchronize()
@@ -95,8 +111,9 @@ def profile_eval(cfg, steps=3, top=12):
     window_us = max(e for _, e in spans) - min(s for s, _ in spans) if spans else 0.0
     busy_us = merged_busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     return {
-        "model": cfg.MODEL.MODEL_NAME, "batch_size": cfg.TEST.BATCH_SIZE,
-        "dtype": cfg.TPU.COMPUTE_DTYPE, "steps": steps,
+        "model": cfg.MODEL.MODEL_NAME, "step": "train" if train else "eval",
+        "batch_size": batch_size, "dtype": cfg.TPU.COMPUTE_DTYPE, "steps": steps,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "device": torch.cuda.get_device_name(0),
         "step_p50_ms": statistics.median(host_ms),
         "kernel_ms_per_step": kernel_us / steps / 1e3,
@@ -111,15 +128,16 @@ def profile_eval(cfg, steps=3, top=12):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cfg", required=True)
+    parser.add_argument("--train", action="store_true", help="profile the train step")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=12)
     parser.add_argument("--opts", nargs=argparse.REMAINDER, default=[])
     args = parser.parse_args(argv)
     cfg = get_cfg()
     cfg.merge_from_file(args.cfg)
-    cfg.merge_from_list(["TRAIN.ENABLE", "False"] + list(args.opts))
-    print(json.dumps(profile_eval(assert_and_infer_cfg(cfg), args.steps, args.top)),
-          flush=True)
+    cfg.merge_from_list(list(args.opts))
+    print(json.dumps(profile_eval(assert_and_infer_cfg(cfg), args.steps, args.top,
+                                  args.train)), flush=True)
 
 
 if __name__ == "__main__":

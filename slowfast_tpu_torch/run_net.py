@@ -1,7 +1,8 @@
 """CLI entry of the port: ``python -m slowfast_tpu_torch.run_net --cfg ...
 --opts ...`` (counterpart of tools/run_net.py).
 
-Runs the test when ``TEST.ENABLE``; training is not ported yet.
+Trains when ``TRAIN.ENABLE``, then runs the multi-view test when
+``TEST.ENABLE``, on ``--device`` (``cuda`` unless asked otherwise).
 """
 
 from slowfast_tpu_torch.config import assert_and_infer_cfg
@@ -13,8 +14,9 @@ def main(argv=None):
     for path_to_config in args.cfg_files or [None]:
         cfg = assert_and_infer_cfg(load_config(args, path_to_config))
         if cfg.TRAIN.ENABLE:
-            raise NotImplementedError(
-                "training is not ported yet; pass --opts TRAIN.ENABLE False")
+            from slowfast_tpu_torch.engine.trainer import train
+
+            train(cfg, args.device)
         if cfg.TEST.ENABLE:
             from slowfast_tpu_torch.engine.tester import test
 

@@ -1,4 +1,4 @@
-"""Weight bridge and test-checkpoint loading.
+"""Weight bridge, train checkpoints and test-checkpoint loading.
 
 Port modules use the reference PySlowFast ``state_dict`` names
 (``s2.pathway0_res0.branch2.a.weight``, ``...a_bn.running_var``,
@@ -11,9 +11,20 @@ is mechanical: flax ``blocks_{i}`` -> ``blocks.{i}``, conv kernels
 scale/bias/mean/var -> weight/bias/running_mean/running_var, and parameter
 tables (``cls_token``, ``rel_pos_*``, ``pos_embed*``, layer-scale
 ``gamma_*``) copied as they are.
+
+Train checkpoints follow the JAX package's path rules
+(slowfast_tpu/utils/checkpoint.py:35-76: ``OUTPUT_DIR/checkpoints/
+checkpoint_epoch_00001.pyth``, auto-resume from the last one) in the
+reference ``.pyth`` format, a ``torch.save`` of ``{"epoch", "model_state",
+"optimizer_state", "cfg"}``; ``model_state`` loads into the JAX package
+through its ``load_torch_checkpoint_dict``. The JAX package's own pickled
+checkpoints are not read here.
 """
 
+import os
+import pickle
 import re
+import zipfile
 
 import numpy as np
 import torch
@@ -88,3 +99,103 @@ def load_test_checkpoint(cfg, model):
     model.load_state_dict(ckpt.get("model_state", ckpt), strict=True)
     logger.info("Loaded test checkpoint %s", path)
     return model
+
+
+def get_checkpoint_dir(path_to_job):
+    return os.path.join(path_to_job, "checkpoints")
+
+
+def get_path_to_checkpoint(path_to_job, epoch, task=""):
+    name = f"checkpoint_epoch_{epoch:05d}.pyth"
+    return os.path.join(get_checkpoint_dir(path_to_job), f"{task}_{name}" if task else name)
+
+
+def get_last_checkpoint(path_to_job, task=""):
+    """The most recent checkpoint file, or None (reference checkpoint.py:61-78)."""
+    d = get_checkpoint_dir(path_to_job)
+    prefix = f"{task}_checkpoint" if task else "checkpoint"
+    names = sorted(f for f in os.listdir(d) if f.startswith(prefix)) if os.path.isdir(d) else []
+    return os.path.join(d, names[-1]) if names else None
+
+
+def has_checkpoint(path_to_job, task=""):
+    return get_last_checkpoint(path_to_job, task) is not None
+
+
+def is_checkpoint_epoch(cfg, cur_epoch):
+    """Checkpoint cadence (reference checkpoint.py:92-110, without multigrid)."""
+    if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
+        return True
+    return (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
+
+
+def save_checkpoint(path_to_job, model, optimizer, epoch, cfg):
+    """Write ``checkpoint_epoch_{epoch + 1:05d}.pyth`` atomically (a temporary
+    file, then a rename, so auto-resume never sees a partial file); returns
+    its path. ``epoch`` is the 0-based epoch just completed."""
+    os.makedirs(get_checkpoint_dir(path_to_job), exist_ok=True)
+    path = get_path_to_checkpoint(path_to_job, epoch + 1, cfg.TASK)
+    payload = {
+        "epoch": epoch,
+        "model_state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "optimizer_state": optimizer.state_dict(),
+        "cfg": cfg.dump(),
+    }
+    tmp = os.path.join(os.path.dirname(path), "." + os.path.basename(path) + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    """Loads only plain data (dicts, strings, numbers, bytes): no class or
+    function is looked up, so no code from the file runs."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(f"{module}.{name} is not plain data")
+
+
+def _is_jax_native(path):
+    """A pickle written by the JAX package (``format`` ``slowfast_tpu.*``)."""
+    if zipfile.is_zipfile(path):
+        return False
+    try:
+        with open(path, "rb") as f:
+            payload = _PlainUnpickler(f).load()
+    except (pickle.UnpicklingError, EOFError, ValueError, TypeError, AttributeError):
+        return False
+    return isinstance(payload, dict) and str(payload.get("format", "")).startswith(
+        "slowfast_tpu.")
+
+
+def _load_pyth(path):
+    if _is_jax_native(path):
+        raise NotImplementedError(
+            f"{path} is a JAX-package checkpoint; convert its variables with "
+            f"state_dict_from_jax and save them as a .pyth")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_train_checkpoint(cfg, model, optimizer):
+    """Auto-resume or explicit init (slowfast_tpu/utils/checkpoint.py:654-677);
+    returns the epoch to start from.
+
+    With ``TRAIN.AUTO_RESUME`` and a checkpoint in ``OUTPUT_DIR`` the model
+    and optimizer resume after its epoch; else ``TRAIN.CHECKPOINT_FILE_PATH``
+    (a ``.pyth``) initializes the model's weights and training starts at 0.
+    """
+    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
+        path = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
+        ckpt = _load_pyth(path)
+        model.load_state_dict(ckpt["model_state"], strict=True)
+        optimizer.load_state_dict(ckpt["optimizer_state"])
+        logger.info("Resumed from %s", path)
+        return ckpt["epoch"] + 1
+    if cfg.TRAIN.CHECKPOINT_FILE_PATH:
+        if cfg.TRAIN.CHECKPOINT_TYPE != "pytorch":
+            raise NotImplementedError(
+                f"{cfg.TRAIN.CHECKPOINT_TYPE} checkpoints are not ported yet")
+        ckpt = _load_pyth(cfg.TRAIN.CHECKPOINT_FILE_PATH)
+        model.load_state_dict(ckpt.get("model_state", ckpt), strict=True)
+        logger.info("Loaded %s", cfg.TRAIN.CHECKPOINT_FILE_PATH)
+    return 0

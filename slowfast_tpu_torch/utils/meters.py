@@ -1,13 +1,19 @@
-"""Test-time meters (counterpart of slowfast_tpu/utils/meters.py:59-80 and
-:292-395, reference slowfast/utils/meters.py).
+"""Meters (counterpart of slowfast_tpu/utils/meters.py:59-290, :292-395 and
+:415; reference slowfast/utils/meters.py).
 
-Host-side bookkeeping: multi-view prediction ensembling into per-video
-scores and the final top-k accuracies.
+Host-side bookkeeping on numbers the step already reduced: windowed train
+and val statistics, epoch summaries and the loss-explosion guard, logged
+as ``json_stats`` with the JAX meters' keys (``train_iter``,
+``train_epoch``, ``val_iter``, ``val_epoch``); multi-view prediction
+ensembling into per-video scores and the final top-k accuracies.
 """
 
+import datetime
 import time
+from collections import deque
 
 import numpy as np
+import torch
 
 from .logging import get_logger, log_json_stats
 
@@ -29,6 +35,214 @@ class Timer:
     def seconds(self):
         end = self._paused_at if self._paused_at is not None else time.perf_counter()
         return end - self._start
+
+
+def gpu_mem_usage():
+    """Device memory in use, in GiB (0 without a card)."""
+    if not torch.cuda.is_available():
+        return 0.0
+    return torch.cuda.memory_allocated() / 1024 ** 3
+
+
+class ScalarMeter:
+    """Windowed scalar tracker (reference meters.py:409-462)."""
+
+    def __init__(self, window_size):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+
+    def reset(self):
+        self.deque.clear()
+        self.total = 0.0
+        self.count = 0
+
+    def add_value(self, value):
+        self.deque.append(value)
+        self.count += 1
+        self.total += value
+
+    def get_win_median(self):
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+
+class TrainMeter:
+    """Per-iteration and per-epoch training stats (reference meters.py:499-678)."""
+
+    def __init__(self, epoch_iters, cfg):
+        self._cfg = cfg
+        self.epoch_iters = epoch_iters
+        self.MAX_EPOCH = cfg.SOLVER.MAX_EPOCH * epoch_iters
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.net_timer = Timer()
+        self.loss = ScalarMeter(cfg.LOG_PERIOD)
+        self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.mb_top5_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.output_dir = cfg.OUTPUT_DIR
+        self.reset()
+
+    def reset(self):
+        self.loss.reset()
+        self.loss_total = 0.0
+        self.lr = None
+        self.mb_top1_err.reset()
+        self.mb_top5_err.reset()
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+        self.net_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+        self.net_timer.reset()
+
+    def update_stats(self, top1_err, top5_err, loss, lr, mb_size):
+        self.loss.add_value(loss)
+        self.lr = lr
+        self.loss_total += loss * mb_size
+        self.num_samples += mb_size
+        self.mb_top1_err.add_value(top1_err)
+        self.mb_top5_err.add_value(top5_err)
+        self.num_top1_mis += top1_err * mb_size
+        self.num_top5_mis += top5_err * mb_size
+        # Loss-explosion guard (reference meters.py:594-606).
+        kill = self._cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR
+        if kill > 0.0 and len(self.loss.deque) > 5:
+            prev = list(self.loss.deque)[-6:-1]
+            if loss > kill * float(np.mean(prev)):
+                raise RuntimeError(
+                    f"ERROR: Got Loss explosion of {loss} {datetime.datetime.now()}")
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+            return
+        eta_sec = self.iter_timer.seconds() * (
+            self.MAX_EPOCH - (cur_epoch * self.epoch_iters + cur_iter + 1))
+        stats = {
+            "_type": "train_iter",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.epoch_iters}",
+            "dt": self.iter_timer.seconds(),
+            "dt_data": self.data_timer.seconds(),
+            "dt_net": self.net_timer.seconds(),
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "loss": self.loss.get_win_median(),
+            "lr": self.lr,
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+            "top1_err": self.mb_top1_err.get_win_median(),
+            "top5_err": self.mb_top5_err.get_win_median(),
+        }
+        log_json_stats(stats, self.output_dir)
+
+    def log_epoch_stats(self, cur_epoch):
+        stats = {
+            "_type": "train_epoch",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "dt": self.iter_timer.seconds(),
+            "loss": self.loss_total / max(self.num_samples, 1),
+            "lr": self.lr,
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+        }
+        if self.num_samples > 0 and self.num_top1_mis > 0:
+            stats["top1_err"] = self.num_top1_mis / self.num_samples
+            stats["top5_err"] = self.num_top5_mis / self.num_samples
+        log_json_stats(stats, self.output_dir)
+
+
+class ValMeter:
+    """Validation stats and the best errors so far (reference meters.py:679-822)."""
+
+    def __init__(self, max_iter, cfg):
+        self._cfg = cfg
+        self.max_iter = max_iter
+        self.iter_timer = Timer()
+        self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.mb_top5_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.min_top1_err = 100.0
+        self.min_top5_err = 100.0
+        self.output_dir = cfg.OUTPUT_DIR
+        self.reset()
+
+    def reset(self):
+        self.iter_timer.reset()
+        self.mb_top1_err.reset()
+        self.mb_top5_err.reset()
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+
+    def update_stats(self, top1_err, top5_err, mb_size):
+        self.mb_top1_err.add_value(top1_err)
+        self.mb_top5_err.add_value(top5_err)
+        self.num_top1_mis += top1_err * mb_size
+        self.num_top5_mis += top5_err * mb_size
+        self.num_samples += mb_size
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+            return
+        stats = {
+            "_type": "val_iter",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.max_iter}",
+            "time_diff": self.iter_timer.seconds(),
+            "top1_err": self.mb_top1_err.get_win_median(),
+            "top5_err": self.mb_top5_err.get_win_median(),
+        }
+        log_json_stats(stats, self.output_dir)
+
+    def log_epoch_stats(self, cur_epoch):
+        top1_err = self.num_top1_mis / max(self.num_samples, 1)
+        top5_err = self.num_top5_mis / max(self.num_samples, 1)
+        self.min_top1_err = min(self.min_top1_err, top1_err)
+        self.min_top5_err = min(self.min_top5_err, top5_err)
+        stats = {
+            "_type": "val_epoch",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "time_diff": self.iter_timer.seconds(),
+            "gpu_mem": f"{gpu_mem_usage():.2f}G",
+            "top1_err": top1_err,
+            "top5_err": top5_err,
+            "min_top1_err": self.min_top1_err,
+            "min_top5_err": self.min_top5_err,
+        }
+        log_json_stats(stats, self.output_dir)
+        return stats
+
+
+class EpochTimer:
+    """Epoch durations (reference meters.py:850+)."""
+
+    def __init__(self):
+        self.timer = Timer()
+        self.epoch_times = []
+
+    def epoch_tic(self):
+        self.timer.reset()
+
+    def epoch_toc(self):
+        self.timer.pause()
+        self.epoch_times.append(self.timer.seconds())
+
+    def last_epoch_time(self):
+        return self.epoch_times[-1]
+
+    def avg_epoch_time(self):
+        return float(np.mean(self.epoch_times))
 
 
 class TestMeter:
