@@ -21,8 +21,10 @@ Phases, each printing one JSON line:
               inputs the full-width MViTv2-S 16x4 eval step gives its 16
               blocks at B=8 in bf16, at block 1 at B=1 in fp32, and at small
               ragged and extreme cases; per distinct block shape the device
-              time, the plain time, SDPA's time and backend, and the bound.
-              Also the MViT eval step alone on a batch already on the card.
+              time, the plain time, SDPA's time and backend (on the same
+              inputs, and on the backend SDPA picks once q and k are
+              zero-padded to a multiple of 8 channels), and the bound. Also
+              the MViT eval step alone on a batch already on the card.
   8. mvit_fp32  the full-width MViTv2-S forward on the card against the CPU
               on the same weights, fp32, TF32 off, once with each core.
   9. mvit_slice  the MViTv2-S multi-view test (engine.tester.test) in bf16
@@ -36,6 +38,21 @@ Phases, each printing one JSON line:
               autograd on the card; per distinct block shape the device
               time, the plain time, SDPA's backward time and backend, and
               the bound.
+ 10a. attn_fused_kernel  the saved-e pair (fused_pooled_attention: the
+              saved-e forward and the backward that reads e) on the same
+              inputs: out and e against the plain versions, out bit-equal
+              to the flash forward kernel's, the gradients against the plain
+              backward and the flash backward kernel, zero underflowing
+              rows, autograd on the card; per distinct block shape forward
+              and backward times beside the flash kernels', the plain
+              versions', SDPA's, the bounds and the bytes of e.
+ 10b. mvit_train_fused  one full-width MViTv2-S train step at 16 clips
+              with the default core and with fused_pooled_attention swapped
+              in, from the same weights, clips and generator seeds. bf16:
+              equal losses, gradients within twice the run-to-run distance
+              of two default-core runs, 16 launches of each fused kernel,
+              step times and peak memory; fp32 (TF32 off): equal losses and
+              gradients within 1e-3 relative L2.
  11. mvit_train_fp32  one train step of full-width MViTv2-S on one clip on
               the card against the CPU on the same weights, fp32, TF32 off,
               once with each core: loss, grad norm, every gradient and the
@@ -147,8 +164,8 @@ def reset_launches():
     from slowfast_tpu_torch.ops import attention as ta
     from slowfast_tpu_torch.ops import preprocess as pp
 
-    pp.launches = ta.flash_launches = ta.exact_launches = 0
-    ta.flash_bwd_launches = ta.exact_bwd_launches = 0
+    pp.launches = ta.flash_launches = ta.exact_launches = ta.fused_launches = 0
+    ta.flash_bwd_launches = ta.exact_bwd_launches = ta.fused_bwd_launches = 0
 
 
 def read_launches():
@@ -157,8 +174,10 @@ def read_launches():
 
     return {"preprocess_u8": pp.launches, "attention_flash": ta.flash_launches,
             "attention_exact": ta.exact_launches,
+            "attention_fused": ta.fused_launches,
             "attention_flash_bwd": ta.flash_bwd_launches,
-            "attention_exact_bwd": ta.exact_bwd_launches}
+            "attention_exact_bwd": ta.exact_bwd_launches,
+            "attention_fused_bwd": ta.fused_bwd_launches}
 
 
 def phase_device():
@@ -381,21 +400,60 @@ def phase_mvit_slice():
     return launches
 
 
-def attention_bound(q, k, v):
-    """The least time one pooled-attention call could take on the card: its
-    operations (2 per multiply-add of q kᵀ and p v) over the peak rate for
-    the input type, or q, k, v and the output moved once over the memory
-    rate, whichever is larger; the exponentials over the ex2 rate beside it."""
-    B, Nq, nh, dq = q.shape
-    Nk, dv = v.shape[1], v.shape[3]
-    flops = 2 * B * nh * Nq * Nk * (dq + dv)
-    nbytes = (q.numel() + k.numel() + v.numel() + B * Nq * nh * dv) * q.element_size()
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+def roofline(flops, nbytes, dtype):
+    """The least time the card could take: ``flops`` over the peak rate for
+    ``dtype`` or ``nbytes`` over the memory rate, whichever is larger."""
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "gflop": flops / 1e9, "bytes": nbytes,
-            "exp_bound_ms": B * nh * Nq * Nk / EXP_PER_S * 1e3}
+            "gflop": flops / 1e9, "bytes": nbytes}
+
+
+def attention_sizes(q, k, v):
+    """``P = B nh Nq Nk`` and the elements of q, k and v together and of the
+    output."""
+    B, Nq, nh, _ = q.shape
+    return B * nh * Nq * k.shape[1], q.numel() + k.numel() + v.numel(), B * Nq * nh * v.shape[3]
+
+
+def attention_bound(q, k, v):
+    """The least time one pooled-attention call could take on the card: its
+    operations (2 per multiply-add of q kᵀ and p v), or q, k, v and the
+    output moved once; the exponentials over the ex2 rate beside it."""
+    P, qkv, o = attention_sizes(q, k, v)
+    bound = roofline(2 * P * (q.shape[3] + v.shape[3]), (qkv + o) * q.element_size(), q.dtype)
+    return {**bound, "exp_bound_ms": P / EXP_PER_S * 1e3}
+
+
+def sdpa_yardsticks(q, k, v, do=None, iters=25):
+    """Device ms of SDPA (scale 1.0, heads-first layout) computing the same
+    function as the pooled-attention core: the forward, or with ``do`` the
+    backward by ``autograd.grad``. ``library``: on these inputs, where SDPA
+    picks its MATH backend (dq is not a multiple of 8). ``library_fast``: on
+    q and k zero-padded to a multiple of 8 channels (the same logits), where
+    it picks a fused backend; the padding is outside the timing. Each with
+    the backend's name."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    row = {}
+    for key, pad in (("library", 0), ("library_fast", -q.shape[3] % 8)):
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        qt, kt = (F.pad(t, (0, pad)) for t in (qt, kt))
+        if do is not None:
+            qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+        row[f"{key}_backend"] = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, scale=1.0)).name
+        if do is None:
+            row[f"{key}_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), iters)
+        else:
+            out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+            do_t = do.transpose(1, 2).contiguous()
+            row[f"{key}_ms"] = device_ms(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True), iters)
+            del out
+    return row
 
 
 def attention_inputs(shape, dtype, seed, extreme=False):
@@ -456,9 +514,6 @@ def capture_mvit_attention(batch_size, steps=6):
 def phase_attn_kernel():
     """Both attention kernels against their plain versions, and their times
     at each distinct block shape of MViTv2-S at B=8 in bf16."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
-
     from slowfast_tpu_torch.ops import attention as ta
 
     kernels = {"flash": (ta.flash_pooled_attention, ta.flash_plain),
@@ -505,24 +560,18 @@ def phase_attn_kernel():
                                 check(got[:, 3:6].abs().max().item() == 0.0,
                                       "underflowing rows are not zero")
 
-            groups = {}
-            for i, (q, k, v) in enumerate(captured):
-                groups.setdefault((tuple(q.shape), k.shape[1], v.shape[3]), []).append(i)
-            totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-                      for name in kernels}
+            totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                                 library_fast_ms=0.0) for name in kernels}
             bound_split = {"operations": 0.0, "bytes": 0.0}  # summed bound, by kind
-            for blocks in groups.values():
+            for blocks in group_blocks(captured):
                 q, k, v = captured[blocks[0]]
-                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, scale=1.0)).name
-                library_ms = device_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
+                sdpa = sdpa_yardsticks(q, k, v)
                 bound = attention_bound(q, k, v)
                 bound_split[bound["bound_by"]] += len(blocks) * bound["bound_ms"]
                 row = {"phase": "attn_kernel", "blocks": blocks, "B": q.shape[0],
                        "Nq": q.shape[1], "Nk": k.shape[1], "nh": q.shape[2],
                        "dq": q.shape[3], "dv": v.shape[3], "dtype": "bfloat16", **bound,
-                       "library_ms": library_ms, "library_backend": backend}
+                       **sdpa}
                 for name, (fn, plain) in kernels.items():
                     ms = device_ms(lambda: fn(q, k, v))
                     plain_ms = device_ms(lambda: plain(q, k, v))
@@ -531,7 +580,8 @@ def phase_attn_kernel():
                                  "max_abs_err": max(block_err[i][name] for i in blocks)}
                     for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                      ("bound_ms", bound["bound_ms"]),
-                                     ("library_ms", library_ms)):
+                                     ("library_ms", sdpa["library_ms"]),
+                                     ("library_fast_ms", sdpa["library_fast_ms"])):
                         totals[name][key] += len(blocks) * val
                 emit(row)
     finally:
@@ -608,18 +658,22 @@ def phase_mvit_fp32():
 
 def attention_bwd_bound(q, k, v):
     """The least time one pooled-attention backward could take on the card:
-    2 B nh Nq Nk (3 dq + 2 dv) operations (the logits once, dpn, dv, dq,
-    dk) over the peak rate for the input type, or q, k, v, do, dq, dk and dv
-    moved once over the memory rate, whichever is larger."""
-    B, Nq, nh, dq = q.shape
-    Nk, dv = v.shape[1], v.shape[3]
-    flops = 2 * B * nh * Nq * Nk * (3 * dq + 2 * dv)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * Nq * nh * dv) * q.element_size()
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "gflop": flops / 1e9, "bytes": nbytes}
+    2 P (3 dq + 2 dv) operations (the logits once, dpn, dv, dq, dk), or q,
+    k, v, do, dq, dk and dv moved once."""
+    P, qkv, o = attention_sizes(q, k, v)
+    return roofline(2 * P * (3 * q.shape[3] + 2 * v.shape[3]),
+                    (2 * qkv + o) * q.element_size(), q.dtype)
+
+
+def fused_bounds(q, k, v):
+    """The least times of the saved-e pair. Forward: 2 P (dq + dv)
+    operations, or q, k, v and the output moved once and e (P elements)
+    written. Backward: 2 P (2 dq + 2 dv) operations (dv, dpn, dq, dk; no
+    logits), or q, k, v, do, dq, dk and dv moved once and e read."""
+    P, qkv, o = attention_sizes(q, k, v)
+    dq, dv, size = q.shape[3], v.shape[3], q.element_size()
+    return (roofline(2 * P * (dq + dv), (qkv + o + P) * size, q.dtype),
+            roofline(2 * P * (2 * dq + 2 * dv), (2 * qkv + o + P) * size, q.dtype))
 
 
 def capture_mvit_train_attention(num_clips):
@@ -653,12 +707,24 @@ def capture_mvit_train_attention(num_clips):
     return captured
 
 
+def grad_out(q, v, seed):
+    """A seeded output gradient for the core's output, in v's dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (q.shape[0], q.shape[1], q.shape[2], v.shape[3])
+    return torch.randn(shape, device="cuda", generator=gen).to(v.dtype)
+
+
+def group_blocks(captured):
+    """Block indices by distinct (q shape, Nk, dv)."""
+    groups = {}
+    for i, (q, k, v) in enumerate(captured):
+        groups.setdefault((tuple(q.shape), k.shape[1], v.shape[3]), []).append(i)
+    return list(groups.values())
+
+
 def phase_attn_bwd_kernel():
     """Both backward kernels against their plain backwards, and their times
     at each distinct block shape of the MViTv2-S train step at 16 clips."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
-
     from slowfast_tpu_torch.ops import attention as ta
 
     plains = {"flash": ta.flash_bwd_plain, "exact": ta.exact_bwd_plain}
@@ -666,11 +732,6 @@ def phase_attn_bwd_kernel():
     max_abs = {name: 0.0 for name in plains}
     max_share = {name: 0.0 for name in plains}
     n_checked = 0
-
-    def grad_out(q, v, seed):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        shape = (q.shape[0], q.shape[1], q.shape[2], v.shape[3])
-        return torch.randn(shape, device="cuda", generator=gen).to(v.dtype)
 
     def compare(name, q, k, v, do):
         """The kernel against its plain backward; returns the three grads and
@@ -732,26 +793,16 @@ def phase_attn_bwd_kernel():
             check(autograd_launches[name][f"attention_{name}_bwd"] == 2,
                   f"{name}: launches {autograd_launches[name]}")
 
-        groups = {}
-        for i, (q, k, v) in enumerate(captured):
-            groups.setdefault((tuple(q.shape), k.shape[1], v.shape[3]), []).append(i)
-        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-                  for name in plains}
-        for blocks in groups.values():
+        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                             library_fast_ms=0.0) for name in plains}
+        for blocks in group_blocks(captured):
             q, k, v = captured[blocks[0]]
             do = dos[blocks[0]]
-            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-            backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, scale=1.0)).name
-            out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
-            do_t = do.transpose(1, 2).contiguous()
-            library_ms = device_ms(
-                lambda: torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True), 10)
-            del out
+            sdpa = sdpa_yardsticks(q, k, v, do, 10)
             bound = attention_bwd_bound(q, k, v)
             row = {"phase": "attn_bwd_kernel", "blocks": blocks, "B": q.shape[0],
                    "Nq": q.shape[1], "Nk": k.shape[1], "nh": q.shape[2], "dq": q.shape[3],
-                   "dv": v.shape[3], "dtype": "bfloat16", **bound,
-                   "library_ms": library_ms, "library_backend": backend}
+                   "dv": v.shape[3], "dtype": "bfloat16", **bound, **sdpa}
             for name in plains:
                 exact = name == "exact"
                 ms = device_ms(lambda: ta._launch_bwd(q, k, v, do, exact), 10)
@@ -760,7 +811,9 @@ def phase_attn_bwd_kernel():
                              "roofline_share": bound["bound_ms"] / ms,
                              "max_err_share": max(block_err[i][name] for i in blocks)}
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("bound_ms", bound["bound_ms"]), ("library_ms", library_ms)):
+                                 ("bound_ms", bound["bound_ms"]),
+                                 ("library_ms", sdpa["library_ms"]),
+                                 ("library_fast_ms", sdpa["library_fast_ms"])):
                     totals[name][key] += len(blocks) * val
             emit(row)
     finally:
@@ -774,6 +827,288 @@ def phase_attn_bwd_kernel():
                "autograd_launches": autograd_launches}
     emit(summary)
     return summary
+
+
+def phase_attn_fused_kernel():
+    """The saved-e pair against its plain versions and against the flash
+    kernels, and the times of both pairs at each distinct block shape of
+    the MViTv2-S train step at 16 clips."""
+    from slowfast_tpu_torch.ops import attention as ta
+
+    max_abs = {"out": 0.0, "e": 0.0, "grads": 0.0, "grads_vs_flash": 0.0}
+    max_share = {"out": 0.0, "e": 0.0, "grads": 0.0, "grads_vs_flash": 0.0}
+    n_checked = 0
+
+    def note(key, err, scale):
+        max_abs[key] = max(max_abs[key], err)
+        max_share[key] = max(max_share[key], err / max(scale, 1e-30))
+        return err / max(scale, 1e-30)
+
+    def compare(q, k, v, do):
+        """The pair against its plain versions (on the kernel's own e) and
+        against the flash kernels; returns (out, grads, largest gradient
+        error share against the plain backward)."""
+        nonlocal n_checked
+        out, e = ta._launch_fused(q, k, v)
+        want_out, want_e = ta.fused_plain(q, k, v)
+        check(out.shape == want_out.shape and out.dtype == want_out.dtype
+              and e.shape == want_e.shape and e.dtype == want_e.dtype,
+              f"fused: out {out.shape} {out.dtype}, e {e.shape} {e.dtype}")
+        check(torch.isfinite(out).all().item() and torch.isfinite(e).all().item(),
+              "fused: non-finite output or e")
+        tol = ATTN_TOL[q.dtype]
+        where = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}"
+        share = note("out", (out.float() - want_out.float()).abs().max().item(),
+                     v.float().abs().max().item())
+        check(share <= tol, f"fused forward differs from plain by {share} of max |v| at {where}")
+        share = note("e", (e.float() - want_e.float()).abs().max().item(),
+                     want_e.float().abs().max().item())
+        check(share <= tol, f"fused e differs from plain by {share} of its max at {where}")
+        check(torch.equal(out, ta._launch(q, k, v, exact=False)),
+              f"fused forward is not bit-equal to the flash forward at {where}")
+        grads = ta._launch_fused_bwd(q, k, v, do, e)
+        want = ta.fused_bwd_plain(q, k, v, do, e)
+        flash = ta._launch_bwd(q, k, v, do, exact=False)
+        shares = []
+        for g, w, f, t in zip(grads, want, flash, (q, k, v)):
+            check(g.shape == t.shape and g.dtype == t.dtype, f"fused: grad {g.shape} {g.dtype}")
+            check(torch.isfinite(g).all().item(), "fused: non-finite gradient")
+            scale = w.float().abs().max().item()
+            shares.append(note("grads", (g.float() - w.float()).abs().max().item(), scale))
+            vs_flash = note("grads_vs_flash", (g.float() - f.float()).abs().max().item(), scale)
+            check(vs_flash <= ATTN_BWD_TOL[q.dtype],
+                  f"fused backward differs from the flash backward by {vs_flash} at {where}")
+        check(max(shares) <= ATTN_BWD_TOL[q.dtype],
+              f"fused backward differs from plain by {shares} of max at {where}")
+        n_checked += 1
+        return out, grads, max(shares)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums
+    try:
+        captured = capture_mvit_train_attention(TRAIN_CLIPS)
+        dos = [grad_out(q, v, 100 + i) for i, (q, k, v) in enumerate(captured)]
+        block_err = [compare(q, k, v, do)[2] for (q, k, v), do in zip(captured, dos)]
+        block1 = [t[:1].float().contiguous() for t in captured[1]]
+        fp32_err = compare(*block1, grad_out(block1[0], block1[2], 7))[2]
+        extreme_zero = True
+        for shape in [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                for extreme in (False, True):
+                    q, k, v = attention_inputs(shape, dtype, 5, extreme)
+                    out, (dq, _, _), _ = compare(q, k, v, grad_out(q, v, 8))
+                    if extreme:
+                        extreme_zero &= out[:, 3:6].abs().max().item() == 0.0
+                        extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
+        check(extreme_zero, "underflowing rows have a nonzero output or dq")
+
+        # The wrapper on the card: an output with a grad_fn whose gradients
+        # are the backward kernel's, one launch of each kernel.
+        q, k, v = (t[:2].clone().requires_grad_() for t in captured[2])
+        do = dos[2][:2].contiguous()
+        reset_launches()
+        out = ta.fused_pooled_attention(q, k, v)
+        check(out.grad_fn is not None, "fused: the output has no grad_fn")
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        autograd_launches = read_launches()
+        check(autograd_launches["attention_fused"] == autograd_launches["attention_fused_bwd"]
+              == 1 and autograd_launches["attention_flash"] == 0
+              and autograd_launches["attention_flash_bwd"] == 0,
+              f"fused: launches {autograd_launches}")
+        q, k, v = q.detach(), k.detach(), v.detach()
+        want = ta._launch_fused_bwd(q, k, v, do, ta._launch_fused(q, k, v)[1])
+        check(all(torch.equal(g, w) for g, w in zip(grads, want)),
+              "fused: autograd on the card is not the backward kernel")
+        del out, grads, want
+
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "library_fast_ms", "flash_ms")
+        totals = {"fwd": dict.fromkeys(keys, 0.0), "bwd": dict.fromkeys(keys, 0.0)}
+        bound_split = {part: {"operations": 0.0, "bytes": 0.0} for part in totals}
+        e_bytes = 0
+        for blocks in group_blocks(captured):
+            q, k, v = captured[blocks[0]]
+            do = dos[blocks[0]]
+            _, e = ta._launch_fused(q, k, v)
+            bounds = fused_bounds(q, k, v)
+            row = {"phase": "attn_fused_kernel", "blocks": blocks, "B": q.shape[0],
+                   "Nq": q.shape[1], "Nk": k.shape[1], "nh": q.shape[2], "dq": q.shape[3],
+                   "dv": v.shape[3], "dtype": "bfloat16",
+                   "e_bytes": e.numel() * e.element_size(),
+                   "max_err_share": max(block_err[i] for i in blocks)}
+            timed = {
+                "fwd": (lambda: ta._launch_fused(q, k, v), lambda: ta.fused_plain(q, k, v),
+                        lambda: ta._launch(q, k, v, exact=False), 25, None),
+                "bwd": (lambda: ta._launch_fused_bwd(q, k, v, do, e),
+                        lambda: ta.fused_bwd_plain(q, k, v, do, e),
+                        lambda: ta._launch_bwd(q, k, v, do, exact=False), 10, do)}
+            for (name, (kernel, plain, flash, iters, grad)), bound in zip(timed.items(), bounds):
+                ms = device_ms(kernel, iters)
+                row[name] = {"ms": ms, "plain_ms": device_ms(plain, 5),
+                             "flash_ms": device_ms(flash, iters), **bound,
+                             "roofline_share": bound["bound_ms"] / ms,
+                             **sdpa_yardsticks(q, k, v, grad, iters)}
+                for key in keys:
+                    totals[name][key] += len(blocks) * row[name][key]
+                bound_split[name][bound["bound_by"]] += len(blocks) * bound["bound_ms"]
+            e_bytes += len(blocks) * row["e_bytes"]
+            del e
+            emit(row)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    summary = {"phase": "attn_fused_kernel", "clips": TRAIN_CLIPS, "cases_checked": n_checked,
+               "forward_bit_equal_to_flash": True, "max_abs_err": max_abs,
+               "max_err_share": max_share, "fp32_block1_grad_err_share": fp32_err,
+               "tolerance_share": {"out_and_e": {"float32": ATTN_TOL[torch.float32],
+                                                 "bfloat16": ATTN_TOL[torch.bfloat16]},
+                                   "grads": {"float32": ATTN_BWD_TOL[torch.float32],
+                                             "bfloat16": ATTN_BWD_TOL[torch.bfloat16]}},
+               "per_step": totals, "bound_split_ms": bound_split,
+               "bound_by": {part: max(split, key=split.get)
+                            for part, split in bound_split.items()},
+               "e_bytes_per_step": e_bytes,
+               "autograd_launches": autograd_launches}
+    emit(summary)
+    return summary
+
+
+def train_step_run(cfg, state, batch, fused, timed_steps=0):
+    """One ``make_train_step`` step of a model built from ``cfg`` and loaded
+    with ``state``, its generators seeded from ``cfg.RNG_SEED`` (drop path,
+    dropout and mixup draw alike in every run), with the saved-e core
+    swapped in for the default one if ``fused``; then ``timed_steps`` more
+    on the same batch (host clock to a synchronize). Returns the first
+    step's loss, grad norm, gradients before the clip (fp32, on the CPU),
+    launches and peak memory, and the timed steps' ms."""
+    import gc
+
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.ops import attention as ta
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    opt = construct_optimizer(model, cfg)
+    grads, update = {}, opt.step
+
+    def recording_update(lr):
+        if not grads:
+            grads.update({n: p.grad.detach().float().cpu()
+                          for n, p in model.named_parameters() if p.grad is not None})
+        return update(lr)
+
+    opt.step = recording_update
+    step = make_train_step(cfg, model, opt, torch.Generator().manual_seed(cfg.RNG_SEED))
+    flash_core = ta.flash_pooled_attention
+    if fused:
+        ta.flash_pooled_attention = ta.fused_pooled_attention
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        m = step(batch)
+        torch.cuda.synchronize()
+        run = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+               "launches": read_launches(), "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        steps_ms = []
+        for _ in range(timed_steps):
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ta.flash_pooled_attention = flash_core
+    if steps_ms:
+        run.update(step_p50_ms=statistics.median(steps_ms), steps_ms=steps_ms)
+    del model, opt, step, recording_update, update, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, grads
+
+
+def rel_l2(a, b, names):
+    """Relative L2 distance of the tensors ``a[n]`` from ``b[n]`` over
+    ``names`` together."""
+    diff = sum((a[n] - b[n]).double().pow(2).sum().item() for n in names)
+    return (diff / sum(b[n].double().pow(2).sum().item() for n in names)) ** 0.5
+
+
+def phase_mvit_train_fused():
+    """The full-width MViTv2-S 16x4 train step at 16 clips with the default
+    core and with ``fused_pooled_attention`` swapped in (no config key
+    routes MViT to it), from the same weights, clips and generator seeds.
+    bf16: flash, fused, flash again; the forwards are bit-equal, so all
+    three losses must be equal; step time and peak memory of each core.
+    ATen's max_pool3d backward (the residual pooling) adds with atomics, so
+    two bf16 runs of the same core differ in their gradients: the third run
+    measures that floor, and fused may differ from flash by at most twice
+    it. fp32 (TF32 off): flash and fused once more, where that noise is
+    about 1e-7: equal losses and gradients within 1e-3 relative L2. Last,
+    one bf16 flash step under torch.use_deterministic_algorithms(True,
+    warn_only=True) names the ops that have no deterministic version."""
+    import warnings
+
+    from slowfast_tpu_torch.models.build import build_model
+
+    cfg = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"])
+    depth = cfg.MVIT.DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    size = (TRAIN_CLIPS, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE,
+            cfg.DATA.TRAIN_CROP_SIZE, 3)
+    batch = {"inputs": [torch.randint(0, 256, size, dtype=torch.uint8, device="cuda",
+                                      generator=gen)],
+             "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (TRAIN_CLIPS,), device="cuda",
+                                     generator=gen),
+             "epoch_exact": 15.0}  # mid-warmup: a nonzero LR
+    state = {k: v.cpu() for k, v in build_model(cfg, device="cuda").state_dict().items()}
+    runs, grads = {}, {}
+    for name, fused in (("flash", False), ("fused", True), ("flash_again", False)):
+        runs[name], grads[name] = train_step_run(cfg, state, batch, fused, 3)
+    cfg32 = mvit_cfg(["TPU.COMPUTE_DTYPE", "float32"])
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, fused in (("flash_fp32", False), ("fused_fp32", True)):
+            runs[name], grads[name] = train_step_run(cfg32, state, batch, fused)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            train_step_run(cfg, state, batch, False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondeterministic = sorted({str(w.message).split(" does not have")[0][:120] for w in caught
+                               if "deterministic" in str(w.message)})
+
+    check(all(sorted(g) == sorted(grads["flash"]) for g in grads.values()),
+          "the runs differ in which parameters have a gradient")
+    pairs = (("fused", "flash"), ("flash_again", "flash"), ("fused_fp32", "flash_fp32"))
+    l2 = {f"{a}_vs_{b}": rel_l2(grads[a], grads[b], grads[b]) for a, b in pairs}
+    row = {"phase": "mvit_train_fused", "clips": TRAIN_CLIPS, "grad_rel_l2": l2,
+           "grad_l2_tol_fp32": TRAIN_GRAD_L2_TOL, "params_checked": len(grads["flash"]),
+           "peak_memory_delta": runs["fused"]["max_memory_allocated"]
+           - runs["flash"]["max_memory_allocated"],
+           "nondeterministic_ops": nondeterministic, **runs}
+    emit(row)
+    for a, b in pairs:
+        check(np.isfinite(runs[b]["loss"]) and runs[a]["loss"] == runs[b]["loss"],
+              f"{a} loss {runs[a]['loss']} vs {b} {runs[b]['loss']}")
+    check(l2["fused_fp32_vs_flash_fp32"] <= TRAIN_GRAD_L2_TOL,
+          f"fp32: fused gradients differ from flash's by {l2['fused_fp32_vs_flash_fp32']} (L2)")
+    check(l2["fused_vs_flash"] <= 2 * l2["flash_again_vs_flash"] + 1e-6,
+          f"bf16: fused gradients differ from flash's by {l2['fused_vs_flash']}, twice the "
+          f"run-to-run {l2['flash_again_vs_flash']} (L2)")
+    want = {False: ("attention_flash", "attention_flash_bwd"),
+            True: ("attention_fused", "attention_fused_bwd")}
+    for name, run in runs.items():
+        n, fused = run["launches"], name.startswith("fused")
+        check(all(n[k] == depth for k in want[fused])
+              and all(n[k] == 0 for k in want[not fused])
+              and n["attention_exact"] == n["attention_exact_bwd"] == 0
+              and n["preprocess_u8"] == 1, f"{name}: launches {n}")
+    return runs["fused"]["launches"]
 
 
 def structurally_zero(name, depth):
@@ -836,10 +1171,6 @@ def phase_mvit_train_fp32():
         t0 = time.perf_counter()
         cpu[core] = train_one_step(cfg, model, clip, label, epoch_exact)
         cpu_s[core] = time.perf_counter() - t0
-
-    def rel_l2(a, b, names):
-        diff = sum((a[n] - b[n]).double().pow(2).sum().item() for n in names)
-        return (diff / sum(b[n].double().pow(2).sum().item() for n in names)) ** 0.5
 
     launches = {}
     for core, extra in cores:
@@ -910,6 +1241,7 @@ def phase_mvit_train_fp32():
 def phase_mvit_train_slice(attn_bwd, attn_fwd):
     """``run_net.main`` training MViTv2-S 16x4 on the card: one epoch of 4
     steps of 16 clips, a val epoch and the epoch-1 checkpoint."""
+    import gc
     import shutil
 
     from slowfast_tpu_torch import run_net
@@ -943,6 +1275,10 @@ def phase_mvit_train_slice(attn_bwd, attn_fwd):
             "DATA.SYNTHETIC_SIZE", "32", "TRAIN.BATCH_SIZE", "8", "SOLVER.MAX_EPOCH", "1",
             "TEST.ENABLE", "False", "OUTPUT_DIR", out_dir]
     trainer.make_train_step = recording_make_step
+    # Models of earlier phases whose optimizer step was wrapped in a closure
+    # sit in reference cycles; free them, so the peak is this run's own.
+    gc.collect()
+    allocated_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -968,8 +1304,9 @@ def phase_mvit_train_slice(attn_bwd, attn_fwd):
           f"backward launched {launches['attention_flash_bwd']} times for 4 steps")
     check(launches["attention_flash"] == depth * (4 + 4),
           f"forward launched {launches['attention_flash']} times for 4 + 4 batches")
-    check(launches["attention_exact"] == launches["attention_exact_bwd"] == 0,
-          f"exact core launched: {launches}")
+    check(launches["attention_exact"] == launches["attention_exact_bwd"] == 0
+          and launches["attention_fused"] == launches["attention_fused_bwd"] == 0,
+          f"exact or fused core launched: {launches}")
     check(launches["preprocess_u8"] == 4 + 4, f"preprocess launches {launches}")
 
     path = cu.get_path_to_checkpoint(out_dir, 1)
@@ -993,6 +1330,7 @@ def phase_mvit_train_slice(attn_bwd, attn_fwd):
     row = {"phase": "mvit_train_slice", "steps": len(steps), "clips_per_step": TRAIN_CLIPS,
            "step_p50_ms": step_ms, "train_clips_per_s": TRAIN_CLIPS / step_ms * 1e3,
            "first_step_ms": steps[0]["ms"], "max_memory_allocated": peak,
+           "memory_allocated_at_start": allocated_at_start,
            "attn_bwd_ms_per_step": bwd_ms, "attn_bwd_share_of_step": bwd_ms / step_ms,
            # the forward kernel's time at 8 clips (phase attn_kernel), twice
            "attn_fwd_ms_per_step_est": 2 * attn_fwd["per_forward"]["flash"]["ms"],
@@ -1079,6 +1417,8 @@ def main():
     fp32_launches = phase_mvit_fp32()
     mvit_launches = phase_mvit_slice()
     attn_bwd = phase_attn_bwd_kernel()
+    fused = phase_attn_fused_kernel()
+    fused_launches = phase_mvit_train_fused()
     train_fp32_launches = phase_mvit_train_fp32()
     train_launches = phase_mvit_train_slice(attn_bwd, attn)
     lines = [{
@@ -1125,6 +1465,22 @@ def main():
             "max_abs_err": attn_bwd["max_abs_err"][core],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": attn_bwd["bound_by"], "library_ms": tot["library_ms"],
+        })
+    # The saved-e pair: per MViTv2-S train step at 16 clips in bf16, summed
+    # over its 16 blocks. No config key routes MViT to it; its launches are
+    # those of phase mvit_train_fused's step with the core swapped in.
+    for name, source, replaces, part in (
+            ("attention_fused", "pooled_attention.cu", ":237", "fwd"),
+            ("attention_fused_bwd", "pooled_attention_fused_bwd.cu", ":255", "bwd")):
+        tot = fused["per_step"][part]
+        lines.append({
+            "name": name, "route": "cuda", "source": f"slowfast_tpu_torch/csrc/{source}",
+            "replaces": f"slowfast_tpu/ops/pallas_attention.py{replaces}",
+            "launches": fused_launches[name],
+            "max_abs_err": fused["max_abs_err"]["out" if part == "fwd" else "grads"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": fused["bound_by"][part],
+            "library_ms": tot["library_ms"],
         })
     emit({"kernels": lines})
     print(info["nvidia_smi"], flush=True)

@@ -68,14 +68,6 @@ __device__ __forceinline__ float weight(float l, float m, float s, const T* tag)
   return round_as(expf(fminf(l, 50.f) - 20.f), tag);
 }
 
-// Replace do by do_n = round(do / s) in shared memory (constant shift).
-template <typename T>
-__device__ __forceinline__ void normalize_do(float* do_s, int dvs, const float* s_s,
-                                             const T* tag) {
-  for (int idx = threadIdx.x; idx < PB_BQ * dvs; idx += PB_THREADS)
-    do_s[idx] = round_as(do_s[idx] / s_s[idx / dvs], tag);
-}
-
 // Kernel A: per (q tile, head, batch) the row statistics and dq.
 template <typename T, bool kExact, int kDqPT>
 __global__ void __launch_bounds__(PB_THREADS, 1)
@@ -156,7 +148,7 @@ attention_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) s_s[ty + 16 * i] = s[i];
     }
     __syncthreads();
-    normalize_do(do_s, dvs, s_s, tag);
+    normalize_do<PB_BQ, PB_THREADS>(do_s, dvs, s_s, tag);
   }
 
   // r = sum dpn * ef (constant shift) or sum dp * p (exact).
@@ -299,7 +291,7 @@ attention_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     if (!kExact) {
-      normalize_do(do_s, dvs, st_s + PB_BQ, tag);
+      normalize_do<PB_BQ, PB_THREADS>(do_s, dvs, st_s + PB_BQ, tag);
       __syncthreads();
     }
     dot_tile(q_s, dqs, k_s, dqs, dq, ty, tx, l);

@@ -1,8 +1,9 @@
 // Helpers shared by the pooled-attention kernels (pooled_attention.cu,
-// pooled_attention_bwd.cu): loads, stores and the rounding to the input type,
-// tile copies into shared memory, the 4x4-per-thread tile product and the
-// reductions over the 16 threads of a row. Every kernel that includes it
-// runs 16 x 16 threads: tx = threadIdx.x & 15, ty = threadIdx.x >> 4.
+// pooled_attention_bwd.cu, pooled_attention_fused_bwd.cu): loads, stores and
+// the rounding to the input type, tile copies into shared memory, the
+// 4x4-per-thread tile product, the reductions over the 16 threads of a row
+// and the backwards' do_n. Every kernel that includes it runs 16 x 16
+// threads: tx = threadIdx.x & 15, ty = threadIdx.x >> 4.
 
 #pragma once
 
@@ -42,6 +43,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
       v = load_f(src + (static_cast<int64_t>(r0 + r) * nh) * d + c);
     dst[idx] = v;
   }
+}
+
+// Replace the kRows x ld do tile by do_n = round(do / s) in shared memory,
+// s_s holding s per row (the constant-shift backwards), with kThreads threads.
+template <int kRows, int kThreads, typename T>
+__device__ __forceinline__ void normalize_do(float* do_s, int ld, const float* s_s,
+                                             const T* tag) {
+  for (int idx = threadIdx.x; idx < kRows * ld; idx += kThreads)
+    do_s[idx] = round_as(do_s[idx] / s_s[idx / ld], tag);
 }
 
 // out[i][j] = sum_c a[row i][c] * b[row j][c] for the thread's 4x4 tile:

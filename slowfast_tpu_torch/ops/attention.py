@@ -1,8 +1,9 @@
 """MViT pooled-attention cores: softmax(q kᵀ) v per (batch, head), with
 their gradients.
 
-Four hand-written CUDA kernels, the counterparts of the JAX package's
-Pallas kernels (``slowfast_tpu/ops/pallas_attention.py``):
+Three cores, each a forward and a backward kernel written by hand in CUDA,
+the counterparts of the JAX package's Pallas kernels
+(``slowfast_tpu/ops/pallas_attention.py``):
 
 * ``flash_pooled_attention``, the port's default MViT core. Forward
   ``csrc/pooled_attention.cu`` (kernel :375 ``_flash_fwd_kernel``): the
@@ -10,25 +11,34 @@ Pallas kernels (``slowfast_tpu/ops/pallas_attention.py``):
   ``s = max(Σe, 1e-30)``, ``o = (e v) / s``, with ``e`` rounded to the
   compute dtype before the sum and the product. Rows whose every ``exp``
   underflows give zeros, not NaN. Backward ``csrc/pooled_attention_bwd.cu``
-  (kernel :392 ``_flash_bwd_kernel``): ``do_n = round(do / s)``,
-  ``dv = eᵀ do_n``, ``dpn = do_n vᵀ``, ``r = Σ dpn·e``,
-  ``dl = round(e (dpn - r / s))``, ``dq = dl k``, ``dk = dlᵀ q``. It has no
-  derivative of the clamp: a clamped logit gets ``e (dpn - r / s)`` as in
-  the JAX kernel, where autograd of the forward would give zero.
+  (kernel :392 ``_flash_bwd_kernel``), which recomputes ``e``:
+  ``do_n = round(do / s)``, ``dv = eᵀ do_n``, ``dpn = do_n vᵀ``,
+  ``r = Σ dpn·e``, ``dl = round(e (dpn - r / s))``, ``dq = dl k``,
+  ``dk = dlᵀ q``. It has no derivative of the clamp: a clamped logit gets
+  ``e (dpn - r / s)`` as in the JAX kernel, where autograd of the forward
+  would give zero.
+* ``fused_pooled_attention``, the same function with the saved-e backward of
+  kernels :237 ``_fused_fwd_kernel`` and :255 ``_fused_bwd_kernel``. Forward:
+  the saved-e mode of ``csrc/pooled_attention.cu``, whose output is bit-equal
+  to the flash forward's and which also writes ``e`` as ``(B, nh, Nq, Nk)``
+  in v's dtype. Backward ``csrc/pooled_attention_fused_bwd.cu``: the flash
+  backward's formulas with ``e`` read back instead of recomputed. No config
+  key routes MViT to it, as none does in the JAX package.
 * ``pooled_attention``, selected by ``TPU.PALLAS_ATTENTION``. Forward
   (kernel :39 ``_fwd_kernel``): ``p = exp(l - max l)``, ``s = Σp`` in fp32,
   ``o = (round(p) v) / s``. Backward (kernel :58 ``_bwd_kernel``):
   ``p = e / s``, ``dp = do vᵀ`` in fp32, ``dl = p (dp - Σ dp·p)``,
   ``dq = round(dl) k``, ``dk = round(dl)ᵀ q``, ``dv = round(p)ᵀ do``.
 
-Both take q ``(B, Nq, nh, dq)``, k ``(B, Nk, nh, dq)`` (pre-scaled and
+All take q ``(B, Nq, nh, dq)``, k ``(B, Nk, nh, dq)`` (pre-scaled and
 rel-pos augmented) and v ``(B, Nk, nh, dv)``, all bf16 or all fp32, and
 return ``(B, Nq, nh, dv)`` in v's dtype; each is a ``torch.autograd.Function``
 whose gradients are rounded to the input dtype as the JAX kernels' are
 (dk and dv summed over every q row in fp32 first). ``flash_plain``,
-``exact_plain``, ``flash_bwd_plain`` and ``exact_bwd_plain`` are the same
-functions in plain PyTorch; the wrappers use them only for tensors on the
-CPU, and for a CUDA tensor launch the kernel or raise.
+``fused_plain``, ``exact_plain``, ``flash_bwd_plain``, ``fused_bwd_plain``
+and ``exact_bwd_plain`` are the same functions in plain PyTorch; the
+wrappers use them only for tensors on the CPU, and for a CUDA tensor launch
+the kernel or raise.
 """
 
 import ctypes
@@ -39,13 +49,15 @@ from . import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_DQ, _MAX_DV = 256, 128  # PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu
-_MAX_DQ_BWD = 192  # PB_MAX_DQ in csrc/pooled_attention_bwd.cu
+_MAX_DQ_BWD = 192  # PB_MAX_DQ, PF_MAX_DQ in csrc/pooled_attention{_bwd,_fused_bwd}.cu
 
-# Kernel launches since the last reset; only _launch and _launch_bwd add to them.
+# Kernel launches since the last reset; only the _launch* functions add to them.
 flash_launches = 0
 exact_launches = 0
+fused_launches = 0
 flash_bwd_launches = 0
 exact_bwd_launches = 0
+fused_bwd_launches = 0
 
 
 def flash_pooled_attention(qh, kh, vh):
@@ -58,6 +70,12 @@ def pooled_attention(qh, kh, vh):
     """Exact max-subtracted pooled attention (``TPU.PALLAS_ATTENTION``)."""
     _check(qh, kh, vh)
     return _ExactCore.apply(qh, kh, vh)
+
+
+def fused_pooled_attention(qh, kh, vh):
+    """Constant-shift pooled attention whose backward reads the saved ``e``."""
+    _check(qh, kh, vh)
+    return _FusedCore.apply(qh, kh, vh)
 
 
 def _core_forward(ctx, qh, kh, vh, exact):
@@ -88,6 +106,28 @@ class _FlashCore(torch.autograd.Function):
         return _core_backward(ctx, do, exact=False)
 
 
+class _FusedCore(torch.autograd.Function):
+    """The saved-e forward kernel with the backward kernel that reads ``e``
+    (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh):
+        if qh.device.type == "cpu":
+            out, e = fused_plain(qh, kh, vh)
+        else:
+            out, e = _launch_fused(qh, kh, vh)
+        ctx.save_for_backward(qh, kh, vh, e)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qh, kh, vh, e = ctx.saved_tensors
+        do = do.contiguous()
+        if qh.device.type == "cpu":
+            return fused_bwd_plain(qh, kh, vh, do, e)
+        return _launch_fused_bwd(qh, kh, vh, do, e)
+
+
 class _ExactCore(torch.autograd.Function):
     """The exact forward kernel with its backward kernel (plain versions on
     the CPU)."""
@@ -116,11 +156,22 @@ def _flash_e(qh, kh, dtype):
     return torch.exp(torch.clamp(_logits(qh, kh), max=50.0) - 20.0).to(dtype).float()
 
 
+def _flash_out(e, vh):
+    """``(e v) / max(Σe, 1e-30)`` from the rounded ``e`` as fp32 values."""
+    return _weighted(e, vh, torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30))
+
+
 def flash_plain(qh, kh, vh):
     """The plain PyTorch version of the constant-shift kernel."""
+    return _flash_out(_flash_e(qh, kh, vh.dtype), vh)
+
+
+def fused_plain(qh, kh, vh):
+    """The plain PyTorch version of the saved-e forward kernel, step by step
+    as ``_fused_fwd_kernel``; returns ``(out, e)``, ``e`` ``(B, nh, Nq, Nk)``
+    in v's dtype."""
     e = _flash_e(qh, kh, vh.dtype)
-    s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
-    return _weighted(e, vh, s)
+    return _flash_out(e, vh), e.to(vh.dtype)
 
 
 def exact_plain(qh, kh, vh):
@@ -140,7 +191,18 @@ def _grads(dl, qh, kh):
 def flash_bwd_plain(qh, kh, vh, do):
     """The plain PyTorch version of the constant-shift backward kernel,
     step by step as ``_flash_bwd_kernel``; returns ``(dq, dk, dv)``."""
-    ef = _flash_e(qh, kh, vh.dtype)
+    return _bwd_from_e(_flash_e(qh, kh, vh.dtype), qh, kh, vh, do)
+
+
+def fused_bwd_plain(qh, kh, vh, do, e):
+    """The plain PyTorch version of the saved-e backward kernel, step by step
+    as ``_fused_bwd_kernel``: ``flash_bwd_plain`` with ``e`` read from the
+    forward's ``(B, nh, Nq, Nk)`` instead of recomputed."""
+    return _bwd_from_e(e.float(), qh, kh, vh, do)
+
+
+def _bwd_from_e(ef, qh, kh, vh, do):
+    """The constant-shift backward from the rounded ``e`` as fp32 values."""
     s = torch.clamp(ef.sum(dim=-1, keepdim=True), min=1e-30)  # (B, nh, Nq, 1)
     do_n = (do.float() / s.permute(0, 2, 1, 3)).to(do.dtype).float()
     dv = torch.einsum("bnqk,bqnc->bknc", ef, do_n)
@@ -204,6 +266,15 @@ def _kernel(source, symbol, argtypes):
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
+def _check_operand(t, name, shape, dtype):
+    if t.shape != shape or t.dtype != dtype:
+        raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(qh, kh, vh, exact):
     global flash_launches, exact_launches
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
@@ -211,8 +282,7 @@ def _launch(qh, kh, vh, exact):
     fn = _kernel("pooled_attention", "sf_pooled_attention",
                  [_PTR] * 4 + [_I64] * 6 + [_I32, _I32, _PTR])
     err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16),
-             torch.cuda.current_stream(vh.device).cuda_stream)
+             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16), _stream(vh))
     if err != 0:
         raise RuntimeError(f"pooled-attention kernel launch failed: CUDA error {err}")
     if exact:
@@ -222,15 +292,30 @@ def _launch(qh, kh, vh, exact):
     return out
 
 
+def _launch_fused(qh, kh, vh):
+    """The saved-e forward: the flash forward's output and ``e``
+    ``(B, nh, Nq, Nk)`` in v's dtype."""
+    global fused_launches
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
+    out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
+    e = torch.empty((B, nh, Nq, Nk), dtype=vh.dtype, device=vh.device)
+    fn = _kernel("pooled_attention", "sf_pooled_attention_saved_e",
+                 [_PTR] * 5 + [_I64] * 6 + [_I32, _PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), e.data_ptr(),
+             B, Nq, Nk, nh, dq, dv, int(vh.dtype == torch.bfloat16), _stream(vh))
+    if err != 0:
+        raise RuntimeError(f"saved-e pooled-attention kernel launch failed: CUDA error {err}")
+    fused_launches += 1
+    return out, e
+
+
 def _launch_bwd(qh, kh, vh, do, exact):
     """Both kernels of one backward: per q tile dq and the row statistics,
     then per key chunk dk and dv over every q tile. The statistics
     (``m``, ``s``, ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
     global flash_bwd_launches, exact_bwd_launches
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do), _MAX_DQ_BWD)
-    if do.shape != (B, Nq, nh, dv) or do.dtype != vh.dtype:
-        raise ValueError(f"do must be {(B, Nq, nh, dv)} {vh.dtype}, got "
-                         f"{tuple(do.shape)} {do.dtype}")
+    _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
     dq_out = torch.empty_like(qh)
     dk_out = torch.empty_like(kh)
     dv_out = torch.empty_like(vh)
@@ -239,12 +324,35 @@ def _launch_bwd(qh, kh, vh, do, exact):
                  [_PTR] * 8 + [_I64] * 6 + [_I32, _I32, _PTR])
     err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
              dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(), stats.data_ptr(),
-             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16),
-             torch.cuda.current_stream(vh.device).cuda_stream)
+             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16), _stream(vh))
     if err != 0:
         raise RuntimeError(f"pooled-attention backward kernel launch failed: CUDA error {err}")
     if exact:
         exact_bwd_launches += 1
     else:
         flash_bwd_launches += 1
+    return dq_out, dk_out, dv_out
+
+
+def _launch_fused_bwd(qh, kh, vh, do, e):
+    """Both kernels of the saved-e backward: per q tile dq and the row
+    statistics from ``e``, then per key chunk dk and dv over every q tile.
+    The statistics (``s``, ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
+    global fused_bwd_launches
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do, e), _MAX_DQ_BWD)
+    _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
+    _check_operand(e, "e", (B, nh, Nq, Nk), vh.dtype)
+    dq_out = torch.empty_like(qh)
+    dk_out = torch.empty_like(kh)
+    dv_out = torch.empty_like(vh)
+    stats = torch.empty((2, B, nh, Nq), dtype=torch.float32, device=qh.device)
+    fn = _kernel("pooled_attention_fused_bwd", "sf_pooled_attention_fused_bwd",
+                 [_PTR] * 9 + [_I64] * 6 + [_I32, _PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), e.data_ptr(),
+             dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(), stats.data_ptr(),
+             B, Nq, Nk, nh, dq, dv, int(vh.dtype == torch.bfloat16), _stream(vh))
+    if err != 0:
+        raise RuntimeError(f"saved-e pooled-attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    fused_bwd_launches += 1
     return dq_out, dk_out, dv_out

@@ -1,11 +1,13 @@
 """Gradients of the port's pooled-attention cores against the JAX package's.
 
 On the CPU the ``autograd.Function``s run the plain backwards
-(``flash_bwd_plain``, ``exact_bwd_plain``), which is what the CUDA backward
-kernels are held against on the card. Here they meet ``jax.vjp`` of the
-Pallas functions in interpret mode (``flash_pooled_attention``, whose
-backward is ``_flash_bwd_kernel``, and ``pooled_attention``, whose backward
-is ``_bwd_kernel``) on the same seeded numpy inputs and output gradient.
+(``flash_bwd_plain``, ``fused_bwd_plain``, ``exact_bwd_plain``), which is
+what the CUDA backward kernels are held against on the card. Here they meet
+``jax.vjp`` of the Pallas functions in interpret mode
+(``flash_pooled_attention``, whose backward is ``_flash_bwd_kernel``,
+``fused_pooled_attention``, whose backward ``_fused_bwd_kernel`` reads the
+saved ``e``, and ``pooled_attention``, whose backward is ``_bwd_kernel``) on
+the same seeded numpy inputs and output gradient.
 
 Tolerances: fp32 atol 5e-5 / rtol 5e-4, as
 ``tests/test_pallas_attention.py``'s gradient parity uses (the sums are
@@ -34,7 +36,11 @@ SHAPES = {
 CORES = {
     "flash": (ta.flash_pooled_attention, ta.flash_bwd_plain, jpa.flash_pooled_attention),
     "exact": (ta.pooled_attention, ta.exact_bwd_plain, jpa.pooled_attention),
+    "fused": (ta.fused_pooled_attention,
+              lambda q, k, v, do: ta.fused_bwd_plain(q, k, v, do, ta.fused_plain(q, k, v)[1]),
+              jpa.fused_pooled_attention),
 }
+CONSTANT_SHIFT = ("flash", "fused")
 
 
 def _inputs(shape, seed, extreme=False):
@@ -97,12 +103,12 @@ def test_autograd_function_is_the_plain_backward(core, dtype):
     and no kernel launch is counted."""
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(a).to(dt) for a in _inputs(SHAPES["long_k"], 1))
-    before = (ta.flash_bwd_launches, ta.exact_bwd_launches)
+    before = (ta.flash_bwd_launches, ta.exact_bwd_launches, ta.fused_bwd_launches)
     got = _port_grads(core, [t.float().numpy() for t in (q, k, v, do)], dt)
     want = CORES[core][1](q, k, v, do)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.float().numpy())
-    assert (ta.flash_bwd_launches, ta.exact_bwd_launches) == before
+    assert (ta.flash_bwd_launches, ta.exact_bwd_launches, ta.fused_bwd_launches) == before
 
 
 @pytest.mark.parametrize("core", CORES)
@@ -115,7 +121,7 @@ def test_clamped_and_underflowing_rows(core, dtype):
     got = _port_grads(core, arrays, getattr(torch, dtype))
     assert all(np.isfinite(g).all() for g in got)
     _assert_close(got, _jax_grads(core, arrays, getattr(jnp, dtype)), dtype)
-    if core == "flash":
+    if core in CONSTANT_SHIFT:
         assert np.abs(got[0][:, 3:6]).max() == 0.0  # dq of underflowing rows
         assert np.abs(got[0][:, 0:3]).max() > 0.0  # clamped rows still learn
 
@@ -132,11 +138,14 @@ def test_clamped_rows_differ_from_autograd_of_the_forward():
     torch.testing.assert_close(dq_autograd[:, 6:], dq_jax_formula[:, 6:], atol=1e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("fn", [ta.flash_pooled_attention, ta.pooled_attention])
+@pytest.mark.parametrize("fn", [ta.flash_pooled_attention, ta.pooled_attention,
+                                ta.fused_pooled_attention])
 def test_backward_raises_instead_of_falling_back(fn):
     """Off the CPU the backward launches its kernel or raises."""
     tensors = [torch.empty(s, device="meta") for s in
                [(1, 5, 2, 8), (1, 3, 2, 8), (1, 3, 2, 4), (1, 5, 2, 4)]]
-    exact = fn is ta.pooled_attention
     with pytest.raises(ValueError, match="no pooled-attention kernel"):
-        ta._launch_bwd(*tensors, exact=exact)
+        if fn is ta.fused_pooled_attention:
+            ta._launch_fused_bwd(*tensors, torch.empty((1, 2, 5, 3), device="meta"))
+        else:
+            ta._launch_bwd(*tensors, exact=fn is ta.pooled_attention)
