@@ -4,7 +4,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   1. device   the card's name and power limit; fails without CUDA.
-  2. build    builds every CUDA kernel from slowfast_tpu_torch/csrc with nvcc.
+  2. build    builds every CUDA kernel from slowfast_tpu_torch/csrc with nvcc,
+              with the registers and spill bytes ptxas gives each kernel of
+              the exact pair.
   3. kernel   each kernel against its plain PyTorch version on the card, at the
               slice's shape and a ragged one, with its device time, the plain
               version's time and its byte bound.
@@ -20,7 +22,12 @@ Phases, each printing one JSON line:
               TPU.PALLAS_ATTENTION) against their plain versions on the
               inputs the full-width MViTv2-S 16x4 eval step gives its 16
               blocks at B=8 in bf16, at block 1 at B=1 in fp32, and at small
-              ragged and extreme cases; per distinct block shape the device
+              cases on every edge of the 64 x 64 tiling (Nk < 64,
+              Nk = 64 j + 1, Nq = 1, dq 20/21/24, dv 12/16, extreme
+              logits) and one bf16 case for each template instance of the
+              exact pair; the exact core must run its bf16 tensor-core
+              kernel in bf16 and its FMA kernel in fp32; per distinct block
+              shape the device
               time, the plain time, SDPA's time and backend (on the same
               inputs, and on the backend SDPA picks once q and k are
               zero-padded to a multiple of 8 channels), and the bound. Also
@@ -34,8 +41,9 @@ Phases, each printing one JSON line:
               plain backwards on the q, k, v that the 16 blocks of one
               full-width MViTv2-S train forward at 16 clips in bf16 hand
               their core (with a seeded output gradient), at block 1 at one
-              clip in fp32, and at ragged and extreme cases; the wrappers'
-              autograd on the card; per distinct block shape the device
+              clip in fp32, and at the edge cases of attn_kernel; the bf16
+              exact backward (tensor cores) bit-equal over two launches; the
+              wrappers' autograd on the card; per distinct block shape the device
               time, the plain time, SDPA's backward time and backend, and
               the bound.
  10a. attn_fused_kernel  the saved-e pair (fused_pooled_attention: the
@@ -47,12 +55,20 @@ Phases, each printing one JSON line:
               and backward times beside the flash kernels', the plain
               versions', SDPA's, the bounds and the bytes of e.
  10b. mvit_train_fused  one full-width MViTv2-S train step at 16 clips
-              with the default core and with fused_pooled_attention swapped
-              in, from the same weights, clips and generator seeds. bf16:
-              equal losses, gradients within twice the run-to-run distance
-              of two default-core runs, 16 launches of each fused kernel,
-              step times and peak memory; fp32 (TF32 off): equal losses and
-              gradients within 1e-3 relative L2.
+              with the default core, with fused_pooled_attention swapped
+              in, and with the exact core (TPU.PALLAS_ATTENTION: the bf16
+              tensor-core pair), from the same weights, clips and generator
+              seeds. bf16: equal losses of flash and fused, gradients
+              within twice the run-to-run distance of two default-core
+              runs, 16 launches of each fused and each exact kernel, step
+              times and peak memory; the exact step's finite loss and its
+              gradients' distance from flash's (recorded: its softmax rounds
+              otherwise); the exact step once more with every kernel call
+              held against the plain versions on its own inputs, and with
+              the plain forward the backward kernel's gradients within
+              twice the run-to-run distance of the plain backward's; fp32
+              (TF32 off): equal losses and gradients within 1e-3 relative
+              L2.
  11. mvit_train_fp32  one train step of full-width MViTv2-S on one clip on
               the card against the CPU on the same weights, fp32, TF32 off,
               once with each core: loss, grad norm, every gradient and the
@@ -72,6 +88,7 @@ the script exits non-zero without printing that line.
 import json
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -166,18 +183,45 @@ def reset_launches():
 
     pp.launches = ta.flash_launches = ta.exact_launches = ta.fused_launches = 0
     ta.flash_bwd_launches = ta.exact_bwd_launches = ta.fused_bwd_launches = 0
+    ta.exact_tc_launches = ta.exact_tc_bwd_launches = 0
 
 
 def read_launches():
     from slowfast_tpu_torch.ops import attention as ta
     from slowfast_tpu_torch.ops import preprocess as pp
 
+    # attention_exact{,_bwd}: the bf16 tensor-core pair (kernel table rows 2
+    # and 3); attention_exact_fma{,_bwd}: its fp32 instance, the FMA kernels.
     return {"preprocess_u8": pp.launches, "attention_flash": ta.flash_launches,
-            "attention_exact": ta.exact_launches,
+            "attention_exact": ta.exact_tc_launches,
+            "attention_exact_fma": ta.exact_launches,
             "attention_fused": ta.fused_launches,
             "attention_flash_bwd": ta.flash_bwd_launches,
-            "attention_exact_bwd": ta.exact_bwd_launches,
+            "attention_exact_bwd": ta.exact_tc_bwd_launches,
+            "attention_exact_fma_bwd": ta.exact_bwd_launches,
             "attention_fused_bwd": ta.fused_bwd_launches}
+
+
+EXACT_KEYS = ("attention_exact", "attention_exact_fma", "attention_exact_bwd",
+              "attention_exact_fma_bwd")
+# The forward and backward kernels that each core runs in fp32.
+FP32_CORE_KEYS = {"flash": ("attention_flash", "attention_flash_bwd"),
+                  "exact": ("attention_exact_fma", "attention_exact_fma_bwd")}
+
+
+# Which kernels the exact core's wrappers launch, by dtype (checked on every
+# call in phases attn_kernel and attn_bwd_kernel).
+EXACT_PATH = {"bfloat16": "wgmma (tensor cores): csrc/pooled_attention_exact.cu, "
+                          "csrc/pooled_attention_exact_bwd.cu",
+              "float32": "FMA (CUDA cores): exact modes of csrc/pooled_attention.cu, "
+                         "csrc/pooled_attention_bwd.cu"}
+
+
+def only_launched(launches, keys, n):
+    """Every attention kernel in ``keys`` launched ``n`` times, every other
+    attention kernel never."""
+    return all(count == (n if key in keys else 0) for key, count in launches.items()
+               if key.startswith("attention_"))
 
 
 def phase_device():
@@ -193,13 +237,40 @@ def phase_device():
     return info
 
 
+def ptxas_usage(log):
+    """Registers and spill bytes of each kernel in ptxas's ``-v`` report, by
+    kernel name with its template arguments."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            mangled = line.rsplit(" ", 1)[-1]
+            m = re.match(r"_Z(\d+)", mangled)
+            name = mangled
+            if m:  # _Z<length><name>[I<template arguments>E]
+                end = m.end() + int(m[1])
+                args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
+                ints = re.findall(r"Li(\d+)E", args[1]) if args else []
+                name = mangled[m.end():end] + (f"<{', '.join(ints)}>" if ints else "")
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            usage[name]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line)[1])
+        elif name and "Used" in line and "registers" in line:
+            usage[name]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            name = None
+    return usage
+
+
 def phase_build():
     from slowfast_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(libs)})
+    seconds = time.perf_counter() - t0
+    # The tensor-core pair's resources, as their source notes quote them.
+    ptxas = {name: ptxas_usage(_build.log_path(name).read_text(errors="replace"))
+             for name in ("pooled_attention_exact", "pooled_attention_exact_bwd")}
+    emit({"phase": "build", "seconds": seconds, "libraries": sorted(libs),
+          "ptxas": ptxas})
 
 
 def phase_kernel():
@@ -381,7 +452,7 @@ def drive_test(phase, make_cfg, out_dir, num_videos):
 def phase_slice():
     """SlowFast 4x16 R50: 2 videos x 10 views x 3 crops."""
     row, launches = drive_test("slice", slowfast_cfg, OUT_DIR, 2)
-    check(launches["attention_flash"] == launches["attention_exact"] == 0,
+    check(launches["attention_flash"] == 0 and all(launches[k] == 0 for k in EXACT_KEYS),
           f"SlowFast launched an attention kernel: {launches}")
     emit(row)
     return launches
@@ -395,7 +466,7 @@ def phase_mvit_slice():
     check(launches["attention_flash"] == depth * row["batches"],
           f"attention kernel launched {launches['attention_flash']} times for "
           f"{row['batches']} batches of {depth} blocks")
-    check(launches["attention_exact"] == 0, f"exact core launched: {launches}")
+    check(all(launches[k] == 0 for k in EXACT_KEYS), f"exact core launched: {launches}")
     emit(row)
     return launches
 
@@ -472,6 +543,24 @@ def attention_inputs(shape, dtype, seed, extreme=False):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def edge_cases(max_dq):
+    """Small (shape, dtype, extreme) cases that reach every edge of the
+    kernels' 64 x 64 tiling: Nk under one chunk, Nk = 64 j + 1, Nq = 1,
+    depths 20/24 and 12/16 (padded to 32 and 16 by the tensor-core pair),
+    an odd depth (2-byte copies), and extreme logits where Nq allows. Then
+    one bf16 case for each template instance of the tensor-core pair: dq
+    padded to 32, 128, 144, 192 and 256 (up to ``max_dq``, the entry
+    point's limit) against dv padded to 16, 64, 96 and 128."""
+    shapes = [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12), (1, 1, 65, 3, 20, 12),
+              (2, 100, 129, 1, 21, 12)]
+    cases = [(shape, dtype, extreme) for shape in shapes
+             for dtype in (torch.float32, torch.bfloat16)
+             for extreme in (False, True) if shape[1] >= 6 or not extreme]
+    widths = [((1, 129, 65, 1, dq, dv), torch.bfloat16, False)
+              for dq in (20, 118, 132, 192, 256) if dq <= max_dq for dv in (12, 64, 96, 128)]
+    return cases + widths
+
+
 def capture_mvit_attention(batch_size, steps=6):
     """The (q, k, v) that each block of one full-width MViTv2-S 16x4 eval
     step (bf16, seeded random weights and clips) hands its attention core,
@@ -526,7 +615,12 @@ def phase_attn_kernel():
         """The kernel against its plain version; returns (output, max abs err)."""
         nonlocal n_checked
         fn, plain = kernels[name]
+        before = (ta.exact_tc_launches, ta.exact_launches)
         got, want = fn(q, k, v), plain(q, k, v)
+        if name == "exact":  # bf16 on the tensor cores, fp32 on the FMA kernel
+            tc = q.dtype == torch.bfloat16
+            check((ta.exact_tc_launches - before[0], ta.exact_launches - before[1])
+                  == (int(tc), int(not tc)), f"exact {q.dtype}: wrong kernel launched")
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"{name}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
         check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
@@ -550,15 +644,13 @@ def phase_attn_kernel():
             block1 = [t[:1].float().contiguous() for t in captured[1]]
             for name in kernels:
                 fp32_err[name] = compare(name, *block1)[1]
-            for shape in [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12)]:
-                for dtype in (torch.float32, torch.bfloat16):
-                    for extreme in (False, True):
-                        q, k, v = attention_inputs(shape, dtype, 5, extreme)
-                        for name in kernels:
-                            got, _ = compare(name, q, k, v)
-                            if extreme and name == "flash":
-                                check(got[:, 3:6].abs().max().item() == 0.0,
-                                      "underflowing rows are not zero")
+            for shape, dtype, extreme in edge_cases(ta._MAX_DQ):
+                q, k, v = attention_inputs(shape, dtype, 5, extreme)
+                for name in kernels:
+                    got, _ = compare(name, q, k, v)
+                    if extreme and name == "flash":
+                        check(got[:, 3:6].abs().max().item() == 0.0,
+                              "underflowing rows are not zero")
 
             totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                                  library_fast_ms=0.0) for name in kernels}
@@ -590,6 +682,7 @@ def phase_attn_kernel():
                "max_abs_err": max_err, "fp32_block1_max_abs_err": fp32_err,
                "tolerance_of_max_abs_v": {"float32": ATTN_TOL[torch.float32],
                                           "bfloat16": ATTN_TOL[torch.bfloat16]},
+               "exact_path": EXACT_PATH,
                "per_forward": totals, "bound_split_ms": bound_split,
                "bound_by": max(bound_split, key=bound_split.get),
                "mvit_eval_step_p50_ms": step_ms,
@@ -636,15 +729,13 @@ def phase_mvit_fp32():
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         err = (got - want).abs().max().item()
-        other = "exact" if core == "flash" else "flash"
         check(got.shape == (1, num_classes) and torch.isfinite(got).all().item(),
               f"bad output {got.shape}")
         check(2.0 / num_classes < want.max().item() < 0.5,
               f"softmax max {want.max().item()} outside (2/{num_classes}, 0.5)")
         check(err <= FULL_WIDTH_ATOL, f"{core}: card vs CPU softmax max abs err {err}")
         check(bool(got.argmax() == want.argmax()), f"{core}: argmax differs")
-        check(launches[core][f"attention_{core}"] == cfg.MVIT.DEPTH
-              and launches[core][f"attention_{other}"] == 0
+        check(only_launched(launches[core], FP32_CORE_KEYS[core][:1], cfg.MVIT.DEPTH)
               and launches[core]["preprocess_u8"] == 1,
               f"{core}: launches {launches[core]}")
         emit({"phase": "mvit_fp32", "core": core, "max_abs_err": err,
@@ -731,13 +822,23 @@ def phase_attn_bwd_kernel():
     wrappers = {"flash": ta.flash_pooled_attention, "exact": ta.pooled_attention}
     max_abs = {name: 0.0 for name in plains}
     max_share = {name: 0.0 for name in plains}
-    n_checked = 0
+    n_checked = n_bit_equal = 0
 
     def compare(name, q, k, v, do):
         """The kernel against its plain backward; returns the three grads and
         the largest error share of dq, dk, dv."""
-        nonlocal n_checked
+        nonlocal n_checked, n_bit_equal
+        before = (ta.exact_tc_bwd_launches, ta.exact_bwd_launches)
         got = ta._launch_bwd(q, k, v, do, exact=name == "exact")
+        if name == "exact":  # bf16 on the tensor cores, fp32 on the FMA kernels
+            tc = q.dtype == torch.bfloat16
+            check((ta.exact_tc_bwd_launches - before[0], ta.exact_bwd_launches - before[1])
+                  == (int(tc), int(not tc)), f"exact {q.dtype}: wrong backward launched")
+            if tc:  # deterministic: a second launch gives the same bits
+                again = ta._launch_bwd(q, k, v, do, exact=True)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"exact backward differs between two launches at q {tuple(q.shape)}")
+                n_bit_equal += 1
         want = plains[name](q, k, v, do)
         shares = []
         for g, w, t in zip(got, want, (q, k, v)):
@@ -765,15 +866,13 @@ def phase_attn_bwd_kernel():
         fp32_err = {name: compare(name, *block1, grad_out(block1[0], block1[2], 7))[1]
                     for name in plains}
         extreme_zero = True
-        for shape in [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12)]:
-            for dtype in (torch.float32, torch.bfloat16):
-                for extreme in (False, True):
-                    q, k, v = attention_inputs(shape, dtype, 5, extreme)
-                    do = grad_out(q, v, 8)
-                    for name in plains:
-                        (dq, _, _), _ = compare(name, q, k, v, do)
-                        if extreme and name == "flash":
-                            extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
+        for shape, dtype, extreme in edge_cases(ta._MAX_DQ_BWD):
+            q, k, v = attention_inputs(shape, dtype, 5, extreme)
+            do = grad_out(q, v, 8)
+            for name in plains:
+                (dq, _, _), _ = compare(name, q, k, v, do)
+                if extreme and name == "flash":
+                    extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
         check(extreme_zero, "underflowing rows have a nonzero dq")
 
         # The wrappers on the card: an output with a grad_fn whose gradients
@@ -819,6 +918,7 @@ def phase_attn_bwd_kernel():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     summary = {"phase": "attn_bwd_kernel", "clips": TRAIN_CLIPS, "cases_checked": n_checked,
+               "exact_bf16_bit_equal_relaunches": n_bit_equal, "exact_path": EXACT_PATH,
                "max_abs_err": max_abs, "max_err_share": max_share,
                "fp32_block1_err_share": fp32_err,
                "tolerance_share": {"float32": ATTN_BWD_TOL[torch.float32],
@@ -971,11 +1071,12 @@ def phase_attn_fused_kernel():
     return summary
 
 
-def train_step_run(cfg, state, batch, fused, timed_steps=0):
+def train_step_run(cfg, state, batch, swap=None, timed_steps=0):
     """One ``make_train_step`` step of a model built from ``cfg`` and loaded
     with ``state``, its generators seeded from ``cfg.RNG_SEED`` (drop path,
-    dropout and mixup draw alike in every run), with the saved-e core
-    swapped in for the default one if ``fused``; then ``timed_steps`` more
+    dropout and mixup draw alike in every run), with ``swap = (name, core)``
+    setting ``ops.attention.<name>`` to ``core`` for the run (the saved-e
+    core for the default one, say); then ``timed_steps`` more
     on the same batch (host clock to a synchronize). Returns the first
     step's loss, grad norm, gradients before the clip (fp32, on the CPU),
     launches and peak memory, and the timed steps' ms."""
@@ -999,9 +1100,9 @@ def train_step_run(cfg, state, batch, fused, timed_steps=0):
 
     opt.step = recording_update
     step = make_train_step(cfg, model, opt, torch.Generator().manual_seed(cfg.RNG_SEED))
-    flash_core = ta.flash_pooled_attention
-    if fused:
-        ta.flash_pooled_attention = ta.fused_pooled_attention
+    if swap:
+        kept = getattr(ta, swap[0])
+        setattr(ta, swap[0], swap[1])
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1017,7 +1118,8 @@ def train_step_run(cfg, state, batch, fused, timed_steps=0):
             torch.cuda.synchronize()
             steps_ms.append((time.perf_counter() - t0) * 1e3)
     finally:
-        ta.flash_pooled_attention = flash_core
+        if swap:
+            setattr(ta, swap[0], kept)
     if steps_ms:
         run.update(step_p50_ms=statistics.median(steps_ms), steps_ms=steps_ms)
     del model, opt, step, recording_update, update, m
@@ -1043,12 +1145,65 @@ def phase_mvit_train_fused():
     two bf16 runs of the same core differ in their gradients: the third run
     measures that floor, and fused may differ from flash by at most twice
     it. fp32 (TF32 off): flash and fused once more, where that noise is
-    about 1e-7: equal losses and gradients within 1e-3 relative L2. Last,
-    one bf16 flash step under torch.use_deterministic_algorithms(True,
+    about 1e-7: equal losses and gradients within 1e-3 relative L2. The
+    exact core (TPU.PALLAS_ATTENTION) in bf16 runs the tensor-core pair; its
+    softmax rounds otherwise than flash's, so its distance from flash is
+    recorded, not held. It is held instead to its plain versions: once
+    more with every call checked against them on the inputs the model
+    gave it (and within twice the run-to-run distance of the timed run),
+    and with the plain forward, its backward kernel's gradients within
+    twice the run-to-run distance of the step with the plain backward (the
+    same forward). The distance of steps whose forwards differ is recorded.
+    Last, one bf16 flash step under torch.use_deterministic_algorithms(True,
     warn_only=True) names the ops that have no deterministic version."""
     import warnings
 
     from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.ops import attention as ta
+
+    class PlainExactCore(torch.autograd.Function):
+        """The exact core on the card with ``exact_plain`` for its forward
+        and, unless ``kernel_bwd``, ``exact_bwd_plain`` for its backward."""
+
+        @staticmethod
+        def forward(ctx, qh, kh, vh, kernel_bwd):
+            ctx.save_for_backward(qh, kh, vh)
+            ctx.kernel_bwd = kernel_bwd
+            return ta.exact_plain(qh, kh, vh)
+
+        @staticmethod
+        def backward(ctx, do):
+            args = (*ctx.saved_tensors, do.contiguous())
+            if ctx.kernel_bwd:
+                return (*ta._launch_bwd(*args, exact=True), None)
+            return (*ta.exact_bwd_plain(*args), None)
+
+    kernel_core = ta.pooled_attention
+    shadow = dict(fwd_calls=0, bwd_calls=0, fwd_err_share=0.0, fwd_elems_differ_share=0.0,
+                  bwd_err_share=0.0)
+
+    def shadowed_core(qh, kh, vh):
+        """The exact core's entry point, each call also held against the
+        plain versions on the inputs (and output gradient) it was given."""
+        out = kernel_core(qh, kh, vh)
+        q, k, v = (t.detach() for t in (qh, kh, vh))
+        want = ta.exact_plain(q, k, v)
+        err = (out.detach().float() - want.float()).abs().max().item()
+        shadow["fwd_calls"] += 1
+        shadow["fwd_err_share"] = max(shadow["fwd_err_share"],
+                                      err / v.float().abs().max().item())
+        shadow["fwd_elems_differ_share"] = max(shadow["fwd_elems_differ_share"],
+                                               (out.detach() != want).float().mean().item())
+
+        def check_bwd(grad_inputs, grad_outputs):
+            shadow["bwd_calls"] += 1
+            for g, w in zip(grad_inputs, ta.exact_bwd_plain(q, k, v, grad_outputs[0])):
+                err = (g.float() - w.float()).abs().max().item()
+                shadow["bwd_err_share"] = max(shadow["bwd_err_share"],
+                                              err / max(w.float().abs().max().item(), 1e-30))
+
+        out.grad_fn.register_hook(check_bwd)
+        return out
 
     cfg = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"])
     depth = cfg.MVIT.DEPTH
@@ -1062,21 +1217,30 @@ def phase_mvit_train_fused():
              "epoch_exact": 15.0}  # mid-warmup: a nonzero LR
     state = {k: v.cpu() for k, v in build_model(cfg, device="cuda").state_dict().items()}
     runs, grads = {}, {}
-    for name, fused in (("flash", False), ("fused", True), ("flash_again", False)):
-        runs[name], grads[name] = train_step_run(cfg, state, batch, fused, 3)
+    fused_swap = ("flash_pooled_attention", ta.fused_pooled_attention)
+    for name, swap in (("flash", None), ("fused", fused_swap), ("flash_again", None)):
+        runs[name], grads[name] = train_step_run(cfg, state, batch, swap, 3)
+    cfg_exact = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.PALLAS_ATTENTION", "True"])
+    runs["exact"], grads["exact"] = train_step_run(cfg_exact, state, batch, None, 3)
+    for name, core in (("exact_shadow", shadowed_core),
+                       ("plain_exact", lambda q, k, v: PlainExactCore.apply(q, k, v, False)),
+                       ("plain_fwd_exact_bwd",
+                        lambda q, k, v: PlainExactCore.apply(q, k, v, True))):
+        runs[name], grads[name] = train_step_run(cfg_exact, state, batch,
+                                                 ("pooled_attention", core))
     cfg32 = mvit_cfg(["TPU.COMPUTE_DTYPE", "float32"])
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for name, fused in (("flash_fp32", False), ("fused_fp32", True)):
-            runs[name], grads[name] = train_step_run(cfg32, state, batch, fused)
+        for name, swap in (("flash_fp32", None), ("fused_fp32", fused_swap)):
+            runs[name], grads[name] = train_step_run(cfg32, state, batch, swap)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            train_step_run(cfg, state, batch, False)
+            train_step_run(cfg, state, batch)
         finally:
             torch.use_deterministic_algorithms(False)
     nondeterministic = sorted({str(w.message).split(" does not have")[0][:120] for w in caught
@@ -1085,30 +1249,48 @@ def phase_mvit_train_fused():
     check(all(sorted(g) == sorted(grads["flash"]) for g in grads.values()),
           "the runs differ in which parameters have a gradient")
     pairs = (("fused", "flash"), ("flash_again", "flash"), ("fused_fp32", "flash_fp32"))
-    l2 = {f"{a}_vs_{b}": rel_l2(grads[a], grads[b], grads[b]) for a, b in pairs}
+    l2 = {f"{a}_vs_{b}": rel_l2(grads[a], grads[b], grads[b])
+          for a, b in pairs + (("exact_shadow", "exact"), ("plain_fwd_exact_bwd", "plain_exact"),
+                               ("exact", "plain_fwd_exact_bwd"), ("exact", "plain_exact"),
+                               ("exact", "flash"), ("plain_exact", "flash"))}
     row = {"phase": "mvit_train_fused", "clips": TRAIN_CLIPS, "grad_rel_l2": l2,
            "grad_l2_tol_fp32": TRAIN_GRAD_L2_TOL, "params_checked": len(grads["flash"]),
            "peak_memory_delta": runs["fused"]["max_memory_allocated"]
            - runs["flash"]["max_memory_allocated"],
-           "nondeterministic_ops": nondeterministic, **runs}
+           "nondeterministic_ops": nondeterministic, "exact_shadow_checks": shadow, **runs}
     emit(row)
     for a, b in pairs:
         check(np.isfinite(runs[b]["loss"]) and runs[a]["loss"] == runs[b]["loss"],
               f"{a} loss {runs[a]['loss']} vs {b} {runs[b]['loss']}")
+    # The exact softmax rounds otherwise than the constant shift: its loss and
+    # gradients are recorded beside flash's, and held to its plain versions'.
+    check(np.isfinite(runs["exact"]["loss"]) and np.isfinite(l2["exact_vs_flash"]),
+          f"exact: loss {runs['exact']['loss']}, gradients {l2['exact_vs_flash']} from flash's")
+    check(shadow["fwd_calls"] == shadow["bwd_calls"] == depth
+          and shadow["fwd_err_share"] <= ATTN_TOL[torch.bfloat16]
+          and shadow["bwd_err_share"] <= ATTN_BWD_TOL[torch.bfloat16],
+          f"exact kernels in the train step against their plain versions: {shadow}")
+    for a, b in (("exact_shadow", "exact"), ("plain_fwd_exact_bwd", "plain_exact")):
+        check(l2[f"{a}_vs_{b}"] <= 2 * l2["flash_again_vs_flash"] + 1e-6,
+              f"bf16: {a} gradients differ from {b}'s by {l2[f'{a}_vs_{b}']}, twice the "
+              f"run-to-run {l2['flash_again_vs_flash']} (L2)")
     check(l2["fused_fp32_vs_flash_fp32"] <= TRAIN_GRAD_L2_TOL,
           f"fp32: fused gradients differ from flash's by {l2['fused_fp32_vs_flash_fp32']} (L2)")
     check(l2["fused_vs_flash"] <= 2 * l2["flash_again_vs_flash"] + 1e-6,
           f"bf16: fused gradients differ from flash's by {l2['fused_vs_flash']}, twice the "
           f"run-to-run {l2['flash_again_vs_flash']} (L2)")
-    want = {False: ("attention_flash", "attention_flash_bwd"),
-            True: ("attention_fused", "attention_fused_bwd")}
+    flash = ("attention_flash", "attention_flash_bwd")
+    fused = ("attention_fused", "attention_fused_bwd")
+    exact = ("attention_exact", "attention_exact_bwd")
+    want = {"flash": flash, "fused": fused, "flash_again": flash, "exact": exact,
+            "exact_shadow": exact, "plain_exact": (),
+            "plain_fwd_exact_bwd": ("attention_exact_bwd",), "flash_fp32": flash,
+            "fused_fp32": fused}
     for name, run in runs.items():
-        n, fused = run["launches"], name.startswith("fused")
-        check(all(n[k] == depth for k in want[fused])
-              and all(n[k] == 0 for k in want[not fused])
-              and n["attention_exact"] == n["attention_exact_bwd"] == 0
-              and n["preprocess_u8"] == 1, f"{name}: launches {n}")
-    return runs["fused"]["launches"]
+        n = run["launches"]
+        check(only_launched(n, want[name], depth) and n["preprocess_u8"] == 1,
+              f"{name}: launches {n}")
+    return {name: run["launches"] for name, run in runs.items()}
 
 
 def structurally_zero(name, depth):
@@ -1208,7 +1390,6 @@ def phase_mvit_train_fp32():
         param_err = max((params[n] - want_params[n]).abs().max().item() for n in params)
         loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
         norm_err = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
-        other = "exact" if core == "flash" else "flash"
         emit({"phase": "mvit_train_fp32", "core": core, "loss": got["loss"],
               "cpu_loss": want["loss"], "loss_rel_err": loss_err,
               "grad_norm": got["grad_norm"], "grad_norm_rel_err": norm_err,
@@ -1230,10 +1411,7 @@ def phase_mvit_train_fp32():
         # of its gradient; where a gradient is rounding noise the sign may
         # differ, so the bound is twice the LR.
         check(param_err <= 2.0 * want["lr"] + 1e-6, f"{core}: parameters differ by {param_err}")
-        check(launches[core][f"attention_{core}_bwd"] == depth
-              and launches[core][f"attention_{other}_bwd"] == 0
-              and launches[core][f"attention_{core}"] == depth
-              and launches[core][f"attention_{other}"] == 0,
+        check(only_launched(launches[core], FP32_CORE_KEYS[core], depth),
               f"{core}: launches {launches[core]}")
     return launches
 
@@ -1304,7 +1482,7 @@ def phase_mvit_train_slice(attn_bwd, attn_fwd):
           f"backward launched {launches['attention_flash_bwd']} times for 4 steps")
     check(launches["attention_flash"] == depth * (4 + 4),
           f"forward launched {launches['attention_flash']} times for 4 + 4 batches")
-    check(launches["attention_exact"] == launches["attention_exact_bwd"] == 0
+    check(all(launches[k] == 0 for k in EXACT_KEYS)
           and launches["attention_fused"] == launches["attention_fused_bwd"] == 0,
           f"exact or fused core launched: {launches}")
     check(launches["preprocess_u8"] == 4 + 4, f"preprocess launches {launches}")
@@ -1414,12 +1592,12 @@ def main():
     launches = phase_slice()
     phase_breakdown()
     attn = phase_attn_kernel()
-    fp32_launches = phase_mvit_fp32()
+    phase_mvit_fp32()
     mvit_launches = phase_mvit_slice()
     attn_bwd = phase_attn_bwd_kernel()
     fused = phase_attn_fused_kernel()
-    fused_launches = phase_mvit_train_fused()
-    train_fp32_launches = phase_mvit_train_fp32()
+    train_runs = phase_mvit_train_fused()
+    phase_mvit_train_fp32()
     train_launches = phase_mvit_train_slice(attn_bwd, attn)
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
@@ -1433,35 +1611,34 @@ def main():
     # Attention: per MViTv2-S forward at B=8 in bf16, summed over its 16
     # blocks. The constant-shift core's launches are the MViT test's; the
     # exact core runs on the model path only under TPU.PALLAS_ATTENTION,
-    # so its launches are those of phase mvit_fp32's exact run.
-    for core, replaces, n in (
-            ("flash", "slowfast_tpu/ops/pallas_attention.py:375",
-             mvit_launches["attention_flash"]),
-            ("exact", "slowfast_tpu/ops/pallas_attention.py:39",
-             fp32_launches["exact"]["attention_exact"])):
+    # and in bf16 on the tensor cores, so its launches are those of phase
+    # mvit_train_fused's bf16 exact step.
+    for core, source, replaces, n in (
+            ("flash", "pooled_attention.cu", ":375", mvit_launches["attention_flash"]),
+            ("exact", "pooled_attention_exact.cu", ":39",
+             train_runs["exact"]["attention_exact"])):
         tot = attn["per_forward"][core]
         lines.append({
             "name": f"attention_{core}", "route": "cuda",
-            "source": "slowfast_tpu_torch/csrc/pooled_attention.cu",
-            "replaces": replaces, "launches": n, "max_abs_err": attn["max_abs_err"][core],
+            "source": f"slowfast_tpu_torch/csrc/{source}",
+            "replaces": f"slowfast_tpu/ops/pallas_attention.py{replaces}", "launches": n,
+            "max_abs_err": attn["max_abs_err"][core],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": attn["bound_by"], "library_ms": tot["library_ms"],
         })
     # Attention backwards: per MViTv2-S train step at 16 clips in bf16,
     # summed over its 16 blocks. The constant-shift backward's launches are
-    # the train slice's; the exact one runs on the model path only under
-    # TPU.PALLAS_ATTENTION, so its launches are those of phase
-    # mvit_train_fp32's exact run.
-    for core, replaces, n in (
-            ("flash", "slowfast_tpu/ops/pallas_attention.py:392",
-             train_launches["attention_flash_bwd"]),
-            ("exact", "slowfast_tpu/ops/pallas_attention.py:58",
-             train_fp32_launches["exact"]["attention_exact_bwd"])):
+    # the train slice's; the exact one's those of phase mvit_train_fused's
+    # bf16 exact step.
+    for core, source, replaces, n in (
+            ("flash", "pooled_attention_bwd.cu", ":392", train_launches["attention_flash_bwd"]),
+            ("exact", "pooled_attention_exact_bwd.cu", ":58",
+             train_runs["exact"]["attention_exact_bwd"])):
         tot = attn_bwd["per_backward"][core]
         lines.append({
             "name": f"attention_{core}_bwd", "route": "cuda",
-            "source": "slowfast_tpu_torch/csrc/pooled_attention_bwd.cu",
-            "replaces": replaces, "launches": n,
+            "source": f"slowfast_tpu_torch/csrc/{source}",
+            "replaces": f"slowfast_tpu/ops/pallas_attention.py{replaces}", "launches": n,
             "max_abs_err": attn_bwd["max_abs_err"][core],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": attn_bwd["bound_by"], "library_ms": tot["library_ms"],
@@ -1476,7 +1653,7 @@ def main():
         lines.append({
             "name": name, "route": "cuda", "source": f"slowfast_tpu_torch/csrc/{source}",
             "replaces": f"slowfast_tpu/ops/pallas_attention.py{replaces}",
-            "launches": fused_launches[name],
+            "launches": train_runs["fused"][name],
             "max_abs_err": fused["max_abs_err"]["out" if part == "fwd" else "grads"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": fused["bound_by"][part],

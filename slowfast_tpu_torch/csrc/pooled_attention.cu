@@ -14,7 +14,8 @@
 //     is stored from the register that feeds s and e v, so the output is
 //     bit-equal to the flash mode's;
 //   * :39 _fwd_kernel (pooled_attention :171), the exact softmax: m = max l,
-//     p = exp(l - m), s = sum p in fp32 (unrounded), o = (round(p) v) / s.
+//     p = exp(l - m), s = sum p in fp32 (unrounded), o = (round(p) v) / s;
+//     fp32 only, as bf16 runs on the tensor cores (pooled_attention_exact.cu).
 // q (B, Nq, nh, dq) and k (B, Nk, nh, dq) arrive pre-scaled and rel-pos
 // augmented (dq = 96 + kt + kh + kw in MViTv2-S), v is (B, Nk, nh, dv); all
 // bf16 or all fp32, contiguous. Both products accumulate in fp32. The TPU
@@ -213,24 +214,23 @@ static bool bad_shape(long long b, long long nq, long long nk, long long nh,
 }
 
 // out = softmax(q k^T) v per (batch, head), on `stream`. exact != 0 selects
-// the max-subtracted softmax of _fwd_kernel, else the constant shift of
+// the max-subtracted softmax of _fwd_kernel (fp32 only: in bf16 it runs on
+// the tensor cores, pooled_attention_exact.cu), else the constant shift of
 // _flash_fwd_kernel; is_bf16 != 0 selects bf16 tensors, else fp32. All
 // pointers are device pointers to contiguous tensors. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
-// the kernel does not take (bad_shape).
+// the kernel does not take (bad_shape) and for bf16 with exact.
 extern "C" int sf_pooled_attention(const void* q, const void* k, const void* v,
                                    void* out, long long b, long long nq,
                                    long long nk, long long nh, long long dq,
                                    long long dv, int exact, int is_bf16,
                                    void* stream) {
-  if (bad_shape(b, nq, nk, nh, dq, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, nq, nk, nh, dq, dv) || (is_bf16 && exact))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return exact ? dispatch_dv<__nv_bfloat16, true, false>(q, k, v, out, nullptr, b, nq,
-                                                           nk, nh, dq, dv, s)
-                 : dispatch_dv<__nv_bfloat16, false, false>(q, k, v, out, nullptr, b, nq,
-                                                            nk, nh, dq, dv, s);
-  }
+  if (is_bf16)
+    return dispatch_dv<__nv_bfloat16, false, false>(q, k, v, out, nullptr, b, nq, nk, nh, dq,
+                                                    dv, s);
   return exact ? dispatch_dv<float, true, false>(q, k, v, out, nullptr, b, nq, nk, nh, dq,
                                                  dv, s)
                : dispatch_dv<float, false, false>(q, k, v, out, nullptr, b, nq, nk, nh, dq,

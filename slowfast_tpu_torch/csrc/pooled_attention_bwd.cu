@@ -14,7 +14,8 @@
 //   * :58 _bwd_kernel, the backward of the exact core (TPU.PALLAS_ATTENTION):
 //     m = max l, e = exp(l - m), s = sum e, p = e / s, dp = do v^T (fp32),
 //     r = sum dp * p, dl = p * (dp - r), dq = round(dl) k,
-//     dk = round(dl)^T q, dv = round(p)^T do.
+//     dk = round(dl)^T q, dv = round(p)^T do; fp32 only, as bf16 runs on the
+//     tensor cores (pooled_attention_exact_bwd.cu).
 // "round" is a cast to the input type (identity in fp32). All products
 // accumulate in fp32; dq, dk and dv are rounded to the input type once, at
 // the end, as the TPU kernels' fp32 outputs are cast at their boundary.
@@ -418,12 +419,14 @@ static int dispatch(const BwdArgs& a) {
 }
 
 // dq, dk and dv of softmax(q k^T) v per (batch, head), on `stream`, given
-// the output gradient dout. exact != 0 selects _bwd_kernel's exact softmax,
-// else _flash_bwd_kernel's constant shift; is_bf16 != 0 selects bf16
-// tensors, else fp32. stats is fp32 scratch of 3 * b * nh * nq floats. All
-// pointers are device pointers to contiguous tensors. Returns
-// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
-// shapes the kernels do not take (dq > 192, dv > 128, grid limits).
+// the output gradient dout. exact != 0 selects _bwd_kernel's exact softmax
+// (fp32 only: in bf16 it runs on the tensor cores,
+// pooled_attention_exact_bwd.cu), else _flash_bwd_kernel's constant shift;
+// is_bf16 != 0 selects bf16 tensors, else fp32. stats is fp32 scratch of
+// 3 * b * nh * nq floats. All pointers are device pointers to contiguous
+// tensors. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for shapes the kernels do not take (dq > 192,
+// dv > 128, grid limits) and for bf16 with exact.
 extern "C" int sf_pooled_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, void* dq, void* dk, void* dv,
                                        void* stats, long long b, long long nq,
@@ -433,13 +436,13 @@ extern "C" int sf_pooled_attention_bwd(const void* q, const void* k, const void*
   if (b <= 0 || nq <= 0 || nk <= 0 || nh <= 0 || dqd <= 0 || dvd <= 0 ||
       dqd > PB_MAX_DQ || dvd > PB_MAX_DV || b > 65535 || nh > 65535 ||
       nq > 0x7fffffffLL - PB_BQ || nk > 0x7fffffffLL - PB_BK ||
-      b * (nq > nk ? nq : nk) * nh * (dqd > dvd ? dqd : dvd) > (1LL << 62))
+      b * (nq > nk ? nq : nk) * nh * (dqd > dvd ? dqd : dvd) > (1LL << 62) ||
+      (is_bf16 && exact))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long plane = b * nh * nq;
   float* st = static_cast<float*>(stats);
   const BwdArgs a{q, k, v, dout, dq, dk, dv, st, st + plane, st + 2 * plane,
                   b, nq, nk, nh, dqd, dvd, static_cast<cudaStream_t>(stream)};
-  if (is_bf16)
-    return exact ? dispatch<__nv_bfloat16, true>(a) : dispatch<__nv_bfloat16, false>(a);
+  if (is_bf16) return dispatch<__nv_bfloat16, false>(a);
   return exact ? dispatch<float, true>(a) : dispatch<float, false>(a);
 }

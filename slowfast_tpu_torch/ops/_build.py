@@ -5,6 +5,8 @@ for ``sm_90a`` into a shared library under ``slowfast_tpu_torch/_build/``,
 named by a hash of its source and of the headers in ``csrc/``, so a stale
 build is never loaded. The build
 happens at first use; ``build_all`` starts one ``nvcc`` per source at once.
+ptxas reports each kernel's registers, spills and shared memory
+(``-Xptxas -v``); the report is kept beside the library (``log_path``).
 Libraries are loaded with ``ctypes``.
 """
 
@@ -19,7 +21,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded = {}
 
@@ -47,6 +49,11 @@ def _lib_path(name):
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(name):
+    """nvcc's output (ptxas's report) for the current build of ``name``."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def _start(name):
     """Start nvcc for ``name`` unless its library exists; return (proc, tmp, out)."""
     out = _lib_path(name)
@@ -65,6 +72,7 @@ def _finish(name, proc, tmp, out):
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+    out.with_suffix(".log").write_bytes(log)
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
     return out
 

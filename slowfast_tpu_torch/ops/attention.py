@@ -28,7 +28,12 @@ the counterparts of the JAX package's Pallas kernels
   (kernel :39 ``_fwd_kernel``): ``p = exp(l - max l)``, ``s = Σp`` in fp32,
   ``o = (round(p) v) / s``. Backward (kernel :58 ``_bwd_kernel``):
   ``p = e / s``, ``dp = do vᵀ`` in fp32, ``dl = p (dp - Σ dp·p)``,
-  ``dq = round(dl) k``, ``dk = round(dl)ᵀ q``, ``dv = round(p)ᵀ do``.
+  ``dq = round(dl) k``, ``dk = round(dl)ᵀ q``, ``dv = round(p)ᵀ do``. In
+  bf16 both run on the tensor cores (``csrc/pooled_attention_exact.cu`` and
+  ``csrc/pooled_attention_exact_bwd.cu``, wgmma), with depths padded to a
+  multiple of 16 in shared memory only; in fp32 they are the exact modes of
+  ``csrc/pooled_attention.cu`` and ``csrc/pooled_attention_bwd.cu`` (FMA
+  loops: the tensor cores have no full-fp32 product).
 
 All take q ``(B, Nq, nh, dq)``, k ``(B, Nk, nh, dq)`` (pre-scaled and
 rel-pos augmented) and v ``(B, Nk, nh, dv)``, all bf16 or all fp32, and
@@ -48,15 +53,25 @@ import torch
 from . import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
-_MAX_DQ, _MAX_DV = 256, 128  # PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu
-_MAX_DQ_BWD = 192  # PB_MAX_DQ, PF_MAX_DQ in csrc/pooled_attention{_bwd,_fused_bwd}.cu
+# PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu; EX_MAX_DQ, EX_MAX_DV in
+# csrc/pooled_attention_exact.cu
+_MAX_DQ, _MAX_DV = 256, 128
+# PB_MAX_DQ, PF_MAX_DQ, EB_MAX_DQ in csrc/pooled_attention{_bwd,_fused_bwd,_exact_bwd}.cu
+_MAX_DQ_BWD = 192
+_TILE = 64  # q rows and keys per tile of every pooled-attention kernel
+_SM_COUNT_H100 = 132
+_KEYS_BLOCKS_PER_SM = 8  # four waves of the keys kernel's two resident blocks
 
-# Kernel launches since the last reset; only the _launch* functions add to them.
+# Kernel launches since the last reset; only the _launch* functions add to
+# them. The exact core has one pair for fp32 (FMA, ``exact_*``) and one for
+# bf16 (tensor cores, ``exact_tc_*``).
 flash_launches = 0
 exact_launches = 0
+exact_tc_launches = 0
 fused_launches = 0
 flash_bwd_launches = 0
 exact_bwd_launches = 0
+exact_tc_bwd_launches = 0
 fused_bwd_launches = 0
 
 
@@ -238,10 +253,14 @@ def _check(qh, kh, vh):
         raise ValueError("q, k and v must lie on one device")
 
 
+def _check_device(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no pooled-attention kernel for device {t.device}")
+
+
 def _check_launch(tensors, max_dq):
     qh, vh = tensors[0], tensors[2]
-    if qh.device.type != "cuda":
-        raise ValueError(f"no pooled-attention kernel for device {qh.device}")
+    _check_device(qh)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the pooled-attention kernels take contiguous tensors")
     B, Nq, nh, dq = qh.shape
@@ -275,8 +294,52 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def pad16(d):
+    """A depth zero-padded to the tensor cores' k16 step: the tensor-core
+    kernels' depth in shared memory (device memory holds the real one)."""
+    return -(-d // 16) * 16
+
+
+def copy_vec(tensors, d):
+    """Elements per asynchronous copy (8, 4, 2 or 1 bf16: 16 to 2 bytes) of
+    the ``(B, N, nh, d)`` tensors: the widest piece that every base pointer,
+    the depth ``d`` and so every row and head offset are aligned to."""
+    for vec in (8, 4, 2):
+        size = 2 * vec
+        if (2 * d) % size == 0 and all(t.data_ptr() % size == 0 for t in tensors):
+            return vec
+    return 1
+
+
+def keys_split(B, Nq, Nk, nh, sms=_SM_COUNT_H100):
+    """The q split of the tensor-core backward's keys kernel: ``(n_split,
+    tiles_per_split)``. Its grid is (key chunks, nh, B) times ``n_split``
+    slices of the q tiles: the fewest slices that give 8 blocks per SM
+    (four waves, so the last one idles little), or one slice per q tile.
+    Each slice takes ``tiles_per_split`` tiles, the last one what
+    remains."""
+    tiles = -(-Nq // _TILE)
+    blocks = -(-Nk // _TILE) * nh * B
+    want = max(1, min(tiles, -(-_KEYS_BLOCKS_PER_SM * sms // blocks)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def exact_bwd_scratch(B, Nq, Nk, nh, dq, dv, n_split):
+    """Shapes of the tensor-core backward's fp32 scratch: the row statistics
+    ``m, s, r`` and the keys kernel's partial dk and dv of each slice."""
+    return {"stats": (3, B, nh, Nq), "dk_part": (n_split, B, Nk, nh, dq),
+            "dv_part": (n_split, B, Nk, nh, dv)}
+
+
+def _sm_count(t):
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def _launch(qh, kh, vh, exact):
     global flash_launches, exact_launches
+    if exact and vh.dtype == torch.bfloat16:
+        return _launch_exact_tc(qh, kh, vh)
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
     out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
     fn = _kernel("pooled_attention", "sf_pooled_attention",
@@ -289,6 +352,22 @@ def _launch(qh, kh, vh, exact):
         exact_launches += 1
     else:
         flash_launches += 1
+    return out
+
+
+def _launch_exact_tc(qh, kh, vh):
+    """The bf16 exact forward on the tensor cores."""
+    global exact_tc_launches
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
+    out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
+    fn = _kernel("pooled_attention_exact", "sf_exact_attention_fwd",
+                 [_PTR] * 4 + [_I64] * 6 + [_I32] * 4 + [_PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+             B, Nq, Nk, nh, dq, dv, pad16(dq), pad16(dv), copy_vec((qh, kh), dq),
+             copy_vec((vh,), dv), _stream(vh))
+    if err != 0:
+        raise RuntimeError(f"exact pooled-attention kernel launch failed: CUDA error {err}")
+    exact_tc_launches += 1
     return out
 
 
@@ -314,6 +393,8 @@ def _launch_bwd(qh, kh, vh, do, exact):
     then per key chunk dk and dv over every q tile. The statistics
     (``m``, ``s``, ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
     global flash_bwd_launches, exact_bwd_launches
+    if exact and vh.dtype == torch.bfloat16:
+        return _launch_exact_tc_bwd(qh, kh, vh, do)
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do), _MAX_DQ_BWD)
     _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
     dq_out = torch.empty_like(qh)
@@ -331,6 +412,33 @@ def _launch_bwd(qh, kh, vh, do, exact):
         exact_bwd_launches += 1
     else:
         flash_bwd_launches += 1
+    return dq_out, dk_out, dv_out
+
+
+def _launch_exact_tc_bwd(qh, kh, vh, do):
+    """The bf16 exact backward on the tensor cores: a rows kernel (dq and
+    the row statistics), a keys kernel (fp32 partial dk and dv of each q
+    slice, ``keys_split``) and the sum of the slices, in that order."""
+    global exact_tc_bwd_launches
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do), _MAX_DQ_BWD)
+    _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
+    n_split, per = keys_split(B, Nq, Nk, nh, _sm_count(qh))
+    dq_out = torch.empty_like(qh)
+    dk_out = torch.empty_like(kh)
+    dv_out = torch.empty_like(vh)
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=qh.device)
+               for name, shape in exact_bwd_scratch(B, Nq, Nk, nh, dq, dv, n_split).items()}
+    fn = _kernel("pooled_attention_exact_bwd", "sf_exact_attention_bwd",
+                 [_PTR] * 10 + [_I64] * 6 + [_I32] * 6 + [_PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
+             dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(),
+             scratch["stats"].data_ptr(), scratch["dk_part"].data_ptr(),
+             scratch["dv_part"].data_ptr(), B, Nq, Nk, nh, dq, dv, pad16(dq), pad16(dv),
+             copy_vec((qh, kh), dq), copy_vec((vh, do), dv), n_split, per, _stream(vh))
+    if err != 0:
+        raise RuntimeError(f"exact pooled-attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    exact_tc_bwd_launches += 1
     return dq_out, dk_out, dv_out
 
 

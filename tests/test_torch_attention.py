@@ -171,3 +171,156 @@ def test_fused_plain_is_the_flash_plain_bitwise(dtype):
     assert torch.equal(out, ta.flash_plain(q, k, v))
     for got, want in zip(ta.fused_bwd_plain(q, k, v, do, e), ta.flash_bwd_plain(q, k, v, do)):
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# The bf16 exact core on the tensor cores (csrc/pooled_attention_exact.cu):
+# what the wrapper hands the kernel, and the kernel's padding and masking
+# scheme in plain PyTorch.
+
+MVIT_WIDTHS = [(118, 128), (132, 144), (20, 32), (24, 32), (12, 16), (96, 96), (16, 16)]
+
+
+@pytest.mark.parametrize("d, padded", MVIT_WIDTHS)
+def test_pad16_is_the_shared_memory_depth(d, padded):
+    assert ta.pad16(d) == padded
+
+
+@pytest.mark.parametrize("nh, d, offset, vec", [
+    (1, 118, 0, 2),   # MViTv2-S block 0: 236-byte rows, 4-byte pieces
+    (2, 118, 0, 2),   # blocks 2-13: a head starts 236 bytes after the last
+    (2, 132, 0, 4),   # blocks 1, 3, 14: 264 bytes, 8-byte pieces
+    (8, 96, 0, 8),    # v: 192 bytes, 16-byte pieces
+    (2, 20, 0, 4),
+    (2, 12, 0, 4),
+    (2, 21, 0, 1),    # odd depth: 2-byte alignment, plain loads
+    (1, 96, 2, 2),    # a base pointer 4 bytes into its storage
+])
+def test_copy_vec_takes_the_widest_aligned_piece(nh, d, offset, vec):
+    storage = torch.zeros(3 * 5 * nh * d + offset, dtype=torch.bfloat16)
+    t = storage[offset:].view(3, 5, nh, d)
+    assert t.data_ptr() % 16 == (2 * offset) % 16
+    assert ta.copy_vec((t,), d) == vec
+
+
+class _StubLibrary:
+    """Records what the wrapper would launch; launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def kernel(self, source, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            self.calls.append((source, symbol, args))
+            return 0
+        return fn
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    lib = _StubLibrary()
+    monkeypatch.setattr(ta, "_kernel", lib.kernel)
+    monkeypatch.setattr(ta, "_check_device", lambda t: None)
+    monkeypatch.setattr(ta, "_stream", lambda t: 0)
+    monkeypatch.setattr(ta, "_sm_count", lambda t: 132)
+    for name in ("flash_launches", "exact_launches", "exact_tc_launches", "fused_launches",
+                 "flash_bwd_launches", "exact_bwd_launches", "exact_tc_bwd_launches",
+                 "fused_bwd_launches"):
+        monkeypatch.setattr(ta, name, 0)
+    return lib
+
+
+@pytest.mark.parametrize("shape", [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12),
+                                   (2, 300, 393, 1, 118, 96), (1, 100, 1569, 2, 132, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exact_forward_routes_by_dtype(stub, shape, dtype):
+    """bf16 goes to the tensor-core entry point with the padded depths and
+    the copy pieces; fp32 to the FMA kernel's exact mode; each counts on
+    its own counter. The flash forward is the FMA kernel in both."""
+    B, Nq, Nk, nh, dq, dv = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.zeros(s, dtype=dt) for s in
+               [(B, Nq, nh, dq), (B, Nk, nh, dq), (B, Nk, nh, dv)])
+    out = ta._launch(q, k, v, exact=True)
+    assert out.shape == (B, Nq, nh, dv) and out.dtype == dt
+    ta._launch(q, k, v, exact=False)
+    (source, symbol, args), flash = stub.calls
+    assert flash[:2] == ("pooled_attention", "sf_pooled_attention") and flash[2][10] == 0
+    if dtype == "bfloat16":
+        assert (source, symbol) == ("pooled_attention_exact", "sf_exact_attention_fwd")
+        assert args[4:14] == (B, Nq, Nk, nh, dq, dv, ta.pad16(dq), ta.pad16(dv),
+                              ta.copy_vec((q, k), dq), ta.copy_vec((v,), dv))
+        assert (ta.exact_tc_launches, ta.exact_launches) == (1, 0)
+    else:
+        assert (source, symbol) == ("pooled_attention", "sf_pooled_attention")
+        assert args[4:12] == (B, Nq, Nk, nh, dq, dv, 1, 0)  # exact, not bf16
+        assert (ta.exact_tc_launches, ta.exact_launches) == (0, 1)
+    assert ta.flash_launches == 1
+
+
+def _chunked_logits(q, k, c0):
+    """fp32 logits of every q row against keys [c0, c0 + 64) of the padded
+    k, ``(B, nh, Nq, 64)``."""
+    return torch.einsum("bqnc,bknc->bnqk", q, k[:, c0:c0 + 64])
+
+
+def _padded(q, k, v):
+    """q, k and v as the tensor-core kernels see them in shared memory:
+    fp32 values, depths zero-padded to pad16, keys zero-padded to whole
+    64-key chunks; and a key mask, ``(Nk_padded,)``."""
+    dq, dv, Nk = q.shape[3], v.shape[3], k.shape[1]
+    nkp = -(-Nk // 64) * 64
+    qf = torch.nn.functional.pad(q.float(), (0, ta.pad16(dq) - dq))
+    kf = torch.nn.functional.pad(k.float(), (0, ta.pad16(dq) - dq, 0, 0, 0, nkp - Nk))
+    vf = torch.nn.functional.pad(v.float(), (0, ta.pad16(dv) - dv, 0, 0, 0, nkp - Nk))
+    return qf, kf, vf, torch.arange(nkp) < Nk
+
+
+def emulate_exact_forward(q, k, v):
+    """The tensor-core forward's scheme in plain PyTorch: padded depths,
+    64-key chunks whose keys >= Nk get -inf logits and zero V rows; pass 1
+    the row max, pass 2 ``p = exp(l - m)``, ``s`` from the unrounded ``p``
+    and ``o += round(p) v`` per chunk."""
+    dt, dv = v.dtype, v.shape[3]
+    qf, kf, vf, valid = _padded(q, k, v)
+    m = torch.full(q.shape[:1] + (q.shape[2], q.shape[1]), -float("inf"))
+    for c0 in range(0, kf.shape[1], 64):
+        l = _chunked_logits(qf, kf, c0).masked_fill(~valid[c0:c0 + 64], -float("inf"))
+        m = torch.maximum(m, l.amax(-1))
+    s = torch.zeros_like(m)
+    o = 0.0
+    for c0 in range(0, kf.shape[1], 64):
+        l = _chunked_logits(qf, kf, c0).masked_fill(~valid[c0:c0 + 64], -float("inf"))
+        p = torch.exp(l - m[..., None])
+        s = s + p.sum(-1)
+        o = o + torch.einsum("bnqk,bknc->bqnc", p.to(dt).float(), vf[:, c0:c0 + 64])
+    return (o / s.permute(0, 2, 1)[..., None])[..., :dv].to(dt)
+
+
+EDGE_SHAPES = {
+    # (B, Nq, Nk, nh, dq, dv): every edge of the 64 x 64 tiling
+    "nk_below_64": (2, 131, 13, 2, 24, 16),
+    "nk_64j_plus_1": (1, 70, 129, 2, 20, 12),
+    "nq_1": (2, 1, 65, 3, 20, 12),
+    "mvit_block0_like": (1, 97, 200, 1, 118, 96),
+}
+
+
+# Extreme logits need q rows 0-5, so Nq = 1 runs without them.
+EDGE_CASES = [pytest.param(shape, extreme, id=f"{name}{'-extreme' if extreme else ''}")
+              for name, shape in EDGE_SHAPES.items() for extreme in (False, True)
+              if shape[1] >= 6 or not extreme]
+
+
+@pytest.mark.parametrize("shape, extreme", EDGE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padding_and_masking_scheme_matches_exact_plain(shape, dtype, extreme):
+    """Zero-padded depths, -inf on the masked keys and zero V rows change
+    nothing: the emulated kernel is ``exact_plain`` within summation order
+    (fp32) or one bf16 ulp of the output (bf16)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _inputs(shape, 7, extreme))
+    got, want = emulate_exact_forward(q, k, v), ta.exact_plain(q, k, v)
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=tol, rtol=tol)

@@ -149,3 +149,152 @@ def test_backward_raises_instead_of_falling_back(fn):
             ta._launch_fused_bwd(*tensors, torch.empty((1, 2, 5, 3), device="meta"))
         else:
             ta._launch_bwd(*tensors, exact=fn is ta.pooled_attention)
+
+
+# The bf16 exact backward on the tensor cores
+# (csrc/pooled_attention_exact_bwd.cu): the keys kernel's q split and
+# scratch, what the wrapper hands the kernels, and the kernels' scheme in
+# plain PyTorch.
+
+from test_torch_attention import EDGE_CASES, _padded, stub  # noqa: E402,F401  (stub: a fixture)
+
+
+@pytest.mark.parametrize("shape, split", [
+    # MViTv2-S 16x4 at 16 clips, 8 blocks per SM (1056) wanted: block 0
+    # has 7 key chunks x 1 head x 16 clips = 112 blocks, so its 393 q tiles
+    # go in 10 slices of 40; block 1 (800 blocks) in 2, block 2 (224) in
+    # 5, blocks 4-13 (448) in 3, block 15 (896) in 2; blocks 3 and 14
+    # (1600 and 3200 blocks) are not split.
+    ((16, 25089, 393, 1, 118, 96), (10, 40)),
+    ((16, 6273, 1569, 2, 132, 96), (2, 50)),
+    ((16, 6273, 393, 2, 118, 96), (5, 20)),
+    ((16, 1569, 1569, 4, 132, 96), (1, 25)),
+    ((16, 1569, 393, 4, 118, 96), (3, 9)),
+    ((16, 393, 1569, 8, 132, 96), (1, 7)),
+    ((16, 393, 393, 8, 118, 96), (2, 4)),
+    # small shapes: no more slices than q tiles, none of them empty
+    ((2, 131, 13, 2, 24, 16), (3, 1)),
+    ((1, 1, 65, 3, 20, 12), (1, 1)),
+    ((1, 700, 64, 1, 20, 12), (11, 1)),
+    ((1, 4000, 64, 1, 20, 12), (63, 1)),
+])
+def test_keys_split_plan(shape, split):
+    B, Nq, Nk, nh, dq, dv = shape
+    n_split, per = ta.keys_split(B, Nq, Nk, nh, sms=132)
+    assert (n_split, per) == split
+    tiles = -(-Nq // 64)
+    assert (n_split - 1) * per < tiles <= n_split * per
+    grid = -(-Nk // 64) * nh * B * n_split
+    assert grid >= min(8 * 132, -(-Nk // 64) * nh * B * tiles)
+
+
+def test_exact_bwd_scratch_sizes():
+    """Block 0 at 16 clips: 10 slices of fp32 dk and dv, 53.8 MB, and the
+    row statistics."""
+    n_split, _ = ta.keys_split(16, 25089, 393, 1)
+    sizes = ta.exact_bwd_scratch(16, 25089, 393, 1, 118, 96, n_split)
+    assert sizes == {"stats": (3, 16, 1, 25089), "dk_part": (10, 16, 393, 1, 118),
+                     "dv_part": (10, 16, 393, 1, 96)}
+    assert 4 * sum(np.prod(sizes[k]) for k in ("dk_part", "dv_part")) == 53_825_280
+
+
+@pytest.mark.parametrize("shape", [(2, 131, 13, 2, 24, 16), (16, 25089, 393, 1, 118, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exact_backward_routes_by_dtype(stub, shape, dtype):
+    """bf16 goes to the tensor-core entry point with the padded depths, the
+    copy pieces, the q split and its scratch; fp32 to the FMA kernels'
+    exact mode; each counts on its own counter."""
+    B, Nq, Nk, nh, dq, dv = shape
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.empty(s, dtype=dt) for s in
+                   [(B, Nq, nh, dq), (B, Nk, nh, dq), (B, Nk, nh, dv), (B, Nq, nh, dv)])
+    grads = ta._launch_bwd(q, k, v, do, exact=True)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    (source, symbol, args), = stub.calls
+    if dtype == "bfloat16":
+        assert (source, symbol) == ("pooled_attention_exact_bwd", "sf_exact_attention_bwd")
+        n_split, per = ta.keys_split(B, Nq, Nk, nh, 132)
+        assert args[10:22] == (B, Nq, Nk, nh, dq, dv, ta.pad16(dq), ta.pad16(dv),
+                               ta.copy_vec((q, k), dq), ta.copy_vec((v, do), dv), n_split, per)
+        assert (ta.exact_tc_bwd_launches, ta.exact_bwd_launches) == (1, 0)
+    else:
+        assert (source, symbol) == ("pooled_attention_bwd", "sf_pooled_attention_bwd")
+        assert args[8:16] == (B, Nq, Nk, nh, dq, dv, 1, 0)  # exact, not bf16
+        assert (ta.exact_tc_bwd_launches, ta.exact_bwd_launches) == (0, 1)
+
+
+def emulate_exact_backward(q, k, v, do, sms=132):
+    """The tensor-core backward's scheme in plain PyTorch, on the padded
+    operands of the forward's emulation. Rows kernel: per 64-key chunk an
+    online row max with the sums behind ``s`` and ``r = Σ dp·p``, rescaled
+    when the max grows; then ``dl = round(p (dp - r))`` and ``dq = dl k``.
+    Keys kernel: per q
+    slice of ``keys_split``, fp32 partial ``dk = dlᵀ q`` and
+    ``dv = round(p)ᵀ do`` with rows >= Nq masked; the slices are summed in
+    order and rounded once."""
+    dt = q.dtype
+    B, Nq, nh, dq = q.shape
+    Nk, dv = k.shape[1], v.shape[3]
+    qf, kf, vf, valid = _padded(q, k, v)
+    dof = torch.nn.functional.pad(do.float(), (0, ta.pad16(dv) - dv))
+    chunks = range(0, kf.shape[1], 64)
+
+    def chunk(c0):
+        l = torch.einsum("bqnc,bknc->bnqk", qf, kf[:, c0:c0 + 64])
+        dp = torch.einsum("bqnc,bknc->bnqk", dof, vf[:, c0:c0 + 64])
+        return l.masked_fill(~valid[c0:c0 + 64], -float("inf")), dp
+
+    m = torch.full((B, nh, Nq), -float("inf"))
+    s = torch.zeros_like(m)
+    r = torch.zeros_like(m)
+    for c0 in chunks:
+        l, dp = chunk(c0)
+        m_new = torch.maximum(m, l.amax(-1))
+        scale, e = torch.exp(m - m_new), torch.exp(l - m_new[..., None])
+        s = s * scale + e.sum(-1)
+        r = r * scale + (dp * e).sum(-1)
+        m = m_new
+    r = r / s
+    dq_acc = 0.0
+    for c0 in chunks:
+        l, dp = chunk(c0)
+        p = torch.exp(l - m[..., None]) / s[..., None]
+        dl = (p * (dp - r[..., None])).to(dt).float()
+        dq_acc = dq_acc + torch.einsum("bnqk,bknc->bqnc", dl, kf[:, c0:c0 + 64])
+
+    n_split, per = ta.keys_split(B, Nq, Nk, nh, sms)
+    dk_part, dv_part = [], []
+    for sl in range(n_split):
+        rows = slice(64 * sl * per, min(Nq, 64 * (sl + 1) * per))
+        lt = torch.einsum("bknc,bqnc->bnkq", kf, qf[:, rows])
+        dpt = torch.einsum("bknc,bqnc->bnkq", vf, dof[:, rows])
+        p = torch.exp(lt - m[:, :, None, rows]) / s[:, :, None, rows]
+        p = p.masked_fill(~valid[:, None], 0.0)
+        dl = (p * (dpt - r[:, :, None, rows])).to(dt).float()
+        dk_part.append(torch.einsum("bnkq,bqnc->bknc", dl, qf[:, rows]))
+        dv_part.append(torch.einsum("bnkq,bqnc->bknc", p.to(dt).float(), dof[:, rows]))
+    dk_acc, dv_acc = dk_part[0], dv_part[0]
+    for a, b in zip(dk_part[1:], dv_part[1:]):
+        dk_acc, dv_acc = dk_acc + a, dv_acc + b
+    return (dq_acc[..., :dq].to(dt), dk_acc[:, :Nk, :, :dq].to(dt),
+            dv_acc[:, :Nk, :, :dv].to(dt))
+
+
+@pytest.mark.parametrize("shape, extreme", EDGE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_scheme_matches_exact_bwd_plain(shape, dtype, extreme):
+    """The emulated tensor-core backward (padding, masking, the online row
+    sum, the q split and its ordered sum) is ``exact_bwd_plain`` within
+    summation order (fp32) or the card's bf16 tolerance, 2e-2 of each
+    gradient's max."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(a).to(dt) for a in _inputs(shape, 9, extreme))
+    got = emulate_exact_backward(q, k, v, do)
+    want = ta.exact_bwd_plain(q, k, v, do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.isfinite(g).all()
+        g, w = g.float().numpy(), w.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=FP32_RTOL)
+        else:
+            assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max()
