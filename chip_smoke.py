@@ -6,7 +6,8 @@ Phases, each printing one JSON line:
   1. device   the card's name and power limit; fails without CUDA.
   2. build    builds every CUDA kernel from slowfast_tpu_torch/csrc with nvcc,
               with the registers and spill bytes ptxas gives each kernel of
-              the exact pair.
+              the tensor-core sources (the exact pair and the constant-shift
+              backwards).
   3. kernel   each kernel against its plain PyTorch version on the card, at the
               slice's shape and a ragged one, with its device time, the plain
               version's time and its byte bound.
@@ -41,19 +42,25 @@ Phases, each printing one JSON line:
               plain backwards on the q, k, v that the 16 blocks of one
               full-width MViTv2-S train forward at 16 clips in bf16 hand
               their core (with a seeded output gradient), at block 1 at one
-              clip in fp32, and at the edge cases of attn_kernel; the bf16
-              exact backward (tensor cores) bit-equal over two launches; the
-              wrappers' autograd on the card; per distinct block shape the device
-              time, the plain time, SDPA's backward time and backend, and
-              the bound.
+              clip in fp32, at the edge cases of attn_kernel and at a case
+              whose every e is a subnormal bf16 number; bf16 must run the
+              tensor-core kernels and fp32 the FMA ones (launch counters),
+              and every bf16 backward is bit-equal over two launches; the
+              wrappers' autograd on the card; per distinct block shape the
+              device time, the plain time, SDPA's backward time and backend,
+              and the bound.
  10a. attn_fused_kernel  the saved-e pair (fused_pooled_attention: the
               saved-e forward and the backward that reads e) on the same
-              inputs: out and e against the plain versions, out bit-equal
-              to the flash forward kernel's, the gradients against the plain
-              backward and the flash backward kernel, zero underflowing
-              rows, autograd on the card; per distinct block shape forward
-              and backward times beside the flash kernels', the plain
-              versions', SDPA's, the bounds and the bytes of e.
+              inputs, the edge cases and one bf16 case for each template
+              instance of its tensor-core backward: out and e against the
+              plain versions, out bit-equal to the flash forward kernel's,
+              the gradients against the plain backward and the flash
+              backward kernel, bf16 on the tensor cores and fp32 on the FMA
+              kernel, bf16 backwards bit-equal over two launches, zero
+              underflowing rows, autograd on the card; per distinct block
+              shape forward and backward times beside the flash kernels',
+              the plain versions', SDPA's, the bounds, the bytes of e and
+              the backward's floor (e read four times).
  10b. mvit_train_fused  one full-width MViTv2-S train step at 16 clips
               with the default core, with fused_pooled_attention swapped
               in, and with the exact core (TPU.PALLAS_ATTENTION: the bf16
@@ -66,9 +73,11 @@ Phases, each printing one JSON line:
               otherwise); the exact step once more with every kernel call
               held against the plain versions on its own inputs, and with
               the plain forward the backward kernel's gradients within
-              twice the run-to-run distance of the plain backward's; fp32
-              (TF32 off): equal losses and gradients within 1e-3 relative
-              L2.
+              twice the run-to-run distance of the plain backward's; the
+              default step once more with every call of the flash backward
+              held against flash_bwd_plain on its own inputs and output
+              gradient; fp32 (TF32 off): equal losses and gradients within
+              1e-3 relative L2.
  11. mvit_train_fp32  one train step of full-width MViTv2-S on one clip on
               the card against the CPU on the same weights, fp32, TF32 off,
               once with each core: loss, grad norm, every gradient and the
@@ -184,6 +193,7 @@ def reset_launches():
     pp.launches = ta.flash_launches = ta.exact_launches = ta.fused_launches = 0
     ta.flash_bwd_launches = ta.exact_bwd_launches = ta.fused_bwd_launches = 0
     ta.exact_tc_launches = ta.exact_tc_bwd_launches = 0
+    ta.flash_tc_bwd_launches = ta.fused_tc_bwd_launches = 0
 
 
 def read_launches():
@@ -191,21 +201,24 @@ def read_launches():
     from slowfast_tpu_torch.ops import preprocess as pp
 
     # attention_exact{,_bwd}: the bf16 tensor-core pair (kernel table rows 2
-    # and 3); attention_exact_fma{,_bwd}: its fp32 instance, the FMA kernels.
+    # and 3); attention_{flash,fused}_bwd: the bf16 tensor-core backwards of
+    # rows 7 and 5; *_fma*: the fp32 instances, the FMA kernels.
     return {"preprocess_u8": pp.launches, "attention_flash": ta.flash_launches,
             "attention_exact": ta.exact_tc_launches,
             "attention_exact_fma": ta.exact_launches,
             "attention_fused": ta.fused_launches,
-            "attention_flash_bwd": ta.flash_bwd_launches,
+            "attention_flash_bwd": ta.flash_tc_bwd_launches,
+            "attention_flash_fma_bwd": ta.flash_bwd_launches,
             "attention_exact_bwd": ta.exact_tc_bwd_launches,
             "attention_exact_fma_bwd": ta.exact_bwd_launches,
-            "attention_fused_bwd": ta.fused_bwd_launches}
+            "attention_fused_bwd": ta.fused_tc_bwd_launches,
+            "attention_fused_fma_bwd": ta.fused_bwd_launches}
 
 
 EXACT_KEYS = ("attention_exact", "attention_exact_fma", "attention_exact_bwd",
               "attention_exact_fma_bwd")
 # The forward and backward kernels that each core runs in fp32.
-FP32_CORE_KEYS = {"flash": ("attention_flash", "attention_flash_bwd"),
+FP32_CORE_KEYS = {"flash": ("attention_flash", "attention_flash_fma_bwd"),
                   "exact": ("attention_exact_fma", "attention_exact_fma_bwd")}
 
 
@@ -215,6 +228,12 @@ EXACT_PATH = {"bfloat16": "wgmma (tensor cores): csrc/pooled_attention_exact.cu,
                           "csrc/pooled_attention_exact_bwd.cu",
               "float32": "FMA (CUDA cores): exact modes of csrc/pooled_attention.cu, "
                          "csrc/pooled_attention_bwd.cu"}
+# Which kernels the constant-shift backwards launch, by dtype (checked on
+# every call in phases attn_bwd_kernel and attn_fused_kernel).
+FLASH_BWD_PATH = {"bfloat16": "wgmma (tensor cores): csrc/pooled_attention_flash_bwd.cu "
+                              "(recompute e; read e for the fused core)",
+                  "float32": "FMA (CUDA cores): csrc/pooled_attention_bwd.cu, "
+                             "csrc/pooled_attention_fused_bwd.cu"}
 
 
 def only_launched(launches, keys, n):
@@ -246,11 +265,12 @@ def ptxas_usage(log):
             mangled = line.rsplit(" ", 1)[-1]
             m = re.match(r"_Z(\d+)", mangled)
             name = mangled
-            if m:  # _Z<length><name>[I<template arguments>E]
+            if m:  # _Z<length><name>[I<template arguments>E], int or bool arguments
                 end = m.end() + int(m[1])
-                args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
-                ints = re.findall(r"Li(\d+)E", args[1]) if args else []
-                name = mangled[m.end():end] + (f"<{', '.join(ints)}>" if ints else "")
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                vals = [({"0": "false", "1": "true"}[val] if kind == "b" else val)
+                        for kind, val in re.findall(r"L([ib])(\d+)E", args[1])] if args else []
+                name = mangled[m.end():end] + (f"<{', '.join(vals)}>" if vals else "")
             usage[name] = {}
         elif name and "spill stores" in line:
             usage[name]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line)[1])
@@ -266,9 +286,10 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     seconds = time.perf_counter() - t0
-    # The tensor-core pair's resources, as their source notes quote them.
+    # The tensor-core kernels' resources, as their source notes quote them.
     ptxas = {name: ptxas_usage(_build.log_path(name).read_text(errors="replace"))
-             for name in ("pooled_attention_exact", "pooled_attention_exact_bwd")}
+             for name in ("pooled_attention_exact", "pooled_attention_exact_bwd",
+                          "pooled_attention_flash_bwd")}
     emit({"phase": "build", "seconds": seconds, "libraries": sorted(libs),
           "ptxas": ptxas})
 
@@ -530,13 +551,19 @@ def sdpa_yardsticks(q, k, v, do=None, iters=25):
 def attention_inputs(shape, dtype, seed, extreme=False):
     """Seeded q, k, v of ``shape`` (B, Nq, Nk, nh, dq, dv) on the card. With
     ``extreme``, q rows 0-2 put every logit above the clamp at 50 and rows
-    3-5 make every exp(l - 20) underflow."""
+    3-5 make every exp(l - 20) underflow; with ``extreme="subnormal"``
+    every logit lies near -69.5, so every e = exp(l - 20) is a subnormal
+    bf16 number (and s is the clamp's 1e-30)."""
     B, Nq, Nk, nh, dq, dv = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Nq, nh, dq), device="cuda", generator=gen) * 0.6
     k = torch.randn((B, Nk, nh, dq), device="cuda", generator=gen) * 0.6
     v = torch.randn((B, Nk, nh, dv), device="cuda", generator=gen)
-    if extreme:
+    if extreme == "subnormal":
+        q, k = q * 0.05, k * 0.05
+        k[..., 0] = 1.0
+        q[..., 0] = -69.5
+    elif extreme:
         k[..., 0] = 1.0 + torch.rand(k[..., 0].shape, device="cuda", generator=gen)
         q[:, 0:3, :, 0] = 100.0
         q[:, 3:6, :, 0] = -200.0
@@ -546,19 +573,29 @@ def attention_inputs(shape, dtype, seed, extreme=False):
 def edge_cases(max_dq):
     """Small (shape, dtype, extreme) cases that reach every edge of the
     kernels' 64 x 64 tiling: Nk under one chunk, Nk = 64 j + 1, Nq = 1,
-    depths 20/24 and 12/16 (padded to 32 and 16 by the tensor-core pair),
-    an odd depth (2-byte copies), and extreme logits where Nq allows. Then
-    one bf16 case for each template instance of the tensor-core pair: dq
-    padded to 32, 128, 144, 192 and 256 (up to ``max_dq``, the entry
-    point's limit) against dv padded to 16, 64, 96 and 128."""
+    depths 20/24 and 12/16 (padded to 32 and 16 by the tensor-core
+    kernels), an odd depth (2-byte copies), and extreme logits where Nq
+    allows; then ``template_cases(max_dq)``."""
     shapes = [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12), (1, 1, 65, 3, 20, 12),
               (2, 100, 129, 1, 21, 12)]
     cases = [(shape, dtype, extreme) for shape in shapes
              for dtype in (torch.float32, torch.bfloat16)
              for extreme in (False, True) if shape[1] >= 6 or not extreme]
-    widths = [((1, 129, 65, 1, dq, dv), torch.bfloat16, False)
-              for dq in (20, 118, 132, 192, 256) if dq <= max_dq for dv in (12, 64, 96, 128)]
-    return cases + widths
+    return cases + template_cases(max_dq)
+
+
+def template_cases(max_dq):
+    """One bf16 case for each template instance of the tensor-core kernels:
+    dq padded to 32, 128, 144, 192 and 256 (up to ``max_dq``, the entry
+    point's limit) against dv padded to 16, 64, 96 and 128."""
+    return [((1, 129, 65, 1, dq, dv), torch.bfloat16, False)
+            for dq in (20, 118, 132, 192, 256) if dq <= max_dq for dv in (12, 64, 96, 128)]
+
+
+# Every e of these a subnormal bf16 number: the tensor cores must take them
+# as the plain version does.
+SUBNORMAL_CASES = [((1, 70, 200, 2, 20, 12), dtype, "subnormal")
+                   for dtype in (torch.float32, torch.bfloat16)]
 
 
 def capture_mvit_attention(batch_size, steps=6):
@@ -822,23 +859,26 @@ def phase_attn_bwd_kernel():
     wrappers = {"flash": ta.flash_pooled_attention, "exact": ta.pooled_attention}
     max_abs = {name: 0.0 for name in plains}
     max_share = {name: 0.0 for name in plains}
-    n_checked = n_bit_equal = 0
+    n_checked = 0
+    n_bit_equal = {name: 0 for name in plains}
+    counters = {"flash": ("flash_tc_bwd_launches", "flash_bwd_launches"),
+                "exact": ("exact_tc_bwd_launches", "exact_bwd_launches")}
 
     def compare(name, q, k, v, do):
         """The kernel against its plain backward; returns the three grads and
         the largest error share of dq, dk, dv."""
-        nonlocal n_checked, n_bit_equal
-        before = (ta.exact_tc_bwd_launches, ta.exact_bwd_launches)
+        nonlocal n_checked
+        before = [getattr(ta, c) for c in counters[name]]
         got = ta._launch_bwd(q, k, v, do, exact=name == "exact")
-        if name == "exact":  # bf16 on the tensor cores, fp32 on the FMA kernels
-            tc = q.dtype == torch.bfloat16
-            check((ta.exact_tc_bwd_launches - before[0], ta.exact_bwd_launches - before[1])
-                  == (int(tc), int(not tc)), f"exact {q.dtype}: wrong backward launched")
-            if tc:  # deterministic: a second launch gives the same bits
-                again = ta._launch_bwd(q, k, v, do, exact=True)
-                check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      f"exact backward differs between two launches at q {tuple(q.shape)}")
-                n_bit_equal += 1
+        # bf16 on the tensor cores, fp32 on the FMA kernels
+        tc = q.dtype == torch.bfloat16
+        check([getattr(ta, c) - n for c, n in zip(counters[name], before)]
+              == [int(tc), int(not tc)], f"{name} {q.dtype}: wrong backward launched")
+        if tc:  # deterministic: a second launch gives the same bits
+            again = ta._launch_bwd(q, k, v, do, exact=name == "exact")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} backward differs between two launches at q {tuple(q.shape)}")
+            n_bit_equal[name] += 1
         want = plains[name](q, k, v, do)
         shares = []
         for g, w, t in zip(got, want, (q, k, v)):
@@ -866,13 +906,19 @@ def phase_attn_bwd_kernel():
         fp32_err = {name: compare(name, *block1, grad_out(block1[0], block1[2], 7))[1]
                     for name in plains}
         extreme_zero = True
-        for shape, dtype, extreme in edge_cases(ta._MAX_DQ_BWD):
+        for shape, dtype, extreme in edge_cases(ta._MAX_DQ_BWD) + SUBNORMAL_CASES:
             q, k, v = attention_inputs(shape, dtype, 5, extreme)
             do = grad_out(q, v, 8)
-            for name in plains:
-                (dq, _, _), _ = compare(name, q, k, v, do)
-                if extreme and name == "flash":
-                    extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
+            (dq, _, dv), _ = compare("flash", q, k, v, do)
+            compare("exact", q, k, v, do)
+            if extreme is True:
+                extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
+            if extreme == "subnormal":  # the case tests something only if every e is subnormal
+                e = ta.fused_plain(q, k, v)[1].float()
+                check(0.0 < e.min().item() and e.max().item() < 2.0 ** -126
+                      and dv.abs().max().item() > 0.0,
+                      f"subnormal case: e in [{e.min().item()}, {e.max().item()}], "
+                      f"dv max {dv.abs().max().item()}")
         check(extreme_zero, "underflowing rows have a nonzero dq")
 
         # The wrappers on the card: an output with a grad_fn whose gradients
@@ -918,7 +964,9 @@ def phase_attn_bwd_kernel():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     summary = {"phase": "attn_bwd_kernel", "clips": TRAIN_CLIPS, "cases_checked": n_checked,
-               "exact_bf16_bit_equal_relaunches": n_bit_equal, "exact_path": EXACT_PATH,
+               "exact_bf16_bit_equal_relaunches": n_bit_equal["exact"],
+               "flash_bf16_bit_equal_relaunches": n_bit_equal["flash"], "exact_path": EXACT_PATH,
+               "flash_path": FLASH_BWD_PATH,
                "max_abs_err": max_abs, "max_err_share": max_share,
                "fp32_block1_err_share": fp32_err,
                "tolerance_share": {"float32": ATTN_BWD_TOL[torch.float32],
@@ -937,7 +985,7 @@ def phase_attn_fused_kernel():
 
     max_abs = {"out": 0.0, "e": 0.0, "grads": 0.0, "grads_vs_flash": 0.0}
     max_share = {"out": 0.0, "e": 0.0, "grads": 0.0, "grads_vs_flash": 0.0}
-    n_checked = 0
+    n_checked = n_bit_equal = 0
 
     def note(key, err, scale):
         max_abs[key] = max(max_abs[key], err)
@@ -948,7 +996,7 @@ def phase_attn_fused_kernel():
         """The pair against its plain versions (on the kernel's own e) and
         against the flash kernels; returns (out, grads, largest gradient
         error share against the plain backward)."""
-        nonlocal n_checked
+        nonlocal n_checked, n_bit_equal
         out, e = ta._launch_fused(q, k, v)
         want_out, want_e = ta.fused_plain(q, k, v)
         check(out.shape == want_out.shape and out.dtype == want_out.dtype
@@ -966,7 +1014,17 @@ def phase_attn_fused_kernel():
         check(share <= tol, f"fused e differs from plain by {share} of its max at {where}")
         check(torch.equal(out, ta._launch(q, k, v, exact=False)),
               f"fused forward is not bit-equal to the flash forward at {where}")
+        before = (ta.fused_tc_bwd_launches, ta.fused_bwd_launches)
         grads = ta._launch_fused_bwd(q, k, v, do, e)
+        # bf16 on the tensor cores, fp32 on the FMA kernel
+        tc = q.dtype == torch.bfloat16
+        check((ta.fused_tc_bwd_launches - before[0], ta.fused_bwd_launches - before[1])
+              == (int(tc), int(not tc)), f"fused {q.dtype}: wrong backward launched")
+        if tc:  # deterministic: a second launch gives the same bits
+            again = ta._launch_fused_bwd(q, k, v, do, e)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"fused backward differs between two launches at {where}")
+            n_bit_equal += 1
         want = ta.fused_bwd_plain(q, k, v, do, e)
         flash = ta._launch_bwd(q, k, v, do, exact=False)
         shares = []
@@ -992,14 +1050,16 @@ def phase_attn_fused_kernel():
         block1 = [t[:1].float().contiguous() for t in captured[1]]
         fp32_err = compare(*block1, grad_out(block1[0], block1[2], 7))[2]
         extreme_zero = True
-        for shape in [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12)]:
-            for dtype in (torch.float32, torch.bfloat16):
-                for extreme in (False, True):
-                    q, k, v = attention_inputs(shape, dtype, 5, extreme)
-                    out, (dq, _, _), _ = compare(q, k, v, grad_out(q, v, 8))
-                    if extreme:
-                        extreme_zero &= out[:, 3:6].abs().max().item() == 0.0
-                        extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
+        cases = [(shape, dtype, extreme)
+                 for shape in [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12)]
+                 for dtype in (torch.float32, torch.bfloat16) for extreme in (False, True)]
+        for shape, dtype, extreme in (cases + template_cases(ta._MAX_DQ_BWD)
+                                      + SUBNORMAL_CASES):
+            q, k, v = attention_inputs(shape, dtype, 5, extreme)
+            out, (dq, _, _), _ = compare(q, k, v, grad_out(q, v, 8))
+            if extreme is True:
+                extreme_zero &= out[:, 3:6].abs().max().item() == 0.0
+                extreme_zero &= dq[:, 3:6].abs().max().item() == 0.0
         check(extreme_zero, "underflowing rows have a nonzero output or dq")
 
         # The wrapper on the card: an output with a grad_fn whose gradients
@@ -1050,12 +1110,18 @@ def phase_attn_fused_kernel():
                 for key in keys:
                     totals[name][key] += len(blocks) * row[name][key]
                 bound_split[name][bound["bound_by"]] += len(blocks) * bound["bound_ms"]
+            # The tensor-core backward's own floor: e read four times (three
+            # row passes and the keys kernel).
+            row["bwd"]["e_floor_ms"] = 4 * row["e_bytes"] / HBM_BYTES_PER_S * 1e3
+            totals["bwd"]["e_floor_ms"] = (totals["bwd"].get("e_floor_ms", 0.0)
+                                           + len(blocks) * row["bwd"]["e_floor_ms"])
             e_bytes += len(blocks) * row["e_bytes"]
             del e
             emit(row)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     summary = {"phase": "attn_fused_kernel", "clips": TRAIN_CLIPS, "cases_checked": n_checked,
+               "bf16_bit_equal_relaunches": n_bit_equal, "bwd_path": FLASH_BWD_PATH,
                "forward_bit_equal_to_flash": True, "max_abs_err": max_abs,
                "max_err_share": max_share, "fp32_block1_grad_err_share": fp32_err,
                "tolerance_share": {"out_and_e": {"float32": ATTN_TOL[torch.float32],
@@ -1154,7 +1220,10 @@ def phase_mvit_train_fused():
     and with the plain forward, its backward kernel's gradients within
     twice the run-to-run distance of the step with the plain backward (the
     same forward). The distance of steps whose forwards differ is recorded.
-    Last, one bf16 flash step under torch.use_deterministic_algorithms(True,
+    The default core is held the same way: once more with every call of
+    its forward and of its tensor-core backward checked against flash_plain
+    and flash_bwd_plain on the inputs (and output gradient) the model gave
+    it. Last, one bf16 flash step under torch.use_deterministic_algorithms(True,
     warn_only=True) names the ops that have no deterministic version."""
     import warnings
 
@@ -1178,32 +1247,37 @@ def phase_mvit_train_fused():
                 return (*ta._launch_bwd(*args, exact=True), None)
             return (*ta.exact_bwd_plain(*args), None)
 
-    kernel_core = ta.pooled_attention
-    shadow = dict(fwd_calls=0, bwd_calls=0, fwd_err_share=0.0, fwd_elems_differ_share=0.0,
-                  bwd_err_share=0.0)
+    shadow = {name: dict(fwd_calls=0, bwd_calls=0, fwd_err_share=0.0,
+                         fwd_elems_differ_share=0.0, bwd_err_share=0.0)
+              for name in ("exact", "flash")}
 
-    def shadowed_core(qh, kh, vh):
-        """The exact core's entry point, each call also held against the
-        plain versions on the inputs (and output gradient) it was given."""
-        out = kernel_core(qh, kh, vh)
-        q, k, v = (t.detach() for t in (qh, kh, vh))
-        want = ta.exact_plain(q, k, v)
-        err = (out.detach().float() - want.float()).abs().max().item()
-        shadow["fwd_calls"] += 1
-        shadow["fwd_err_share"] = max(shadow["fwd_err_share"],
-                                      err / v.float().abs().max().item())
-        shadow["fwd_elems_differ_share"] = max(shadow["fwd_elems_differ_share"],
-                                               (out.detach() != want).float().mean().item())
+    def shadowed(name, kernel_core, fwd_plain, bwd_plain):
+        """The core's entry point, each call also held against the plain
+        versions on the inputs (and output gradient) it was given."""
+        stats = shadow[name]
 
-        def check_bwd(grad_inputs, grad_outputs):
-            shadow["bwd_calls"] += 1
-            for g, w in zip(grad_inputs, ta.exact_bwd_plain(q, k, v, grad_outputs[0])):
-                err = (g.float() - w.float()).abs().max().item()
-                shadow["bwd_err_share"] = max(shadow["bwd_err_share"],
-                                              err / max(w.float().abs().max().item(), 1e-30))
+        def shadowed_core(qh, kh, vh):
+            out = kernel_core(qh, kh, vh)
+            q, k, v = (t.detach() for t in (qh, kh, vh))
+            want = fwd_plain(q, k, v)
+            err = (out.detach().float() - want.float()).abs().max().item()
+            stats["fwd_calls"] += 1
+            stats["fwd_err_share"] = max(stats["fwd_err_share"],
+                                         err / v.float().abs().max().item())
+            stats["fwd_elems_differ_share"] = max(stats["fwd_elems_differ_share"],
+                                                  (out.detach() != want).float().mean().item())
 
-        out.grad_fn.register_hook(check_bwd)
-        return out
+            def check_bwd(grad_inputs, grad_outputs):
+                stats["bwd_calls"] += 1
+                for g, w in zip(grad_inputs, bwd_plain(q, k, v, grad_outputs[0])):
+                    err = (g.float() - w.float()).abs().max().item()
+                    stats["bwd_err_share"] = max(stats["bwd_err_share"],
+                                                 err / max(w.float().abs().max().item(), 1e-30))
+
+            out.grad_fn.register_hook(check_bwd)
+            return out
+
+        return shadowed_core
 
     cfg = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"])
     depth = cfg.MVIT.DEPTH
@@ -1220,9 +1294,14 @@ def phase_mvit_train_fused():
     fused_swap = ("flash_pooled_attention", ta.fused_pooled_attention)
     for name, swap in (("flash", None), ("fused", fused_swap), ("flash_again", None)):
         runs[name], grads[name] = train_step_run(cfg, state, batch, swap, 3)
+    runs["flash_shadow"], grads["flash_shadow"] = train_step_run(
+        cfg, state, batch, ("flash_pooled_attention",
+                            shadowed("flash", ta.flash_pooled_attention, ta.flash_plain,
+                                     ta.flash_bwd_plain)))
     cfg_exact = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.PALLAS_ATTENTION", "True"])
     runs["exact"], grads["exact"] = train_step_run(cfg_exact, state, batch, None, 3)
-    for name, core in (("exact_shadow", shadowed_core),
+    for name, core in (("exact_shadow", shadowed("exact", ta.pooled_attention, ta.exact_plain,
+                                                 ta.exact_bwd_plain)),
                        ("plain_exact", lambda q, k, v: PlainExactCore.apply(q, k, v, False)),
                        ("plain_fwd_exact_bwd",
                         lambda q, k, v: PlainExactCore.apply(q, k, v, True))):
@@ -1250,14 +1329,16 @@ def phase_mvit_train_fused():
           "the runs differ in which parameters have a gradient")
     pairs = (("fused", "flash"), ("flash_again", "flash"), ("fused_fp32", "flash_fp32"))
     l2 = {f"{a}_vs_{b}": rel_l2(grads[a], grads[b], grads[b])
-          for a, b in pairs + (("exact_shadow", "exact"), ("plain_fwd_exact_bwd", "plain_exact"),
+          for a, b in pairs + (("flash_shadow", "flash"), ("exact_shadow", "exact"),
+                               ("plain_fwd_exact_bwd", "plain_exact"),
                                ("exact", "plain_fwd_exact_bwd"), ("exact", "plain_exact"),
                                ("exact", "flash"), ("plain_exact", "flash"))}
     row = {"phase": "mvit_train_fused", "clips": TRAIN_CLIPS, "grad_rel_l2": l2,
            "grad_l2_tol_fp32": TRAIN_GRAD_L2_TOL, "params_checked": len(grads["flash"]),
            "peak_memory_delta": runs["fused"]["max_memory_allocated"]
            - runs["flash"]["max_memory_allocated"],
-           "nondeterministic_ops": nondeterministic, "exact_shadow_checks": shadow, **runs}
+           "nondeterministic_ops": nondeterministic, "exact_shadow_checks": shadow["exact"],
+           "flash_shadow_checks": shadow["flash"], **runs}
     emit(row)
     for a, b in pairs:
         check(np.isfinite(runs[b]["loss"]) and runs[a]["loss"] == runs[b]["loss"],
@@ -1266,11 +1347,13 @@ def phase_mvit_train_fused():
     # gradients are recorded beside flash's, and held to its plain versions'.
     check(np.isfinite(runs["exact"]["loss"]) and np.isfinite(l2["exact_vs_flash"]),
           f"exact: loss {runs['exact']['loss']}, gradients {l2['exact_vs_flash']} from flash's")
-    check(shadow["fwd_calls"] == shadow["bwd_calls"] == depth
-          and shadow["fwd_err_share"] <= ATTN_TOL[torch.bfloat16]
-          and shadow["bwd_err_share"] <= ATTN_BWD_TOL[torch.bfloat16],
-          f"exact kernels in the train step against their plain versions: {shadow}")
-    for a, b in (("exact_shadow", "exact"), ("plain_fwd_exact_bwd", "plain_exact")):
+    for name, stats in shadow.items():
+        check(stats["fwd_calls"] == stats["bwd_calls"] == depth
+              and stats["fwd_err_share"] <= ATTN_TOL[torch.bfloat16]
+              and stats["bwd_err_share"] <= ATTN_BWD_TOL[torch.bfloat16],
+              f"{name} kernels in the train step against their plain versions: {stats}")
+    for a, b in (("flash_shadow", "flash"), ("exact_shadow", "exact"),
+                 ("plain_fwd_exact_bwd", "plain_exact")):
         check(l2[f"{a}_vs_{b}"] <= 2 * l2["flash_again_vs_flash"] + 1e-6,
               f"bf16: {a} gradients differ from {b}'s by {l2[f'{a}_vs_{b}']}, twice the "
               f"run-to-run {l2['flash_again_vs_flash']} (L2)")
@@ -1282,10 +1365,11 @@ def phase_mvit_train_fused():
     flash = ("attention_flash", "attention_flash_bwd")
     fused = ("attention_fused", "attention_fused_bwd")
     exact = ("attention_exact", "attention_exact_bwd")
-    want = {"flash": flash, "fused": fused, "flash_again": flash, "exact": exact,
-            "exact_shadow": exact, "plain_exact": (),
-            "plain_fwd_exact_bwd": ("attention_exact_bwd",), "flash_fp32": flash,
-            "fused_fp32": fused}
+    want = {"flash": flash, "fused": fused, "flash_again": flash, "flash_shadow": flash,
+            "exact": exact, "exact_shadow": exact, "plain_exact": (),
+            "plain_fwd_exact_bwd": ("attention_exact_bwd",),
+            "flash_fp32": FP32_CORE_KEYS["flash"],
+            "fused_fp32": ("attention_fused", "attention_fused_fma_bwd")}
     for name, run in runs.items():
         n = run["launches"]
         check(only_launched(n, want[name], depth) and n["preprocess_u8"] == 1,
@@ -1478,12 +1562,13 @@ def phase_mvit_train_slice(attn_bwd, attn_fwd):
     check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
           f"non-finite loss: {steps}")
     check("train_epoch" in types and "val_epoch" in types, f"logged {types}")
-    check(launches["attention_flash_bwd"] == depth * 4,
-          f"backward launched {launches['attention_flash_bwd']} times for 4 steps")
+    check(launches["attention_flash_bwd"] == depth * 4 and launches["attention_flash_fma_bwd"] == 0,
+          f"tensor-core backward launched {launches['attention_flash_bwd']} times for 4 "
+          f"steps, FMA backward {launches['attention_flash_fma_bwd']}")
     check(launches["attention_flash"] == depth * (4 + 4),
           f"forward launched {launches['attention_flash']} times for 4 + 4 batches")
-    check(all(launches[k] == 0 for k in EXACT_KEYS)
-          and launches["attention_fused"] == launches["attention_fused_bwd"] == 0,
+    check(all(launches[k] == 0 for k in EXACT_KEYS) and launches["attention_fused"]
+          == launches["attention_fused_bwd"] == launches["attention_fused_fma_bwd"] == 0,
           f"exact or fused core launched: {launches}")
     check(launches["preprocess_u8"] == 4 + 4, f"preprocess launches {launches}")
 
@@ -1626,12 +1711,13 @@ def main():
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": attn["bound_by"], "library_ms": tot["library_ms"],
         })
-    # Attention backwards: per MViTv2-S train step at 16 clips in bf16,
-    # summed over its 16 blocks. The constant-shift backward's launches are
-    # the train slice's; the exact one's those of phase mvit_train_fused's
-    # bf16 exact step.
+    # Attention backwards: per MViTv2-S train step at 16 clips in bf16 (on
+    # the tensor cores), summed over its 16 blocks. The constant-shift
+    # backward's launches are the train slice's; the exact one's those of
+    # phase mvit_train_fused's bf16 exact step.
     for core, source, replaces, n in (
-            ("flash", "pooled_attention_bwd.cu", ":392", train_launches["attention_flash_bwd"]),
+            ("flash", "pooled_attention_flash_bwd.cu", ":392",
+             train_launches["attention_flash_bwd"]),
             ("exact", "pooled_attention_exact_bwd.cu", ":58",
              train_runs["exact"]["attention_exact_bwd"])):
         tot = attn_bwd["per_backward"][core]
@@ -1648,7 +1734,7 @@ def main():
     # those of phase mvit_train_fused's step with the core swapped in.
     for name, source, replaces, part in (
             ("attention_fused", "pooled_attention.cu", ":237", "fwd"),
-            ("attention_fused_bwd", "pooled_attention_fused_bwd.cu", ":255", "bwd")):
+            ("attention_fused_bwd", "pooled_attention_flash_bwd.cu", ":255", "bwd")):
         tot = fused["per_step"][part]
         lines.append({
             "name": name, "route": "cuda", "source": f"slowfast_tpu_torch/csrc/{source}",

@@ -14,20 +14,21 @@
 //   * :58 _bwd_kernel, the backward of the exact core (TPU.PALLAS_ATTENTION):
 //     m = max l, e = exp(l - m), s = sum e, p = e / s, dp = do v^T (fp32),
 //     r = sum dp * p, dl = p * (dp - r), dq = round(dl) k,
-//     dk = round(dl)^T q, dv = round(p)^T do; fp32 only, as bf16 runs on the
-//     tensor cores (pooled_attention_exact_bwd.cu).
+//     dk = round(dl)^T q, dv = round(p)^T do.
+// fp32 only: in bf16 both run on the tensor cores
+// (pooled_attention_flash_bwd.cu, pooled_attention_exact_bwd.cu).
 // "round" is a cast to the input type (identity in fp32). All products
 // accumulate in fp32; dq, dk and dv are rounded to the input type once, at
 // the end, as the TPU kernels' fp32 outputs are cast at their boundary.
 // q (B, Nq, nh, dq), k (B, Nk, nh, dq), v (B, Nk, nh, dv) and do
-// (B, Nq, nh, dv) are all bf16 or all fp32 and contiguous; rows >= Nq and
+// (B, Nq, nh, dv) are fp32 and contiguous; rows >= Nq and
 // keys >= Nk are masked here (the port pads nothing).
 //
 // Bound: operations. One backward does 2 B nh Nq Nk (3 dq + 2 dv) flops
 // (the logits once, dpn, dv, dq, dk) and moves q, k, v, do, dq, dk and dv
-// once: MViTv2-S at 16 clips in bf16 needs about 1.36 TFLOP against well
-// under 1 GB, so the flops bind by two orders of magnitude (about 1.37 ms at
-// the H100's 989 TFLOP/s).
+// once: MViTv2-S at 16 clips needs about 1.36 TFLOP against about 2 GB in
+// fp32, so the flops bind (about 20 ms at the H100's 67 TFLOP/s of fp32
+// outside the tensor cores).
 //
 // Design. Each row's gradient needs three row statistics in order: s (the
 // sum of the rounded e), then r (which needs do_n, so s first), then dl.
@@ -418,31 +419,26 @@ static int dispatch(const BwdArgs& a) {
   return a.dvd <= 96 ? launch<T, kExact, 12, 6>(a) : launch<T, kExact, 12, 8>(a);
 }
 
-// dq, dk and dv of softmax(q k^T) v per (batch, head), on `stream`, given
-// the output gradient dout. exact != 0 selects _bwd_kernel's exact softmax
-// (fp32 only: in bf16 it runs on the tensor cores,
-// pooled_attention_exact_bwd.cu), else _flash_bwd_kernel's constant shift;
-// is_bf16 != 0 selects bf16 tensors, else fp32. stats is fp32 scratch of
+// dq, dk and dv of softmax(q k^T) v per (batch, head), fp32, on `stream`,
+// given the output gradient dout. exact != 0 selects _bwd_kernel's exact
+// softmax, else _flash_bwd_kernel's constant shift. stats is fp32 scratch of
 // 3 * b * nh * nq floats. All pointers are device pointers to contiguous
 // tensors. Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for shapes the kernels do not take (dq > 192,
-// dv > 128, grid limits) and for bf16 with exact.
+// dv > 128, grid limits).
 extern "C" int sf_pooled_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, void* dq, void* dk, void* dv,
                                        void* stats, long long b, long long nq,
                                        long long nk, long long nh, long long dqd,
-                                       long long dvd, int exact, int is_bf16,
-                                       void* stream) {
+                                       long long dvd, int exact, void* stream) {
   if (b <= 0 || nq <= 0 || nk <= 0 || nh <= 0 || dqd <= 0 || dvd <= 0 ||
       dqd > PB_MAX_DQ || dvd > PB_MAX_DV || b > 65535 || nh > 65535 ||
       nq > 0x7fffffffLL - PB_BQ || nk > 0x7fffffffLL - PB_BK ||
-      b * (nq > nk ? nq : nk) * nh * (dqd > dvd ? dqd : dvd) > (1LL << 62) ||
-      (is_bf16 && exact))
+      b * (nq > nk ? nq : nk) * nh * (dqd > dvd ? dqd : dvd) > (1LL << 62))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long plane = b * nh * nq;
   float* st = static_cast<float*>(stats);
   const BwdArgs a{q, k, v, dout, dq, dk, dv, st, st + plane, st + 2 * plane,
                   b, nq, nk, nh, dqd, dvd, static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return dispatch<__nv_bfloat16, false>(a);
   return exact ? dispatch<float, true>(a) : dispatch<float, false>(a);
 }

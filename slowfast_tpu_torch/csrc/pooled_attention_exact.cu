@@ -202,8 +202,6 @@ static int launch(const void* q, const void* k, const void* v, void* out, long l
   return static_cast<int>(cudaGetLastError());
 }
 
-static bool good_vec(int vec) { return vec == 1 || vec == 2 || vec == 4 || vec == 8; }
-
 // out = softmax(q k^T) v per (batch, head), bf16, on `stream`, with the
 // exact softmax of _fwd_kernel. dqp and dvp are dq and dv padded to a
 // multiple of 16 (the shared-memory depths). vec_qk and vec_v are the elements per

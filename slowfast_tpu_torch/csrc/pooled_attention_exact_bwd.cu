@@ -72,32 +72,6 @@
 #define EB_THREADS (WG_THREADS * EB_WGS)
 #define EB_BQ (WG_ROWS * EB_WGS)  // q rows a rows-kernel block
 
-// One dp^T-or-logit product: d = a b^T over depth dp, both tiles K-major.
-__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a_addr, uint32_t b_addr,
-                                         int dp) {
-  for (int kk = 0; kk < dp / 16; ++kk)
-    wgmma_ss_n64(d, desc_kmajor(a_addr + kk * 2 * WG_TILE_CG),
-                 desc_kmajor(b_addr + kk * 2 * WG_TILE_CG));
-}
-
-// acc (64 x 16 kN) += a (64 x 64, registers) b (64 x n, tile at b_addr,
-// MN-major), for the first n16 of the kN 16-column tiles.
-template <int kN>
-__device__ __forceinline__ void issue_rs(float (&acc)[kN][8], const uint32_t (&a)[4][4],
-                                         uint32_t b_addr, int n16) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < kN; ++j)
-      if (j < n16) wgmma_rs_n16(acc[j], a[kk], desc_mnmajor(b_addr + kk * 256 + j * 2 * WG_TILE_CG));
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = 0.f;
-}
-
 // Rows kernel: per (q tile, head, batch) the row statistics and dq.
 template <int kNtq>
 __global__ void __launch_bounds__(EB_THREADS)
@@ -391,18 +365,6 @@ exact_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// out[i] = round(sum over the n_split slices of part[slice * n + i]), the
-// slices added in order.
-__global__ void sum_slices_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                                  int64_t n, int n_split) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float acc = 0.f;
-    for (int sl = 0; sl < n_split; ++sl) acc += part[sl * n + i];
-    out[i] = __float2bfloat16_rn(acc);
-  }
-}
-
 static size_t rows_smem(int dqp, int dvp) {
   return static_cast<size_t>((EB_WGS + 2) * (tile_bytes(dqp) + tile_bytes(dvp)));
 }
@@ -420,12 +382,6 @@ struct ExactBwdArgs {
   int dqp, dvp, vec_qk, vec_v, n_split, tiles_per_split;
   cudaStream_t stream;
 };
-
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
 
 template <int kNtq>
 static int launch_rows(const ExactBwdArgs& a) {
@@ -475,17 +431,10 @@ static int launch_all(const ExactBwdArgs& a) {
   if (err != 0) return err;
   err = launch_keys_dv<kNtq>(a);
   if (err != 0) return err;
-  const long long n_dk = a.b * a.nk * a.nh * a.dqd, n_dv = a.b * a.nk * a.nh * a.dvd;
-  sum_slices_kernel<<<static_cast<unsigned>((n_dk + 255) / 256 < 4096 ? (n_dk + 255) / 256 : 4096),
-                      256, 0, a.stream>>>(a.dk_part, static_cast<bf16*>(a.dk), n_dk, a.n_split);
-  err = static_cast<int>(cudaGetLastError());
+  err = sum_slices(a.dk_part, a.dk, a.b * a.nk * a.nh * a.dqd, a.n_split, a.stream);
   if (err != 0) return err;
-  sum_slices_kernel<<<static_cast<unsigned>((n_dv + 255) / 256 < 4096 ? (n_dv + 255) / 256 : 4096),
-                      256, 0, a.stream>>>(a.dv_part, static_cast<bf16*>(a.dv), n_dv, a.n_split);
-  return static_cast<int>(cudaGetLastError());
+  return sum_slices(a.dv_part, a.dv, a.b * a.nk * a.nh * a.dvd, a.n_split, a.stream);
 }
-
-static bool good_vec(int vec) { return vec == 1 || vec == 2 || vec == 4 || vec == 8; }
 
 // dq, dk and dv of softmax(q k^T) v per (batch, head), bf16, on `stream`,
 // given the output gradient dout, with _bwd_kernel's exact softmax. dqp and

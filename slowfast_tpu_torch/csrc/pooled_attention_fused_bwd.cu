@@ -11,17 +11,18 @@
 // dl = round(ef * (dpn - r / s)), dq = dl k, dk = dl^T q. There is no
 // derivative of the clamp, as in the TPU kernel. "round" is a cast to the
 // input type (identity in fp32). All products accumulate in fp32; dq, dk and
-// dv are rounded to the input type once, at the end. q (B, Nq, nh, dq),
-// k (B, Nk, nh, dq), v (B, Nk, nh, dv), do (B, Nq, nh, dv) and e
-// (B, nh, Nq, Nk) are all bf16 or all fp32 and contiguous; rows >= Nq and
+// dv are rounded to the input type once, at the end. fp32 only: in bf16 it
+// runs on the tensor cores (read mode of pooled_attention_flash_bwd.cu).
+// q (B, Nq, nh, dq), k (B, Nk, nh, dq), v (B, Nk, nh, dv), do
+// (B, Nq, nh, dv) and e (B, nh, Nq, Nk) are fp32 and contiguous; rows >= Nq and
 // keys >= Nk are masked here. The TPU kernel's VMEM budget (_fused_block_q)
 // and 128-lane head padding are TPU layout and are not carried over.
 //
 // Bound: operations. One backward does 2 B nh Nq Nk (2 dq + 2 dv) flops (dv,
 // dpn, dq, dk; no logits) and moves q, k, v, do, dq, dk, dv once and e
-// (B nh Nq Nk elements) once: MViTv2-S at 16 clips in bf16 needs about
-// 1,060 GFLOP (1.07 ms at the H100's 989 TFLOP/s) against 2.4 GB of e plus
-// well under 1 GB of the rest (about 0.9 ms at 3.35 TB/s).
+// (B nh Nq Nk elements) once: MViTv2-S at 16 clips needs about 1,060 GFLOP
+// (16 ms at the H100's 67 TFLOP/s of fp32 outside the tensor cores) against
+// 4.8 GB of fp32 e plus about 2 GB of the rest (2.1 ms at 3.35 TB/s).
 //
 // Design: the split of pooled_attention_bwd.cu, with every logit replaced by
 // a read of e, in the same thread-to-element map, so that s, r, dl and the
@@ -363,10 +364,9 @@ static int dispatch(const FusedBwdArgs& a) {
   return a.dvd <= 96 ? launch<T, 12, 6>(a) : launch<T, 12, 8>(a);
 }
 
-// dq, dk and dv of the constant-shift softmax(q k^T) v per (batch, head), on
-// `stream`, given the output gradient dout and the forward's saved e
-// (b, nh, nq, nk). is_bf16 != 0 selects bf16 tensors, else fp32. stats is
-// fp32 scratch of 2 * b * nh * nq floats. All pointers are device pointers to
+// dq, dk and dv of the constant-shift softmax(q k^T) v per (batch, head),
+// fp32, on `stream`, given the output gradient dout and the forward's saved
+// e (b, nh, nq, nk). stats is fp32 scratch of 2 * b * nh * nq floats. All pointers are device pointers to
 // contiguous tensors. Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for shapes the kernels do not take (dq > 192,
 // dv > 128, grid limits).
@@ -374,8 +374,7 @@ extern "C" int sf_pooled_attention_fused_bwd(const void* q, const void* k, const
                                              const void* dout, const void* e, void* dq,
                                              void* dk, void* dv, void* stats, long long b,
                                              long long nq, long long nk, long long nh,
-                                             long long dqd, long long dvd, int is_bf16,
-                                             void* stream) {
+                                             long long dqd, long long dvd, void* stream) {
   if (b <= 0 || nq <= 0 || nk <= 0 || nh <= 0 || dqd <= 0 || dvd <= 0 ||
       dqd > PF_MAX_DQ || dvd > PF_MAX_DV || b > 65535 || nh > 65535 ||
       nq > 0x7fffffffLL - PF_BQ || nk > 0x7fffffffLL - PF_BK ||
@@ -386,6 +385,5 @@ extern "C" int sf_pooled_attention_fused_bwd(const void* q, const void* k, const
   float* st = static_cast<float*>(stats);
   const FusedBwdArgs a{q,  k,  v,  dout, e,   dq,  dk,  dv,  st, st + plane,
                        b, nq, nk, nh,   dqd, dvd, static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return dispatch<__nv_bfloat16>(a);
   return dispatch<float>(a);
 }

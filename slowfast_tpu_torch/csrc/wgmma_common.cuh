@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core pooled-attention
-// kernels (pooled_attention_exact.cu, pooled_attention_exact_bwd.cu): the
-// shared-memory tile layout, asynchronous tile copies, wgmma descriptors and
-// the two wgmma shapes the kernels use. Each warpgroup (128 threads) of a
-// block multiplies its own 64-row tiles.
+// kernels (pooled_attention_exact.cu, pooled_attention_exact_bwd.cu,
+// pooled_attention_flash_bwd.cu): the shared-memory tile layout,
+// asynchronous tile copies, wgmma descriptors, the two wgmma shapes the
+// kernels use and the backwards' ordered sum of fp32 partials. Each
+// warpgroup (128 threads) of a block multiplies its own 64-row tiles.
 //
 // Tile layout. A tile holds 64 rows (q rows or keys) of a (N, nh, d) head
 // slice, bf16, with its depth d zero-padded to dp (a multiple of 16). It is
@@ -225,3 +226,62 @@ __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// d (64 x 64) += a b^T over depth dp, both tiles K-major (a logit or a dp
+// product).
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a_addr, uint32_t b_addr,
+                                         int dp) {
+  for (int kk = 0; kk < dp / 16; ++kk)
+    wgmma_ss_n64(d, desc_kmajor(a_addr + kk * 2 * WG_TILE_CG),
+                 desc_kmajor(b_addr + kk * 2 * WG_TILE_CG));
+}
+
+// acc (64 x 16 kN) += a (64 x 64, registers) b (64 x n, tile at b_addr,
+// MN-major), for the first n16 of the kN 16-column tiles.
+template <int kN>
+__device__ __forceinline__ void issue_rs(float (&acc)[kN][8], const uint32_t (&a)[4][4],
+                                         uint32_t b_addr, int n16) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      if (j < n16) wgmma_rs_n16(acc[j], a[kk], desc_mnmajor(b_addr + kk * 256 + j * 2 * WG_TILE_CG));
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+
+// out[i] = round(sum over the n_split slices of part[slice * n + i]), the
+// slices added in order: the backwards' dk and dv from the keys kernels'
+// fp32 partials, deterministic and without atomics.
+__global__ void sum_slices_kernel(const float* __restrict__ part, bf16* __restrict__ out,
+                                  int64_t n, int n_split) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float acc = 0.f;
+    for (int sl = 0; sl < n_split; ++sl) acc += part[sl * n + i];
+    out[i] = __float2bfloat16_rn(acc);
+  }
+}
+
+static int sum_slices(const float* part, void* out, long long n, int n_split,
+                      cudaStream_t stream) {
+  const long long blocks = (n + 255) / 256;
+  sum_slices_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      part, static_cast<bf16*>(out), n, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+static bool good_vec(int vec) { return vec == 1 || vec == 2 || vec == 4 || vec == 8; }

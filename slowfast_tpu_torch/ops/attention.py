@@ -10,20 +10,24 @@ the counterparts of the JAX package's Pallas kernels
   constant-shift softmax ``e = round(exp(min(l, 50) - 20))``,
   ``s = max(Σe, 1e-30)``, ``o = (e v) / s``, with ``e`` rounded to the
   compute dtype before the sum and the product. Rows whose every ``exp``
-  underflows give zeros, not NaN. Backward ``csrc/pooled_attention_bwd.cu``
-  (kernel :392 ``_flash_bwd_kernel``), which recomputes ``e``:
+  underflows give zeros, not NaN. Backward (kernel :392
+  ``_flash_bwd_kernel``), which recomputes ``e``:
   ``do_n = round(do / s)``, ``dv = eᵀ do_n``, ``dpn = do_n vᵀ``,
   ``r = Σ dpn·e``, ``dl = round(e (dpn - r / s))``, ``dq = dl k``,
   ``dk = dlᵀ q``. It has no derivative of the clamp: a clamped logit gets
   ``e (dpn - r / s)`` as in the JAX kernel, where autograd of the forward
-  would give zero.
+  would give zero. In bf16 it runs on the tensor cores
+  (``csrc/pooled_attention_flash_bwd.cu``, wgmma), in fp32 on
+  ``csrc/pooled_attention_bwd.cu`` (FMA loops).
 * ``fused_pooled_attention``, the same function with the saved-e backward of
   kernels :237 ``_fused_fwd_kernel`` and :255 ``_fused_bwd_kernel``. Forward:
   the saved-e mode of ``csrc/pooled_attention.cu``, whose output is bit-equal
   to the flash forward's and which also writes ``e`` as ``(B, nh, Nq, Nk)``
-  in v's dtype. Backward ``csrc/pooled_attention_fused_bwd.cu``: the flash
-  backward's formulas with ``e`` read back instead of recomputed. No config
-  key routes MViT to it, as none does in the JAX package.
+  in v's dtype. Backward: the flash backward's formulas with ``e`` read
+  back instead of recomputed; in bf16 the read mode of
+  ``csrc/pooled_attention_flash_bwd.cu``, in fp32
+  ``csrc/pooled_attention_fused_bwd.cu``. No config key routes MViT to it,
+  as none does in the JAX package.
 * ``pooled_attention``, selected by ``TPU.PALLAS_ATTENTION``. Forward
   (kernel :39 ``_fwd_kernel``): ``p = exp(l - max l)``, ``s = Σp`` in fp32,
   ``o = (round(p) v) / s``. Backward (kernel :58 ``_bwd_kernel``):
@@ -56,15 +60,17 @@ _DTYPES = (torch.bfloat16, torch.float32)
 # PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu; EX_MAX_DQ, EX_MAX_DV in
 # csrc/pooled_attention_exact.cu
 _MAX_DQ, _MAX_DV = 256, 128
-# PB_MAX_DQ, PF_MAX_DQ, EB_MAX_DQ in csrc/pooled_attention{_bwd,_fused_bwd,_exact_bwd}.cu
+# PB_MAX_DQ, PF_MAX_DQ, EB_MAX_DQ, FB_MAX_DQ in
+# csrc/pooled_attention{_bwd,_fused_bwd,_exact_bwd,_flash_bwd}.cu
 _MAX_DQ_BWD = 192
 _TILE = 64  # q rows and keys per tile of every pooled-attention kernel
 _SM_COUNT_H100 = 132
 _KEYS_BLOCKS_PER_SM = 8  # four waves of the keys kernel's two resident blocks
 
 # Kernel launches since the last reset; only the _launch* functions add to
-# them. The exact core has one pair for fp32 (FMA, ``exact_*``) and one for
-# bf16 (tensor cores, ``exact_tc_*``).
+# them. A kernel with an fp32 (FMA) and a bf16 (tensor-core) instance counts
+# them apart: ``exact_*``, ``flash_bwd_*``, ``fused_bwd_*`` are the FMA
+# kernels, ``*_tc_*`` the tensor-core ones.
 flash_launches = 0
 exact_launches = 0
 exact_tc_launches = 0
@@ -72,7 +78,9 @@ fused_launches = 0
 flash_bwd_launches = 0
 exact_bwd_launches = 0
 exact_tc_bwd_launches = 0
+flash_tc_bwd_launches = 0
 fused_bwd_launches = 0
+fused_tc_bwd_launches = 0
 
 
 def flash_pooled_attention(qh, kh, vh):
@@ -325,6 +333,16 @@ def keys_split(B, Nq, Nk, nh, sms=_SM_COUNT_H100):
     return -(-tiles // per), per
 
 
+def flash_bwd_scratch(B, Nq, Nk, nh, dq, dv, n_split):
+    """Shapes and dtypes of the tensor-core constant-shift backward's
+    scratch: ``r / s`` per row (fp32), ``do_n = round(do / s)`` in do's
+    layout (bf16) and the keys kernel's fp32 partial dk and dv of each
+    slice."""
+    return {"rs": ((B, nh, Nq), torch.float32), "do_n": ((B, Nq, nh, dv), torch.bfloat16),
+            "dk_part": ((n_split, B, Nk, nh, dq), torch.float32),
+            "dv_part": ((n_split, B, Nk, nh, dv), torch.float32)}
+
+
 def exact_bwd_scratch(B, Nq, Nk, nh, dq, dv, n_split):
     """Shapes of the tensor-core backward's fp32 scratch: the row statistics
     ``m, s, r`` and the keys kernel's partial dk and dv of each slice."""
@@ -389,12 +407,15 @@ def _launch_fused(qh, kh, vh):
 
 
 def _launch_bwd(qh, kh, vh, do, exact):
-    """Both kernels of one backward: per q tile dq and the row statistics,
-    then per key chunk dk and dv over every q tile. The statistics
-    (``m``, ``s``, ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
+    """One backward. bf16 goes to the tensor-core kernels; fp32 to both FMA
+    kernels: per q tile dq and the row statistics, then per key chunk dk
+    and dv over every q tile. The statistics (``m``, ``s``, ``r``, fp32
+    ``(B, nh, Nq)`` each) are scratch."""
     global flash_bwd_launches, exact_bwd_launches
-    if exact and vh.dtype == torch.bfloat16:
-        return _launch_exact_tc_bwd(qh, kh, vh, do)
+    if vh.dtype == torch.bfloat16:
+        if exact:
+            return _launch_exact_tc_bwd(qh, kh, vh, do)
+        return _launch_constant_shift_tc_bwd(qh, kh, vh, do)
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do), _MAX_DQ_BWD)
     _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
     dq_out = torch.empty_like(qh)
@@ -402,10 +423,10 @@ def _launch_bwd(qh, kh, vh, do, exact):
     dv_out = torch.empty_like(vh)
     stats = torch.empty((3, B, nh, Nq), dtype=torch.float32, device=qh.device)
     fn = _kernel("pooled_attention_bwd", "sf_pooled_attention_bwd",
-                 [_PTR] * 8 + [_I64] * 6 + [_I32, _I32, _PTR])
+                 [_PTR] * 8 + [_I64] * 6 + [_I32, _PTR])
     err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(),
              dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(), stats.data_ptr(),
-             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16), _stream(vh))
+             B, Nq, Nk, nh, dq, dv, int(exact), _stream(vh))
     if err != 0:
         raise RuntimeError(f"pooled-attention backward kernel launch failed: CUDA error {err}")
     if exact:
@@ -443,10 +464,13 @@ def _launch_exact_tc_bwd(qh, kh, vh, do):
 
 
 def _launch_fused_bwd(qh, kh, vh, do, e):
-    """Both kernels of the saved-e backward: per q tile dq and the row
-    statistics from ``e``, then per key chunk dk and dv over every q tile.
-    The statistics (``s``, ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
+    """The saved-e backward. bf16 goes to the tensor-core kernels; fp32 to
+    both FMA kernels: per q tile dq and the row statistics from ``e``, then
+    per key chunk dk and dv over every q tile. The statistics (``s``,
+    ``r``, fp32 ``(B, nh, Nq)`` each) are scratch."""
     global fused_bwd_launches
+    if vh.dtype == torch.bfloat16:
+        return _launch_constant_shift_tc_bwd(qh, kh, vh, do, e)
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh, do, e), _MAX_DQ_BWD)
     _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
     _check_operand(e, "e", (B, nh, Nq, Nk), vh.dtype)
@@ -455,12 +479,51 @@ def _launch_fused_bwd(qh, kh, vh, do, e):
     dv_out = torch.empty_like(vh)
     stats = torch.empty((2, B, nh, Nq), dtype=torch.float32, device=qh.device)
     fn = _kernel("pooled_attention_fused_bwd", "sf_pooled_attention_fused_bwd",
-                 [_PTR] * 9 + [_I64] * 6 + [_I32, _PTR])
+                 [_PTR] * 9 + [_I64] * 6 + [_PTR])
     err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), e.data_ptr(),
              dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(), stats.data_ptr(),
-             B, Nq, Nk, nh, dq, dv, int(vh.dtype == torch.bfloat16), _stream(vh))
+             B, Nq, Nk, nh, dq, dv, _stream(vh))
     if err != 0:
         raise RuntimeError(f"saved-e pooled-attention backward kernel launch failed: "
                            f"CUDA error {err}")
     fused_bwd_launches += 1
+    return dq_out, dk_out, dv_out
+
+
+def _launch_constant_shift_tc_bwd(qh, kh, vh, do, e=None):
+    """The bf16 constant-shift backward on the tensor cores: a rows kernel
+    (dq, ``do_n`` and ``r / s``), a keys kernel (fp32 partial dk and dv of
+    each q slice, ``keys_split``) and the sum of the slices, in that order.
+    It recomputes ``e`` (the flash core's backward) or, given the saved-e
+    forward's ``e``, reads it (the fused core's)."""
+    global flash_tc_bwd_launches, fused_tc_bwd_launches
+    tensors = (qh, kh, vh, do) if e is None else (qh, kh, vh, do, e)
+    B, Nq, Nk, nh, dq, dv = _check_launch(tensors, _MAX_DQ_BWD)
+    _check_operand(do, "do", (B, Nq, nh, dv), vh.dtype)
+    if e is not None:
+        _check_operand(e, "e", (B, nh, Nq, Nk), vh.dtype)
+        if e.data_ptr() % 16:
+            raise ValueError("the tensor-core backward reads e from a 16-byte aligned base")
+    n_split, per = keys_split(B, Nq, Nk, nh, _sm_count(qh))
+    dq_out = torch.empty_like(qh)
+    dk_out = torch.empty_like(kh)
+    dv_out = torch.empty_like(vh)
+    scratch = {name: torch.empty(shape, dtype=dtype, device=qh.device) for name, (shape, dtype)
+               in flash_bwd_scratch(B, Nq, Nk, nh, dq, dv, n_split).items()}
+    saved = () if e is None else (e.data_ptr(),)
+    symbol = "sf_flash_attention_bwd_tc" if e is None else "sf_fused_attention_bwd_tc"
+    fn = _kernel("pooled_attention_flash_bwd", symbol,
+                 [_PTR] * (11 + len(saved)) + [_I64] * 6 + [_I32] * 6 + [_PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), *saved,
+             dq_out.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(),
+             *(scratch[name].data_ptr() for name in ("rs", "do_n", "dk_part", "dv_part")),
+             B, Nq, Nk, nh, dq, dv, pad16(dq), pad16(dv), copy_vec((qh, kh), dq),
+             copy_vec((vh, do, scratch["do_n"]), dv), n_split, per, _stream(vh))
+    if err != 0:
+        raise RuntimeError(f"constant-shift pooled-attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    if e is None:
+        flash_tc_bwd_launches += 1
+    else:
+        fused_tc_bwd_launches += 1
     return dq_out, dk_out, dv_out

@@ -225,7 +225,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(ta, "_sm_count", lambda t: 132)
     for name in ("flash_launches", "exact_launches", "exact_tc_launches", "fused_launches",
                  "flash_bwd_launches", "exact_bwd_launches", "exact_tc_bwd_launches",
-                 "fused_bwd_launches"):
+                 "flash_tc_bwd_launches", "fused_bwd_launches", "fused_tc_bwd_launches"):
         monkeypatch.setattr(ta, name, 0)
     return lib
 

@@ -43,10 +43,12 @@ CORES = {
 CONSTANT_SHIFT = ("flash", "fused")
 
 
-def _inputs(shape, seed, extreme=False):
+def _inputs(shape, seed, extreme=False, subnormal=False):
     """q, k, v and the output gradient; with ``extreme``, q rows 0-2 put
     every logit above the clamp at 50 and rows 3-5 make every exp(l - 20)
-    underflow (as tests/test_torch_attention.py does)."""
+    underflow (as tests/test_torch_attention.py does); with ``subnormal``,
+    every logit lies near -69.5, so that every e = exp(l - 20) is a
+    subnormal number in bf16 and in fp32."""
     B, Nq, Nk, nh, dq, dv = shape
     rng = np.random.RandomState(seed)
     q = rng.normal(0.0, 0.6, (B, Nq, nh, dq)).astype(np.float32)
@@ -57,6 +59,10 @@ def _inputs(shape, seed, extreme=False):
         k[..., 0] = 1.0 + rng.uniform(0.0, 1.0, k[..., 0].shape)
         q[:, 0:3, :, 0] = 100.0
         q[:, 3:6, :, 0] = -200.0
+    if subnormal:
+        q, k = q * 0.05, k * 0.05
+        k[..., 0] = 1.0
+        q[..., 0] = -69.5
     return q, k, v, do
 
 
@@ -103,12 +109,14 @@ def test_autograd_function_is_the_plain_backward(core, dtype):
     and no kernel launch is counted."""
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(a).to(dt) for a in _inputs(SHAPES["long_k"], 1))
-    before = (ta.flash_bwd_launches, ta.exact_bwd_launches, ta.fused_bwd_launches)
+    counters = ("flash_bwd_launches", "exact_bwd_launches", "fused_bwd_launches",
+                "flash_tc_bwd_launches", "exact_tc_bwd_launches", "fused_tc_bwd_launches")
+    before = [getattr(ta, name) for name in counters]
     got = _port_grads(core, [t.float().numpy() for t in (q, k, v, do)], dt)
     want = CORES[core][1](q, k, v, do)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.float().numpy())
-    assert (ta.flash_bwd_launches, ta.exact_bwd_launches, ta.fused_bwd_launches) == before
+    assert [getattr(ta, name) for name in counters] == before
 
 
 @pytest.mark.parametrize("core", CORES)
@@ -219,7 +227,7 @@ def test_exact_backward_routes_by_dtype(stub, shape, dtype):
         assert (ta.exact_tc_bwd_launches, ta.exact_bwd_launches) == (1, 0)
     else:
         assert (source, symbol) == ("pooled_attention_bwd", "sf_pooled_attention_bwd")
-        assert args[8:16] == (B, Nq, Nk, nh, dq, dv, 1, 0)  # exact, not bf16
+        assert args[8:15] == (B, Nq, Nk, nh, dq, dv, 1)  # exact
         assert (ta.exact_tc_bwd_launches, ta.exact_bwd_launches) == (0, 1)
 
 
@@ -298,3 +306,173 @@ def test_backward_scheme_matches_exact_bwd_plain(shape, dtype, extreme):
             np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=FP32_RTOL)
         else:
             assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max()
+
+
+# The bf16 constant-shift backwards on the tensor cores
+# (csrc/pooled_attention_flash_bwd.cu: the flash core's, which recomputes e,
+# and the fused core's, which reads it): what the wrapper hands the kernels,
+# and the kernels' scheme in plain PyTorch.
+
+@pytest.mark.parametrize("shape", [(2, 131, 13, 2, 24, 16), (16, 1569, 393, 4, 118, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("core", CONSTANT_SHIFT)
+def test_constant_shift_backward_routes_by_dtype(stub, core, shape, dtype):
+    """bf16 goes to the tensor-core entry points (recompute or read e) with
+    the padded depths, the copy pieces and the q split; fp32 to the FMA
+    kernels; each counts on its own counter."""
+    B, Nq, Nk, nh, dq, dv = shape
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.empty(s, dtype=dt) for s in
+                   [(B, Nq, nh, dq), (B, Nk, nh, dq), (B, Nk, nh, dv), (B, Nq, nh, dv)])
+    e = torch.empty((B, nh, Nq, Nk), dtype=dt)
+    if core == "flash":
+        grads = ta._launch_bwd(q, k, v, do, exact=False)
+    else:
+        grads = ta._launch_fused_bwd(q, k, v, do, e)
+    assert [(g.shape, g.dtype) for g in grads] == [(t.shape, dt) for t in (q, k, v)]
+    (source, symbol, args), = stub.calls
+    counts = {name: getattr(ta, f"{name}_launches") for name in
+              ("flash_bwd", "flash_tc_bwd", "fused_bwd", "fused_tc_bwd")}
+    if dtype == "bfloat16":
+        assert source == "pooled_attention_flash_bwd"
+        assert symbol == f"sf_{core}_attention_bwd_tc"
+        read = int(core == "fused")
+        assert args[4:4 + read] == ((e.data_ptr(),) if read else ())
+        n_split, per = ta.keys_split(B, Nq, Nk, nh, 132)
+        assert args[11 + read:23 + read] == (
+            B, Nq, Nk, nh, dq, dv, ta.pad16(dq), ta.pad16(dv), ta.copy_vec((q, k), dq),
+            ta.copy_vec((v, do), dv), n_split, per)
+        assert counts == {"flash_bwd": 0, "fused_bwd": 0, "flash_tc_bwd": 1 - read,
+                          "fused_tc_bwd": read}
+    elif core == "flash":
+        assert (source, symbol) == ("pooled_attention_bwd", "sf_pooled_attention_bwd")
+        assert args[8:15] == (B, Nq, Nk, nh, dq, dv, 0)  # not exact
+        assert counts == {"flash_bwd": 1, "fused_bwd": 0, "flash_tc_bwd": 0, "fused_tc_bwd": 0}
+    else:
+        assert (source, symbol) == ("pooled_attention_fused_bwd",
+                                    "sf_pooled_attention_fused_bwd")
+        assert args[9:15] == (B, Nq, Nk, nh, dq, dv)
+        assert counts == {"flash_bwd": 0, "fused_bwd": 1, "flash_tc_bwd": 0, "fused_tc_bwd": 0}
+
+
+def test_flash_bwd_scratch_sizes():
+    """Block 0 at 16 clips: r / s per row, do_n in do's layout, and 10
+    slices of fp32 dk and dv (53.8 MB), as the exact backward's."""
+    n_split, _ = ta.keys_split(16, 25089, 393, 1)
+    sizes = ta.flash_bwd_scratch(16, 25089, 393, 1, 118, 96, n_split)
+    assert sizes == {"rs": ((16, 1, 25089), torch.float32),
+                     "do_n": ((16, 25089, 1, 96), torch.bfloat16),
+                     "dk_part": ((10, 16, 393, 1, 118), torch.float32),
+                     "dv_part": ((10, 16, 393, 1, 96), torch.float32)}
+    parts = [np.prod(sizes[k][0]) for k in ("dk_part", "dv_part")]
+    assert 4 * sum(parts) == 53_825_280
+
+
+def test_fused_tc_backward_refuses_an_unaligned_e(stub):
+    """The read mode stages e from 16-byte aligned windows, so e's base must
+    be 16-byte aligned."""
+    shape = (1, 7, 5, 1, 8, 8)
+    B, Nq, Nk, nh, dq, dv = shape
+    q, k, v, do = (torch.zeros(s, dtype=torch.bfloat16) for s in
+                   [(B, Nq, nh, dq), (B, Nk, nh, dq), (B, Nk, nh, dv), (B, Nq, nh, dv)])
+    e = torch.zeros(B * nh * Nq * Nk + 1, dtype=torch.bfloat16)[1:].view(B, nh, Nq, Nk)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ta._launch_fused_bwd(q, k, v, do, e)
+    assert not stub.calls
+
+
+def emulate_flash_backward(q, k, v, do, e=None, sms=132):
+    """The tensor-core constant-shift backward's scheme in plain PyTorch, on
+    padded operands; with ``e`` (the saved-e forward's) the read mode, else
+    ``e = round(exp(min(l, 50) - 20))`` recomputed. Rows kernel, three
+    passes over the 64-key chunks (keys >= Nk masked): ``s = max(Σe,
+    1e-30)``, then ``do_n = round(do / s)`` with the final ``s``; ``r =
+    Σ dpn·e``; ``dl = round(e (dpn - r / s))`` and ``dq = dl k``. Keys
+    kernel: per q slice of ``keys_split``, fp32 partial ``dk = dlᵀ q`` and
+    ``dv = eᵀ do_n`` from the transposed products and the stored ``r / s``;
+    the slices are summed in order and rounded once."""
+    dt = q.dtype
+    B, Nq, nh, dq = q.shape
+    Nk, dv = k.shape[1], v.shape[3]
+    qf, kf, vf, valid = _padded(q, k, v)
+    nkp = kf.shape[1]
+    ef = None if e is None else torch.nn.functional.pad(e.float(), (0, nkp - Nk))
+
+    def e_rows(c0):  # (B, nh, Nq, 64)
+        if ef is not None:
+            x = ef[..., c0:c0 + 64]
+        else:
+            l = torch.einsum("bqnc,bknc->bnqk", qf, kf[:, c0:c0 + 64])
+            x = torch.exp(torch.clamp(l, max=50.0) - 20.0).to(dt).float()
+        return x.masked_fill(~valid[c0:c0 + 64], 0.0)
+
+    chunks = range(0, nkp, 64)
+    s = sum(e_rows(c0).sum(-1) for c0 in chunks)
+    s = torch.clamp(s, min=1e-30)  # (B, nh, Nq)
+    do_n = (do.float() / s.permute(0, 2, 1)[..., None]).to(dt).float()
+    dnf = torch.nn.functional.pad(do_n, (0, ta.pad16(dv) - dv))
+
+    def dpn(c0):
+        return torch.einsum("bqnc,bknc->bnqk", dnf, vf[:, c0:c0 + 64])
+
+    rs = sum((dpn(c0) * e_rows(c0)).sum(-1) for c0 in chunks) / s
+    dq_acc = 0.0
+    for c0 in chunks:
+        dl = (e_rows(c0) * (dpn(c0) - rs[..., None])).to(dt).float()
+        dq_acc = dq_acc + torch.einsum("bnqk,bknc->bqnc", dl, kf[:, c0:c0 + 64])
+
+    n_split, per = ta.keys_split(B, Nq, Nk, nh, sms)
+    dk_acc = dv_acc = 0.0
+    for sl in range(n_split):
+        rows = slice(64 * sl * per, min(Nq, 64 * (sl + 1) * per))
+        if ef is not None:
+            et = ef[:, :, rows].transpose(-1, -2)
+        else:
+            lt = torch.einsum("bknc,bqnc->bnkq", kf, qf[:, rows])
+            et = torch.exp(torch.clamp(lt, max=50.0) - 20.0).to(dt).float()
+        et = et.masked_fill(~valid[:, None], 0.0)
+        dpt = torch.einsum("bknc,bqnc->bnkq", vf, dnf[:, rows])
+        dl = (et * (dpt - rs[:, :, None, rows])).to(dt).float()
+        dk_acc = dk_acc + torch.einsum("bnkq,bqnc->bknc", dl, qf[:, rows])
+        dv_acc = dv_acc + torch.einsum("bnkq,bqnc->bknc", et, dnf[:, rows])
+    return (dq_acc[..., :dq].to(dt), dk_acc[:, :Nk, :, :dq].to(dt),
+            dv_acc[:, :Nk, :, :dv].to(dt))
+
+
+# The edge cases of the tiling, and one whose every e is subnormal (bf16
+# and fp32).
+FLASH_CASES = EDGE_CASES + [pytest.param(SHAPES["long_k"], "subnormal", id="long_k-subnormal")]
+
+
+@pytest.mark.parametrize("shape, extreme", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("core", CONSTANT_SHIFT)
+def test_constant_shift_backward_scheme(core, shape, dtype, extreme):
+    """The emulated tensor-core backward (padding, masking, the three row
+    passes with do_n rounded with the final s, the q split and its ordered
+    sum) is the plain backward (``flash_bwd_plain``, or ``fused_bwd_plain``
+    on the saved-e forward's e) and, on the cases without extreme logits,
+    the JAX package's Pallas VJP within summation order (fp32) or 2e-2 of
+    each gradient's max (bf16); rows whose every exp underflows get a zero
+    dq."""
+    dt = getattr(torch, dtype)
+    arrays = _inputs(shape, 11, extreme is True, subnormal=extreme == "subnormal")
+    q, k, v, do = (torch.from_numpy(a).to(dt) for a in arrays)
+    e = None if core == "flash" else ta.fused_plain(q, k, v)[1]
+    got = emulate_flash_backward(q, k, v, do, e)
+    want = ta.flash_bwd_plain(q, k, v, do) if e is None else ta.fused_bwd_plain(q, k, v, do, e)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.isfinite(g).all()
+    got = [g.float().numpy() for g in got]
+    refs = [[w.float().numpy() for w in want]]
+    if not extreme:  # the extreme rows' plain backward meets the VJP above
+        refs.append(_jax_grads(core, arrays, getattr(jnp, dtype)))
+    for ref in refs:
+        for g, w in zip(got, ref):
+            assert np.abs(w).max() > 0.0
+            if dtype == "float32":
+                np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=FP32_RTOL)
+            else:
+                assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max()
+    if extreme is True:
+        assert np.abs(got[0][:, 3:6]).max() == 0.0

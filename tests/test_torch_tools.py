@@ -24,6 +24,14 @@ ROOT = Path(__file__).resolve().parents[1]
     ("void exact_bwd_keys_kernel<8, 6>(__nv_bfloat16 const*, __nv_bfloat16 const*, ",
      "attention_bwd"),
     ("sum_slices_kernel(float const*, __nv_bfloat16*, long, int)", "attention_bwd"),
+    ("void flash_bwd_rows_kernel<false, 8>(__nv_bfloat16 const*, __nv_bfloat16 const*, ",
+     "attention_bwd"),
+    ("void flash_bwd_rows_kernel<true, 9>(__nv_bfloat16 const*, __nv_bfloat16 const*, ",
+     "attention_bwd"),
+    ("void flash_bwd_keys_kernel<false, 8, 6>(__nv_bfloat16 const*, __nv_bfloat16 const*, ",
+     "attention_bwd"),
+    ("void flash_bwd_keys_kernel<true, 9, 6>(__nv_bfloat16 const*, __nv_bfloat16 const*, ",
+     "attention_bwd"),
     ("void fused_bwd_keys_kernel<__nv_bfloat16, 6>(__nv_bfloat16 const*, ", "attention_bwd"),
     ("void at::native::(anonymous namespace)::conv_depthwise3d_cuda_backward_input_kernel<",
      "conv"),
@@ -79,4 +87,22 @@ def test_chip_smoke_reads_ptxas_usage():
         "sum_slices_kernel": {"spill_bytes": 0, "registers": 32},
         "exact_bwd_keys_kernel<12, 8>": {"spill_bytes": 308, "registers": 255},
         "exact_fwd_kernel<6>": {"spill_bytes": 0, "registers": 189},
+    }
+
+
+def test_chip_smoke_reads_ptxas_bool_template_arguments():
+    """Kernels templated on a bool (the constant-shift backward's read or
+    recompute mode) keep one entry per instance."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    log = "".join(
+        f"ptxas info    : Function properties for _Z21flash_bwd_keys_kernelIL{flag}ELi8ELi6EEvPK13"
+        f"__nv_bfloat16S2_S2_S2_S2_PKfPfS5_iiiiiiiiiii\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers, 440 bytes cmem[0]\n"
+        for flag, spill, regs in (("b0", 4, 255), ("b1", 0, 230)))
+    assert chip_smoke.ptxas_usage(log) == {
+        "flash_bwd_keys_kernel<false, 8, 6>": {"spill_bytes": 4, "registers": 255},
+        "flash_bwd_keys_kernel<true, 8, 6>": {"spill_bytes": 0, "registers": 230},
     }
