@@ -66,8 +66,8 @@
 // their e need not be bit-identical; the kernels are held to the plain
 // backwards within 2e-2 of each gradient's max (chip_smoke.py). Two
 // launches on the same inputs give bit-equal dq, dk and dv. exp is the
-// accurate expf, as in the forward (pooled_attention.cu), so a recomputed e
-// rounds as the forward's did.
+// accurate expf, as in the forward (pooled_attention_flash.cu), so a
+// recomputed e rounds as the forward's did.
 //
 // Resources: ptxas -v for sm_90a, printed by chip_smoke.py's build phase.
 // Dynamic shared memory, rows kernel 2 * 64 * 4 (dqp + dvp) bytes
@@ -82,19 +82,10 @@
 #define FB_WGS 2  // warpgroups a rows-kernel block, one 64-row q tile each
 #define FB_THREADS (WG_THREADS * FB_WGS)
 #define FB_BQ (WG_ROWS * FB_WGS)  // q rows a rows-kernel block
-#define FB_E_LD 72  // elements of a staged e row: its 64 keys in a 16-byte-aligned window
-#define FB_E_PIECES (FB_E_LD / 8)          // 16-byte pieces of a staged e row
-#define FB_E_TILE (WG_ROWS * FB_E_LD * 2)  // bytes of a staged 64 x 64 e tile
 
 // e = round(exp(min(l, 50) - 20)), as the bf16 value in fp32.
 __device__ __forceinline__ float flash_e(float l) {
   return __bfloat162float(__float2bfloat16_rn(expf(fminf(l, 50.f) - 20.f)));
-}
-
-// Offset of key k0 of e row `row` in its staged window: the row's start
-// modulo 16 bytes (e's base is 16-byte aligned and k0 a multiple of 64).
-__device__ __forceinline__ int e_shift(int64_t row, int nk) {
-  return static_cast<int>((static_cast<uint32_t>(row) * static_cast<uint32_t>(nk)) & 7u);
 }
 
 // Keys [k0, k0 + 64) of e rows [r0, r0 + 64) of one (batch, head) plane
@@ -106,8 +97,8 @@ template <int kThreads>
 __device__ __forceinline__ void load_e_tile(unsigned char* tile, const bf16* e, int64_t row0,
                                             int r0, int nq, int nk, int k0) {
   const uint32_t base = smem_addr(tile);
-  for (int idx = threadIdx.x; idx < WG_ROWS * FB_E_PIECES; idx += kThreads) {
-    const int r = idx / FB_E_PIECES, p = idx % FB_E_PIECES;
+  for (int idx = threadIdx.x; idx < WG_ROWS * E_WIN_PIECES; idx += kThreads) {
+    const int r = idx / E_WIN_PIECES, p = idx % E_WIN_PIECES;
     int valid = 0;
     const bf16* src = e;
     if (r0 + r < nq) {
@@ -116,7 +107,7 @@ __device__ __forceinline__ void load_e_tile(unsigned char* tile, const bf16* e, 
       valid = min(max(nk - key0, 0), 8);
       if (valid > 0) src = e + row * nk + key0;
     }
-    copy_piece<8>(tile, base, (r * FB_E_PIECES + p) * 16, src, valid);
+    copy_piece<8>(tile, base, (r * E_WIN_PIECES + p) * 16, src, valid);
   }
 }
 
@@ -135,7 +126,7 @@ flash_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* v_s = k_s + 2 * tile_bytes(dqp);        // [2]
   unsigned char* x_s = v_s + 2 * tile_bytes(dvp);        // read: [2][FB_WGS] e; else [FB_WGS] q
   float* s_sh = reinterpret_cast<float*>(
-      x_s + (kRead ? 2 * FB_WGS * FB_E_TILE : FB_WGS * tile_bytes(dqp)));  // [FB_WGS][64]
+      x_s + (kRead ? 2 * FB_WGS * E_WIN_TILE : FB_WGS * tile_bytes(dqp)));  // [FB_WGS][64]
 
   const int wg = threadIdx.x / WG_THREADS, wt = threadIdx.x % WG_THREADS;
   const int warp = wt >> 5, lane = threadIdx.x & 31;
@@ -155,7 +146,7 @@ flash_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int pass = st / nc, c0 = (st % nc) * WG_ROWS;
     if (kRead) {
       for (int w = 0; w < FB_WGS; ++w)
-        load_e_tile<FB_THREADS>(x_s + (buf * FB_WGS + w) * FB_E_TILE, e, row0,
+        load_e_tile<FB_THREADS>(x_s + (buf * FB_WGS + w) * E_WIN_TILE, e, row0,
                                 q0 + w * WG_ROWS, nq, nk, c0);
     }
     if (!kRead || pass == 2)
@@ -224,11 +215,11 @@ flash_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float x[32], dp[32];  // e, then dl; dpn
     if (kRead) {
-      const bf16* et = reinterpret_cast<const bf16*>(x_s + (buf * FB_WGS + wg) * FB_E_TILE);
+      const bf16* et = reinterpret_cast<const bf16*>(x_s + (buf * FB_WGS + wg) * E_WIN_TILE);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int hh = (i >> 1) & 1;
-        x[i] = __bfloat162float(et[(16 * warp + g + 8 * hh) * FB_E_LD + 8 * (i >> 2) + 2 * t +
+        x[i] = __bfloat162float(et[(16 * warp + g + 8 * hh) * E_WIN_LD + 8 * (i >> 2) + 2 * t +
                                    (i & 1) + shift[hh]]);
       }
     }
@@ -326,7 +317,7 @@ flash_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* don_s = q_s + 2 * tile_bytes(dqp);    // [2]
   unsigned char* x_s = don_s + 2 * tile_bytes(dvp);    // read: [2] e tiles; else the K tile
   float* st_s = reinterpret_cast<float*>(
-      x_s + (kRead ? 2 * FB_E_TILE : tile_bytes(dqp)));  // [2][64] r / s
+      x_s + (kRead ? 2 * E_WIN_TILE : tile_bytes(dqp)));  // [2][64] r / s
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -346,7 +337,7 @@ flash_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int q0 = tile * WG_ROWS;
     load_tile<WG_THREADS>(q_s + buf * tile_bytes(dqp), qb, ldqk, q0, nq, dq, dqp, vec_qk);
     load_tile<WG_THREADS>(don_s + buf * tile_bytes(dvp), donb, ldv, q0, nq, dv, dvp, vec_v);
-    if (kRead) load_e_tile<WG_THREADS>(x_s + buf * FB_E_TILE, e, row0, q0, nq, nk, k0);
+    if (kRead) load_e_tile<WG_THREADS>(x_s + buf * E_WIN_TILE, e, row0, q0, nq, nk, k0);
     if (threadIdx.x < WG_ROWS)
       load_row_stat(st_s + buf * WG_ROWS, rs_in + row0, q0, nq, threadIdx.x);
   };
@@ -382,14 +373,14 @@ flash_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* st = st_s + buf * WG_ROWS;
     float et[32], dpt[32];  // rows: keys; columns: q rows of the tile
     if (kRead) {
-      const bf16* etile = reinterpret_cast<const bf16*>(x_s + buf * FB_E_TILE);
+      const bf16* etile = reinterpret_cast<const bf16*>(x_s + buf * E_WIN_TILE);
       const uint32_t shift0 = static_cast<uint32_t>(row0 + q0) * static_cast<uint32_t>(nk);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = 8 * (i >> 2) + 2 * t + (i & 1);
         const int shift = static_cast<int>((shift0 + col * static_cast<uint32_t>(nk)) & 7u);
         et[i] = __bfloat162float(
-            etile[col * FB_E_LD + 16 * warp + g + 8 * ((i >> 1) & 1) + shift]);
+            etile[col * E_WIN_LD + 16 * warp + g + 8 * ((i >> 1) & 1) + shift]);
       }
     } else {
       zero(et);
@@ -459,13 +450,13 @@ flash_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 static size_t rows_smem(bool read, int dqp, int dvp) {
-  const int x = read ? 2 * FB_WGS * FB_E_TILE : FB_WGS * tile_bytes(dqp);
+  const int x = read ? 2 * FB_WGS * E_WIN_TILE : FB_WGS * tile_bytes(dqp);
   return static_cast<size_t>(FB_WGS * tile_bytes(dvp) + 2 * (tile_bytes(dqp) + tile_bytes(dvp)) +
                              x + FB_WGS * WG_ROWS * sizeof(float));
 }
 
 static size_t keys_smem(bool read, int dqp, int dvp) {
-  const int x = read ? 2 * FB_E_TILE : tile_bytes(dqp);
+  const int x = read ? 2 * E_WIN_TILE : tile_bytes(dqp);
   return static_cast<size_t>(3 * tile_bytes(dvp) + 2 * tile_bytes(dqp) + x +
                              2 * WG_ROWS * sizeof(float));
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core pooled-attention
 // kernels (pooled_attention_exact.cu, pooled_attention_exact_bwd.cu,
-// pooled_attention_flash_bwd.cu): the shared-memory tile layout,
-// asynchronous tile copies, wgmma descriptors, the two wgmma shapes the
-// kernels use and the backwards' ordered sum of fp32 partials. Each
-// warpgroup (128 threads) of a block multiplies its own 64-row tiles.
+// pooled_attention_flash.cu, pooled_attention_flash_bwd.cu): the
+// shared-memory tile layout, asynchronous tile copies, wgmma descriptors,
+// the wgmma shapes the kernels use, the staged window of the saved e and
+// the backwards' ordered sum of fp32 partials. Each warpgroup (128 threads) of
+// a block multiplies its own 64-row tiles.
 //
 // Tile layout. A tile holds 64 rows (q rows or keys) of a (N, nh, d) head
 // slice, bf16, with its depth d zero-padded to dp (a multiple of 16). It is
@@ -158,6 +159,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most kPending of this warpgroup's committed wgmma groups
+// are still running (the newest ones).
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
 
 // Keep the compiler from moving accesses of wgmma registers across the
 // fence, commit and wait above (CUTLASS's warpgroup_fence_operand).
@@ -165,6 +172,15 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// The same for A fragments held in registers: keeps them live, and
+// unmoved, until a wgmma that reads them is known to have finished.
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 // d (64 x 64, fp32) += a (64 x 16, shared, K-major) * b (16 x 64, shared,
@@ -198,6 +214,83 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 16 kN, fp32) += a (64 x 16, bf16 registers) * b (16 x 16 kN,
+// shared, MN-major) in one instruction, for kN = 1, 4, 6 and 8 (n16 to
+// n128). d is the m64nN accumulator: element 8 j + i is element i of the
+// j-th 16-column tile of wgmma_rs_n16's layout.
+template <int kN>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[kN * 8], const uint32_t (&a)[4],
+                                              uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<1>(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  wgmma_rs_n16(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<4>(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<6>(float (&d)[48], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<8>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // Accumulator layout of m64nN (PTX ISA, "wgmma register fragment D"): warp
 // w of the warpgroup holds rows 16 w + g and 16 w + g + 8 (g = lane / 4);
 // element 4 j + 2 h + c is row 16 w + g + 8 h, column 8 j + 2 (lane % 4) + c.
@@ -225,6 +318,20 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// A 64 x 64 tile of the saved e staged in shared memory: each row's 64 keys
+// in the 16-byte-aligned window of 72 elements that holds them (e's rows
+// are Nk elements long, and Nk is odd in every MViTv2-S block).
+#define E_WIN_LD 72                          // elements of a staged row
+#define E_WIN_PIECES (E_WIN_LD / 8)          // 16-byte pieces of a staged row
+#define E_WIN_TILE (WG_ROWS * E_WIN_LD * 2)  // bytes of a staged tile
+
+// Offset of key k0 of row `row` of a (rows, nk) bf16 tensor (the saved e)
+// in the 16-byte-aligned window that holds keys [k0, k0 + 64): the row's
+// start modulo 16 bytes (the base is 16-byte aligned, k0 a multiple of 64).
+__device__ __forceinline__ int e_shift(int64_t row, int nk) {
+  return static_cast<int>((static_cast<uint32_t>(row) * static_cast<uint32_t>(nk)) & 7u);
 }
 
 template <int N>

@@ -6,12 +6,13 @@ the counterparts of the JAX package's Pallas kernels
 (``slowfast_tpu/ops/pallas_attention.py``):
 
 * ``flash_pooled_attention``, the port's default MViT core. Forward
-  ``csrc/pooled_attention.cu`` (kernel :375 ``_flash_fwd_kernel``): the
-  constant-shift softmax ``e = round(exp(min(l, 50) - 20))``,
-  ``s = max(Σe, 1e-30)``, ``o = (e v) / s``, with ``e`` rounded to the
-  compute dtype before the sum and the product. Rows whose every ``exp``
-  underflows give zeros, not NaN. Backward (kernel :392
-  ``_flash_bwd_kernel``), which recomputes ``e``:
+  (kernel :375 ``_flash_fwd_kernel``): the constant-shift softmax
+  ``e = round(exp(min(l, 50) - 20))``, ``s = max(Σe, 1e-30)``,
+  ``o = (e v) / s``, with ``e`` rounded to the compute dtype before the sum
+  and the product. Rows whose every ``exp`` underflows give zeros, not NaN.
+  In bf16 it runs on the tensor cores (``csrc/pooled_attention_flash.cu``,
+  wgmma), in fp32 on ``csrc/pooled_attention.cu`` (FMA loops). Backward
+  (kernel :392 ``_flash_bwd_kernel``), which recomputes ``e``:
   ``do_n = round(do / s)``, ``dv = eᵀ do_n``, ``dpn = do_n vᵀ``,
   ``r = Σ dpn·e``, ``dl = round(e (dpn - r / s))``, ``dq = dl k``,
   ``dk = dlᵀ q``. It has no derivative of the clamp: a clamped logit gets
@@ -21,9 +22,10 @@ the counterparts of the JAX package's Pallas kernels
   ``csrc/pooled_attention_bwd.cu`` (FMA loops).
 * ``fused_pooled_attention``, the same function with the saved-e backward of
   kernels :237 ``_fused_fwd_kernel`` and :255 ``_fused_bwd_kernel``. Forward:
-  the saved-e mode of ``csrc/pooled_attention.cu``, whose output is bit-equal
-  to the flash forward's and which also writes ``e`` as ``(B, nh, Nq, Nk)``
-  in v's dtype. Backward: the flash backward's formulas with ``e`` read
+  the saved-e mode of the same kernels (``csrc/pooled_attention_flash.cu`` in
+  bf16, ``csrc/pooled_attention.cu`` in fp32), whose output is bit-equal to
+  the flash forward's and which also writes ``e`` as ``(B, nh, Nq, Nk)`` in
+  v's dtype. Backward: the flash backward's formulas with ``e`` read
   back instead of recomputed; in bf16 the read mode of
   ``csrc/pooled_attention_flash_bwd.cu``, in fp32
   ``csrc/pooled_attention_fused_bwd.cu``. No config key routes MViT to it,
@@ -57,24 +59,31 @@ import torch
 from . import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu; EX_MAX_DQ, EX_MAX_DV in
-# csrc/pooled_attention_exact.cu
+# PA_MAX_DQ, PA_MAX_DV in csrc/pooled_attention.cu; EX_MAX_DQ, EX_MAX_DV and
+# FF_MAX_DQ, FF_MAX_DV in csrc/pooled_attention_{exact,flash}.cu
 _MAX_DQ, _MAX_DV = 256, 128
 # PB_MAX_DQ, PF_MAX_DQ, EB_MAX_DQ, FB_MAX_DQ in
 # csrc/pooled_attention{_bwd,_fused_bwd,_exact_bwd,_flash_bwd}.cu
 _MAX_DQ_BWD = 192
 _TILE = 64  # q rows and keys per tile of every pooled-attention kernel
+# Depths of the template instances of csrc/pooled_attention_flash.cu: q kᵀ
+# over dq padded to one of _FWD_QK_DEPTHS, e v over dv padded to one of
+# _FWD_V_DEPTHS (the depths of its packed tiles).
+_FWD_QK_DEPTHS = (32, 128, 144, 192, 256)
+_FWD_V_DEPTHS = (16, 64, 96, 128)
 _SM_COUNT_H100 = 132
 _KEYS_BLOCKS_PER_SM = 8  # four waves of the keys kernel's two resident blocks
 
 # Kernel launches since the last reset; only the _launch* functions add to
 # them. A kernel with an fp32 (FMA) and a bf16 (tensor-core) instance counts
-# them apart: ``exact_*``, ``flash_bwd_*``, ``fused_bwd_*`` are the FMA
-# kernels, ``*_tc_*`` the tensor-core ones.
+# them apart: ``flash_*``, ``exact_*`` and ``fused_*`` are the FMA kernels,
+# ``*_tc_*`` the tensor-core ones.
 flash_launches = 0
+flash_tc_launches = 0
 exact_launches = 0
 exact_tc_launches = 0
 fused_launches = 0
+fused_tc_launches = 0
 flash_bwd_launches = 0
 exact_bwd_launches = 0
 exact_tc_bwd_launches = 0
@@ -333,6 +342,16 @@ def keys_split(B, Nq, Nk, nh, sms=_SM_COUNT_H100):
     return -(-tiles // per), per
 
 
+def flash_fwd_scratch(B, Nk, nh, dq, dv):
+    """Shapes of the tensor-core constant-shift forward's bf16 scratch: k
+    and v packed into 64-key tiles per (batch, head), each tile as deep as
+    the kernel's template instance (``_FWD_QK_DEPTHS``, ``_FWD_V_DEPTHS``),
+    zero past the keys and the depth."""
+    tiles = -(-Nk // _TILE)
+    return {"k": (B, nh, tiles, _TILE, min(d for d in _FWD_QK_DEPTHS if d >= dq)),
+            "v": (B, nh, tiles, _TILE, min(d for d in _FWD_V_DEPTHS if d >= dv))}
+
+
 def flash_bwd_scratch(B, Nq, Nk, nh, dq, dv, n_split):
     """Shapes and dtypes of the tensor-core constant-shift backward's
     scratch: ``r / s`` per row (fp32), ``do_n = round(do / s)`` in do's
@@ -356,14 +375,16 @@ def _sm_count(t):
 
 def _launch(qh, kh, vh, exact):
     global flash_launches, exact_launches
-    if exact and vh.dtype == torch.bfloat16:
-        return _launch_exact_tc(qh, kh, vh)
+    if vh.dtype == torch.bfloat16:
+        if exact:
+            return _launch_exact_tc(qh, kh, vh)
+        return _launch_constant_shift_tc(qh, kh, vh)
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
     out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
     fn = _kernel("pooled_attention", "sf_pooled_attention",
                  [_PTR] * 4 + [_I64] * 6 + [_I32, _I32, _PTR])
     err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-             B, Nq, Nk, nh, dq, dv, int(exact), int(vh.dtype == torch.bfloat16), _stream(vh))
+             B, Nq, Nk, nh, dq, dv, int(exact), 0, _stream(vh))
     if err != 0:
         raise RuntimeError(f"pooled-attention kernel launch failed: CUDA error {err}")
     if exact:
@@ -389,17 +410,52 @@ def _launch_exact_tc(qh, kh, vh):
     return out
 
 
+def _launch_constant_shift_tc(qh, kh, vh, save_e=False):
+    """The bf16 constant-shift forward on the tensor cores: the flash
+    core's output or, with ``save_e``, the fused core's ``(out, e)``, ``e``
+    ``(B, nh, Nq, Nk)`` bf16 from a 16-byte aligned base. The kernel first
+    packs k and v into the scratch of ``flash_fwd_scratch``."""
+    global flash_tc_launches, fused_tc_launches
+    B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
+    out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
+    saved = ()
+    if save_e:
+        e = torch.empty((B, nh, Nq, Nk), dtype=vh.dtype, device=vh.device)
+        if e.data_ptr() % 16:
+            raise ValueError("the tensor-core forward writes e from a 16-byte aligned base")
+        saved = (e.data_ptr(),)
+    packed = [torch.empty(shape, dtype=torch.bfloat16, device=vh.device)
+              for shape in flash_fwd_scratch(B, Nk, nh, dq, dv).values()]
+    symbol = "sf_flash_attention_fwd_saved_e" if save_e else "sf_flash_attention_fwd"
+    fn = _kernel("pooled_attention_flash", symbol,
+                 [_PTR] * (6 + len(saved)) + [_I64] * 6 + [_I32] * 4 + [_PTR])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), *saved,
+             *(t.data_ptr() for t in packed), B, Nq, Nk, nh, dq, dv, pad16(dq), pad16(dv),
+             copy_vec((qh, kh), dq), copy_vec((vh,), dv), _stream(vh))
+    if err != 0:
+        raise RuntimeError(f"constant-shift pooled-attention kernel launch failed: "
+                           f"CUDA error {err}")
+    if save_e:
+        fused_tc_launches += 1
+        return out, e
+    flash_tc_launches += 1
+    return out
+
+
 def _launch_fused(qh, kh, vh):
     """The saved-e forward: the flash forward's output and ``e``
-    ``(B, nh, Nq, Nk)`` in v's dtype."""
+    ``(B, nh, Nq, Nk)`` in v's dtype. bf16 goes to the tensor-core kernel,
+    fp32 to the FMA kernel."""
     global fused_launches
+    if vh.dtype == torch.bfloat16:
+        return _launch_constant_shift_tc(qh, kh, vh, save_e=True)
     B, Nq, Nk, nh, dq, dv = _check_launch((qh, kh, vh), _MAX_DQ)
     out = torch.empty((B, Nq, nh, dv), dtype=vh.dtype, device=vh.device)
     e = torch.empty((B, nh, Nq, Nk), dtype=vh.dtype, device=vh.device)
     fn = _kernel("pooled_attention", "sf_pooled_attention_saved_e",
                  [_PTR] * 5 + [_I64] * 6 + [_I32, _PTR])
     err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), e.data_ptr(),
-             B, Nq, Nk, nh, dq, dv, int(vh.dtype == torch.bfloat16), _stream(vh))
+             B, Nq, Nk, nh, dq, dv, 0, _stream(vh))
     if err != 0:
         raise RuntimeError(f"saved-e pooled-attention kernel launch failed: CUDA error {err}")
     fused_launches += 1

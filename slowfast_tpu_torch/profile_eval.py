@@ -33,7 +33,7 @@ from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 # First match wins; names are CUDA kernel names as the profiler reports them.
 CATEGORIES = [
     ("attention_bwd", r"attention_bwd|exact_bwd|flash_bwd|fused_bwd|sum_slices"),
-    ("attention_core", r"pooled_attention|exact_fwd"),
+    ("attention_core", r"pooled_attention|exact_fwd|flash_fwd|pack_tiles"),
     ("preprocess", r"preprocess_u8"),
     ("conv", r"conv|cudnn|implicit|depthwise|winograd|fft|dgrad|wgrad|xmma_fprop"),
     ("gemm", r"gemm|gemv|cutlass|nvjet|xmma|sm90_|sm80_|ampere|magma"),

@@ -223,9 +223,10 @@ def stub(monkeypatch):
     monkeypatch.setattr(ta, "_check_device", lambda t: None)
     monkeypatch.setattr(ta, "_stream", lambda t: 0)
     monkeypatch.setattr(ta, "_sm_count", lambda t: 132)
-    for name in ("flash_launches", "exact_launches", "exact_tc_launches", "fused_launches",
-                 "flash_bwd_launches", "exact_bwd_launches", "exact_tc_bwd_launches",
-                 "flash_tc_bwd_launches", "fused_bwd_launches", "fused_tc_bwd_launches"):
+    for name in ("flash_launches", "flash_tc_launches", "exact_launches", "exact_tc_launches",
+                 "fused_launches", "fused_tc_launches", "flash_bwd_launches",
+                 "exact_bwd_launches", "exact_tc_bwd_launches", "flash_tc_bwd_launches",
+                 "fused_bwd_launches", "fused_tc_bwd_launches"):
         monkeypatch.setattr(ta, name, 0)
     return lib
 
@@ -236,7 +237,8 @@ def stub(monkeypatch):
 def test_exact_forward_routes_by_dtype(stub, shape, dtype):
     """bf16 goes to the tensor-core entry point with the padded depths and
     the copy pieces; fp32 to the FMA kernel's exact mode; each counts on
-    its own counter. The flash forward is the FMA kernel in both."""
+    its own counter. The flash forward goes to its tensor-core kernel in
+    bf16 and to the FMA kernel in fp32."""
     B, Nq, Nk, nh, dq, dv = shape
     dt = getattr(torch, dtype)
     q, k, v = (torch.zeros(s, dtype=dt) for s in
@@ -245,7 +247,10 @@ def test_exact_forward_routes_by_dtype(stub, shape, dtype):
     assert out.shape == (B, Nq, nh, dv) and out.dtype == dt
     ta._launch(q, k, v, exact=False)
     (source, symbol, args), flash = stub.calls
-    assert flash[:2] == ("pooled_attention", "sf_pooled_attention") and flash[2][10] == 0
+    if dtype == "bfloat16":
+        assert flash[:2] == ("pooled_attention_flash", "sf_flash_attention_fwd")
+    else:
+        assert flash[:2] == ("pooled_attention", "sf_pooled_attention") and flash[2][10] == 0
     if dtype == "bfloat16":
         assert (source, symbol) == ("pooled_attention_exact", "sf_exact_attention_fwd")
         assert args[4:14] == (B, Nq, Nk, nh, dq, dv, ta.pad16(dq), ta.pad16(dv),
@@ -255,7 +260,7 @@ def test_exact_forward_routes_by_dtype(stub, shape, dtype):
         assert (source, symbol) == ("pooled_attention", "sf_pooled_attention")
         assert args[4:12] == (B, Nq, Nk, nh, dq, dv, 1, 0)  # exact, not bf16
         assert (ta.exact_tc_launches, ta.exact_launches) == (0, 1)
-    assert ta.flash_launches == 1
+    assert ta.flash_launches + ta.flash_tc_launches == 1
 
 
 def _chunked_logits(q, k, c0):
@@ -324,3 +329,151 @@ def test_padding_and_masking_scheme_matches_exact_plain(shape, dtype, extreme):
     assert got.dtype == want.dtype and torch.isfinite(got).all()
     tol = FP32_TOL if dtype == "float32" else BF16_TOL
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=tol, rtol=tol)
+
+
+# The bf16 constant-shift forwards on the tensor cores
+# (csrc/pooled_attention_flash.cu): what the wrappers hand the kernel, and
+# the kernel's scheme in plain PyTorch.
+
+@pytest.mark.parametrize("shape", [(2, 131, 13, 2, 24, 16), (1, 70, 200, 2, 20, 12),
+                                   (2, 300, 393, 1, 118, 96), (1, 100, 1569, 2, 132, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("core", ["flash", "fused"])
+def test_constant_shift_forward_routes_by_dtype(stub, shape, dtype, core):
+    """bf16 goes to the tensor-core entry point (flash, or saved-e for the
+    fused core) with k and v's packed scratch, the real and padded depths
+    and the copy pieces; fp32 to the FMA kernel's flash or saved-e mode.
+    Each counts on its own counter; the fused core's e is (B, nh, Nq, Nk) in
+    v's dtype."""
+    B, Nq, Nk, nh, dq, dv = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.zeros(s, dtype=dt) for s in
+               [(B, Nq, nh, dq), (B, Nk, nh, dq), (B, Nk, nh, dv)])
+    if core == "flash":
+        out = ta._launch(q, k, v, exact=False)
+    else:
+        out, e = ta._launch_fused(q, k, v)
+        assert e.shape == (B, nh, Nq, Nk) and e.dtype == dt
+    assert out.shape == (B, Nq, nh, dv) and out.dtype == dt
+    (source, symbol, args), = stub.calls
+    saved = int(core == "fused")
+    counts = (ta.flash_launches, ta.flash_tc_launches, ta.fused_launches, ta.fused_tc_launches)
+    if dtype == "bfloat16":
+        assert source == "pooled_attention_flash"
+        assert symbol == ("sf_flash_attention_fwd_saved_e" if saved else "sf_flash_attention_fwd")
+        assert args[3] == out.data_ptr() and (not saved or args[4] == e.data_ptr())
+        assert args[6 + saved:16 + saved] == (
+            B, Nq, Nk, nh, dq, dv, ta.pad16(dq), ta.pad16(dv), ta.copy_vec((q, k), dq),
+            ta.copy_vec((v,), dv))
+        assert counts == ((0, 1, 0, 0) if core == "flash" else (0, 0, 0, 1))
+    else:
+        assert source == "pooled_attention"
+        if core == "flash":
+            assert symbol == "sf_pooled_attention"
+            assert args[4:12] == (B, Nq, Nk, nh, dq, dv, 0, 0)  # not exact, not bf16
+        else:
+            assert symbol == "sf_pooled_attention_saved_e" and args[4] == e.data_ptr()
+            assert args[5:12] == (B, Nq, Nk, nh, dq, dv, 0)  # not bf16
+        assert counts == ((1, 0, 0, 0) if core == "flash" else (0, 0, 1, 0))
+
+
+@pytest.mark.parametrize("dq, dv, dqk, dvv", [
+    (118, 96, 128, 96),   # MViTv2-S blocks 0, 2, 4-13, 15
+    (132, 96, 144, 96),   # blocks 1, 3, 14
+    (20, 12, 32, 16),
+    (64, 64, 128, 64),
+    (150, 100, 192, 128),
+    (256, 128, 256, 128),
+])
+def test_flash_fwd_scratch_takes_the_template_depths(dq, dv, dqk, dvv):
+    """k and v are packed into 64-key tiles as deep as the kernel's
+    template instance; Nk = 393 and 1569 end in a partial tile."""
+    for Nk, tiles in ((393, 7), (1569, 25), (64, 1)):
+        assert ta.flash_fwd_scratch(16, Nk, 2, dq, dv) == {
+            "k": (16, 2, tiles, 64, dqk), "v": (16, 2, tiles, 64, dvv)}
+
+
+def test_bit_rounding_is_round_to_nearest_even():
+    """The kernel rounds e to bf16 on its fp32 bits (csrc's flash_e_bits):
+    the same value as PyTorch's rounding, for normal and subnormal numbers,
+    ties and the clamp's largest e."""
+    rng = np.random.RandomState(11)
+    x = np.concatenate([np.exp(rng.uniform(-110.0, 30.0, 20000)),
+                        np.float32([0.0, np.exp(30.0), 2.0 ** -130, 1.0 + 2.0 ** -8,
+                                    1.0 + 3 * 2.0 ** -8, 2.0 ** -126])]).astype(np.float32)
+    u = x.view(np.uint32).astype(np.uint64)
+    got = (((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)).view(np.float32)
+    want = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def emulate_constant_shift_forward(q, k, v, mask_by_index=True):
+    """The tensor-core constant-shift forward's scheme in plain PyTorch:
+    padded depths, 64-key chunks whose keys >= Nk have zero K and V rows
+    and, with ``mask_by_index``, e = 0 by their index; per chunk
+    ``e = round(exp(min(l, 50) - 20))``, ``s`` from the rounded e and
+    ``o += e v``; then ``o / max(s, 1e-30)``. Returns ``(out, e)``."""
+    dt, dv, Nk = v.dtype, v.shape[3], k.shape[1]
+    qf, kf, vf, valid = _padded(q, k, v)
+    s, o, es = 0.0, 0.0, []
+    for c0 in range(0, kf.shape[1], 64):
+        l = _chunked_logits(qf, kf, c0)
+        e = torch.exp(torch.clamp(l, max=50.0) - 20.0).to(dt).float()
+        if mask_by_index:
+            e = e.masked_fill(~valid[c0:c0 + 64], 0.0)
+        s = s + e.sum(-1)
+        o = o + torch.einsum("bnqk,bknc->bqnc", e, vf[:, c0:c0 + 64])
+        es.append(e)
+    out = o / torch.clamp(s, min=1e-30).permute(0, 2, 1)[..., None]
+    return out[..., :dv].to(dt), torch.cat(es, -1)[..., :Nk].to(dt)
+
+
+def _within_one_ulp_of_max(got, want):
+    """|got - want| within one bf16 ulp of max |want|."""
+    g, w = got.float().numpy(), want.float().numpy()
+    ulp = np.ldexp(1.0, int(np.frexp(np.abs(w).max())[1]) - 8)
+    assert np.abs(g - w).max() <= ulp, (np.abs(g - w).max(), ulp)
+
+
+@pytest.mark.parametrize("shape, extreme", EDGE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_constant_shift_scheme_matches_flash_and_fused_plain(shape, dtype, extreme):
+    """Zero-padded depths, zero K and V rows and e = 0 by index on the
+    masked keys, s from the rounded e chunk by chunk: the emulated kernel is
+    ``flash_plain`` and its e is ``fused_plain``'s, within summation order
+    (fp32) or one bf16 ulp of the output's max (bf16); underflowing rows
+    stay zero."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _inputs(shape, 12, extreme))
+    out, e = emulate_constant_shift_forward(q, k, v)
+    want_out, want_e = ta.fused_plain(q, k, v)
+    assert torch.equal(want_out, ta.flash_plain(q, k, v))
+    assert out.dtype == want_out.dtype and e.shape == want_e.shape and e.dtype == want_e.dtype
+    assert torch.isfinite(out).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), want_out.numpy(), atol=FP32_TOL, rtol=FP32_TOL)
+        np.testing.assert_allclose(e.numpy(), want_e.numpy(), atol=0.0, rtol=FP32_TOL)
+    else:
+        _within_one_ulp_of_max(out, want_out)
+        bf16_ulp = np.ldexp(1.0, np.frexp(np.abs(want_e.float().numpy()))[1] - 8)
+        assert (np.abs(e.float().numpy() - want_e.float().numpy()) <= bf16_ulp).all()
+    if extreme:
+        assert torch.count_nonzero(out[:, 3:6]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [EDGE_SHAPES["nk_below_64"], EDGE_SHAPES["nk_64j_plus_1"]])
+def test_zero_filled_keys_without_the_index_mask_do_not_match(shape, dtype):
+    """A zero-filled K row gives l = 0, so e = exp(-20), not 0: without the
+    mask by index the padded keys add to s, the output shrinks and leaves
+    the tolerance that the masked scheme meets."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _inputs(shape, 13))
+    unmasked, _ = emulate_constant_shift_forward(q, k, v, mask_by_index=False)
+    got, want = unmasked.float().numpy(), ta.flash_plain(q, k, v).float().numpy()
+    assert shape[2] % 64 != 0
+    if dtype == "float32":
+        assert not np.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    else:
+        assert np.abs(got - want).max() > np.ldexp(1.0, int(np.frexp(np.abs(want).max())[1]) - 8)
+    assert np.abs(got).sum() < np.abs(want).sum()
