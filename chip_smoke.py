@@ -94,7 +94,27 @@ Phases, each printing one JSON line:
               each) with mixup, drop path, dropout, AdamW and warmup, a val
               epoch of 4 batches and the epoch-1 checkpoint, which must
               reload into a fresh model with an identical eval output.
- 13. kernels  one line per kernel with its launches on its path, error,
+ 13. sf_train_fp32  one train step of full-width SLOWFAST_4x16_R50 on 2
+              clips, card vs CPU on the same weights, fp32, TF32 off,
+              Nesterov SGD, dropout off: the loss within 1e-5, the head's
+              gradients within 1e-4 of their max, all gradients no further
+              from a float64 CPU step than twice the CPU's fp32 step, the
+              updated parameters and the BN running buffers; the same card
+              step with TF32 on, the control, must fail the gradient limit.
+ 14. sf_train_slice  run_net.main training SLOWFAST_4x16_R50 for one epoch
+              on synthetic video: 4 steps of 16 clips with Nesterov SGD,
+              warmup and head dropout 0.5, precise BN over the 4 train
+              batches, a val epoch of 4 batches and the epoch-1 checkpoint,
+              whose BN buffers must be the precise ones and which must
+              reload into a fresh model with an identical eval output; the
+              preprocess kernel launched once per train, precise-BN and val
+              batch.
+ 15. cnn_family  X3D-M and I3D-NLN R50 at full width: the eval forward of
+              one clip card vs CPU in fp32 (TF32 off) within 1e-4, and bf16
+              train steps of 16 clips (step p50, peak memory); X3D-M's with
+              its channelwise convs on the channels_last_3d view and on a
+              contiguous NCDHW copy.
+ 16. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without printing that line.
@@ -148,6 +168,14 @@ TRAIN_GRAD_TOL_TAIL = 1e-4
 TRAIN_GRAD_L2_TOL = 1e-3
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_CLIPS = 16  # TRAIN.BATCH_SIZE 8 x AUG.NUM_SAMPLE 2, bench.py's B for MViTv2-S
+# The CNN train steps: 16 clips a step on one card (bench.py's B for SlowFast).
+CNN_TRAIN_CLIPS = 16
+# BN running buffers after one fp32 train step, card vs CPU: each buffer
+# within this share of its own max |value| (the step's batch statistics
+# enter them with momentum 0.1).
+BN_BUFFER_TOL = 1e-4
+X3D_YAML = os.path.join(ROOT, "configs", "Kinetics", "X3D_M.yaml")
+I3D_NLN_YAML = os.path.join(ROOT, "configs", "Kinetics", "I3D_NLN_8x8_R50.yaml")
 
 
 def emit(obj):
@@ -1671,6 +1699,424 @@ def phase_mvit_train_slice(attn_bwd, attn_fwd):
     return launches
 
 
+def running_buffers(model):
+    return {n: b.detach().cpu().clone() for n, b in model.named_buffers() if "running_" in n}
+
+
+def float64_grads(cfg, state, clip, label):
+    """The train step's gradients with the model, its activations and its
+    sums in float64 on the CPU: the yardstick of fp32 rounding."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.losses import get_loss_func
+
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(state, strict=True)
+    model.double()
+    model.dtype = torch.float64
+    model.train()
+    inputs = [x.double() for x in maybe_device_preprocess(cfg, [clip])]
+    get_loss_func(cfg.MODEL.LOSS_FUNC)(model(inputs), label).backward()
+    return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def phase_sf_train_fp32():
+    """One train step of full-width SlowFast 4x16 R50 on 2 clips, card vs CPU
+    on the same weights (every BN parameter and statistic random), fp32 with
+    TF32 off: SGD with Nesterov momentum, dropout off (the two generators
+    draw different masks). The loss, grad norm, every gradient, the updated
+    parameters and the BN running buffers after the step.
+
+    In fp32 this gradient is not a smooth function of the rounding: ReLU
+    masks and max-pool argmaxes flip on near-ties, and the BNs' backward
+    spreads each moved entry over its channel. So all gradients together are
+    held by a yardstick measured here: their distance from the same step in
+    float64 on the CPU must be at most twice the CPU's fp32 distance from
+    it. The head's gradients, which no flip upstream reaches, are held
+    within TRAIN_GRAD_TOL_TAIL of their max. A control proves the gradient
+    limit's power: the same card step with TF32 left on must fail it."""
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.optimizer import OPTIMIZERS, SGD
+
+    cfg = slowfast_cfg(["TPU.COMPUTE_DTYPE", "float32", "MODEL.DROPOUT_RATE", "0.0",
+                        "NUM_GPUS", "1", "TRAIN.BATCH_SIZE", "2"])
+    cpu_model = build_model(cfg, device="cpu")
+    randomize_bn(cpu_model, 3)
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    crop = cfg.DATA.TRAIN_CROP_SIZE
+    clip = torch.from_numpy(np.random.RandomState(10).randint(
+        0, 255, (2, cfg.DATA.NUM_FRAMES, crop, crop, 3)).astype(np.uint8))
+    label = torch.tensor([17, 305])
+    epoch_exact = 15.0  # mid-warmup: a nonzero LR
+    t0 = time.perf_counter()
+    want, want_grads, want_params = train_one_step(cfg, cpu_model, clip, label, epoch_exact)
+    cpu_s = time.perf_counter() - t0
+    want_bufs = running_buffers(cpu_model)
+    exact = float64_grads(cfg, state, clip, label)
+
+    def card_step(allow_tf32):
+        model = build_model(cfg, device="cuda")
+        model.load_state_dict(state, strict=True)
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        try:
+            reset_launches()
+            out = train_one_step(cfg, model, clip, label, epoch_exact)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        return (*out, running_buffers(model), launches)
+
+    got, grads, params, bufs, launches = card_step(False)
+    names = [n for n, p in cpu_model.named_parameters() if p.requires_grad]
+    missing = [n for n in names if n not in grads or grads[n].abs().max().item() == 0.0]
+    check(not missing, f"parameters with no or an all-zero gradient: {missing}")
+    shares = {n: (grads[n] - want_grads[n]).abs().max().item() / want_grads[n].abs().max().item()
+              for n in names}
+    head = max(v for n, v in shares.items() if n.startswith("head."))
+    l2_err = rel_l2(grads, want_grads, names)
+    card_vs_f64, cpu_vs_f64 = rel_l2(grads, exact, names), rel_l2(want_grads, exact, names)
+    norm_f64 = sum(exact[n].pow(2).sum().item() for n in names) ** 0.5
+    norm_floor = abs(want["grad_norm"] - norm_f64) / norm_f64
+    grad_abs_err = max((grads[n] - want_grads[n]).abs().max().item() for n in names)
+    param_err = max((params[n] - want_params[n]).abs().max().item() for n in names)
+    buf_share = max((bufs[n] - want_bufs[n]).abs().max().item() / want_bufs[n].abs().max().item()
+                    for n in want_bufs)
+    moved = max((want_bufs[n] - state[n]).abs().max().item() for n in want_bufs)
+    loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+    norm_err = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:6]
+    # The control: the same card step with TF32 left on. The gradient limit
+    # must reject it, or it could not tell the fp32 step from a TF32 one.
+    c_got, c_grads = card_step(True)[:2]
+    control = {"loss_rel_err": abs(c_got["loss"] - want["loss"]) / want["loss"],
+               "grad_rel_l2_err": rel_l2(c_grads, want_grads, names),
+               "card_vs_float64_grad_rel_l2": rel_l2(c_grads, exact, names),
+               "max_head_grad_err_share": max(
+                   (c_grads[n] - want_grads[n]).abs().max().item()
+                   / want_grads[n].abs().max().item() for n in names if n.startswith("head."))}
+    control["fails"] = [k for k, bad in (
+        ("loss", control["loss_rel_err"] > 1e-5),
+        ("head", control["max_head_grad_err_share"] > TRAIN_GRAD_TOL_TAIL),
+        ("grads", control["card_vs_float64_grad_rel_l2"] > 2.0 * cpu_vs_f64)) if bad]
+    emit({"phase": "sf_train_fp32", "clips": 2, "frames": cfg.DATA.NUM_FRAMES, "crop": crop,
+          "optimizer": cfg.SOLVER.OPTIMIZING_METHOD, "nesterov": cfg.SOLVER.NESTEROV,
+          "loss": got["loss"], "cpu_loss": want["loss"], "loss_rel_err": loss_err,
+          "grad_norm": got["grad_norm"], "grad_norm_rel_err": norm_err,
+          "grad_rel_l2_err": l2_err, "card_vs_float64_grad_rel_l2": card_vs_f64,
+          "cpu_vs_float64_grad_rel_l2": cpu_vs_f64,
+          "cpu_vs_float64_grad_norm_rel_err": norm_floor,
+          "max_head_grad_err_share": head, "head_grad_tol_share": TRAIN_GRAD_TOL_TAIL,
+          "worst_grad_err_shares": worst,
+          "median_grad_err_share": statistics.median(shares.values()),
+          "max_param_err_after_update": param_err, "max_grad_abs_err": grad_abs_err,
+          "max_bn_buffer_err_share": buf_share, "bn_buffer_tol_share": BN_BUFFER_TOL,
+          "max_bn_buffer_move": moved, "bn_buffers_checked": len(want_bufs),
+          "lr": got["lr"], "params_checked": len(names), "cpu_step_s": cpu_s,
+          "launches": launches, "tf32_control": control})
+    check(OPTIMIZERS[cfg.SOLVER.OPTIMIZING_METHOD] is SGD and cfg.SOLVER.NESTEROV,
+          "the recipe's optimizer is not Nesterov SGD")
+    check(loss_err <= 1e-5, f"loss {got['loss']} vs CPU {want['loss']}")
+    check(norm_err <= max(1e-4, 2.0 * norm_floor),
+          f"grad norm {got['grad_norm']} vs {want['grad_norm']}")
+    check(head <= TRAIN_GRAD_TOL_TAIL, f"head gradients differ by {head} of their max")
+    check(card_vs_f64 <= 2.0 * cpu_vs_f64,
+          f"gradients {card_vs_f64} from float64 (L2), the CPU's fp32 {cpu_vs_f64}")
+    check("grads" in control["fails"],
+          f"the gradient limit passes a TF32 step: {control}")
+    # SGD applies the same linear map to both gradients: (1 + momentum) lr g
+    # plus the same decay, so the parameters differ by at most that much.
+    check(param_err <= 2.0 * got["lr"] * grad_abs_err + 1e-6,
+          f"parameters differ by {param_err}")
+    check(moved > 0.0 and buf_share <= BN_BUFFER_TOL, f"BN buffers differ by {buf_share}")
+    check(launches["preprocess_u8"] == 1, f"launches {launches}")
+
+
+def phase_sf_train_slice():
+    """``run_net.main`` training SlowFast 4x16 R50 on the card for one epoch
+    on synthetic video: 4 steps of 16 clips (SGD with Nesterov momentum,
+    warmup, head dropout 0.5), precise BN over the epoch's 4 train batches,
+    a val epoch of 4 batches and the epoch-1 checkpoint."""
+    import gc
+    import shutil
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.engine import trainer
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    out_dir = os.path.join(OUT_DIR, "sf_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, models, precise = [], [], []
+    make_step, precise_bn = trainer.make_train_step, trainer.compute_precise_bn_stats
+
+    def recording_make_step(cfg, model, optimizer, generator):
+        """The trainer's step, timed on the host clock to a synchronize."""
+        models.append(model)
+        step = make_step(cfg, model, optimizer, generator)
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                          "grad_norm": m["grad_norm"].item(), "lr": m["lr"],
+                          "clips": batch["labels"].shape[0]})
+            return m
+
+        return timed
+
+    def recording_precise_bn(cfg, model, loader, num_batches):
+        """The trainer's precise BN, with the buffers before and after."""
+        before = running_buffers(model)
+        launched = read_launches()["preprocess_u8"]
+        t0 = time.perf_counter()
+        n = precise_bn(cfg, model, loader, num_batches)
+        torch.cuda.synchronize()
+        precise.append({"batches": n, "ms": (time.perf_counter() - t0) * 1e3, "before": before,
+                        "after": running_buffers(model),
+                        "launches": read_launches()["preprocess_u8"] - launched})
+        return n
+
+    argv = ["--cfg", YAML, "--opts", "NUM_GPUS", "1", "TRAIN.DATASET", "syntheticvideo",
+            "DATA.SYNTHETIC_SIZE", str(4 * CNN_TRAIN_CLIPS), "TRAIN.BATCH_SIZE",
+            str(CNN_TRAIN_CLIPS), "SOLVER.MAX_EPOCH", "1", "TEST.ENABLE", "False",
+            "OUTPUT_DIR", out_dir]
+    trainer.make_train_step = recording_make_step
+    trainer.compute_precise_bn_stats = recording_precise_bn
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run_net.main(argv)
+    finally:
+        trainer.make_train_step = make_step
+        trainer.compute_precise_bn_stats = precise_bn
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    cfg = slowfast_cfg(["NUM_GPUS", "1"])
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    types = [s["_type"] for s in logged]
+    check(len(steps) == 4 and all(s["clips"] == CNN_TRAIN_CLIPS for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
+          f"non-finite loss: {steps}")
+    check("train_epoch" in types and "val_epoch" in types, f"logged {types}")
+    check(len(precise) == 1 and precise[0]["batches"] == 4 and precise[0]["launches"] == 4,
+          f"precise BN: {[(p['batches'], p['launches']) for p in precise]}")
+    check(only_launched(launches, (), 0), f"SlowFast launched an attention kernel: {launches}")
+    check(launches["preprocess_u8"] == 4 + 4 + 4,
+          f"preprocess launches {launches['preprocess_u8']}: 4 steps + 4 precise-BN "
+          f"batches + 4 val batches expected")
+
+    path = cu.get_path_to_checkpoint(out_dir, 1)
+    check(os.path.exists(path), f"no checkpoint at {path}")
+    saved = torch.load(path, map_location="cpu", weights_only=True)["model_state"]
+    after, before = precise[0]["after"], precise[0]["before"]
+    check(all(torch.equal(saved[n], after[n]) for n in after),
+          "the checkpoint's BN buffers are not the precise ones")
+    ema_differs = sum(not torch.equal(after[n], before[n]) for n in after)
+    check(ema_differs == len(after), f"precise BN left {len(after) - ema_differs} buffers as "
+          f"the train steps' running averages")
+    fresh = build_model(cfg, device="cuda")
+    fresh.load_state_dict({k: v.cuda() for k, v in saved.items()}, strict=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    clips = torch.randint(0, 256, (2, cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE,
+                                   cfg.DATA.TEST_CROP_SIZE, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    a = make_eval_step(cfg, models[0])({"inputs": [clips]})
+    b = make_eval_step(cfg, fresh)({"inputs": [clips]})
+    check(torch.equal(a, b), f"reloaded checkpoint differs: {(a - b).abs().max().item()}")
+    ckpt_bytes = os.path.getsize(path)
+    os.remove(path)  # weights and momentum: too large to keep among the run's files
+
+    step_ms = statistics.median(s["ms"] for s in steps)
+    row = {"phase": "sf_train_slice", "steps": len(steps), "clips_per_step": CNN_TRAIN_CLIPS,
+           "frames": cfg.DATA.NUM_FRAMES, "crop": cfg.DATA.TRAIN_CROP_SIZE,
+           "dtype": cfg.TPU.COMPUTE_DTYPE, "optimizer": "sgd, nesterov",
+           "dropout": cfg.MODEL.DROPOUT_RATE,
+           "step_p50_ms": step_ms, "train_clips_per_s": CNN_TRAIN_CLIPS / step_ms * 1e3,
+           "first_step_ms": steps[0]["ms"], "max_memory_allocated": peak,
+           "memory_allocated_at_start": allocated_at_start,
+           "per_step": [{k: s[k] for k in ("ms", "loss", "grad_norm", "lr")} for s in steps],
+           "precise_bn_batches": precise[0]["batches"], "precise_bn_ms": precise[0]["ms"],
+           "precise_bn_buffers": len(after), "checkpoint_buffers_precise": True,
+           "val_epoch": [s for s in logged if s["_type"] == "val_epoch"][-1],
+           "train_wall_s": wall, "checkpoint_bytes": ckpt_bytes,
+           "reload_identical": True, "launches": launches}
+    emit(row)
+    del models[:], fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def temper_logits(model, clip, cfg, logit_std=2.0):
+    """Scale the projection so the eval logits of ``clip`` (the head's
+    activation switched off) have std ``logit_std``: with random weights at
+    full depth the softmax saturates, and the comparison would pass
+    whatever the error."""
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+
+    act = model.head.act_func
+    model.head.act_func = "none"
+    try:
+        logits = make_eval_step(cfg, model)({"inputs": [torch.from_numpy(clip)]}).float()
+    finally:
+        model.head.act_func = act
+    proj = model.head.projection
+    with torch.no_grad():
+        k = logit_std / logits.std().item()
+        proj.weight.mul_(k)
+        proj.bias.mul_(k)
+
+
+def cnn_fp32(make_cfg):
+    """The full-width eval forward on one clip, card vs CPU, fp32, TF32 off."""
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+
+    cfg = make_cfg(["TPU.COMPUTE_DTYPE", "float32"])
+    cpu_model = build_model(cfg, device="cpu")
+    randomize_bn(cpu_model, 4)
+    crop = cfg.DATA.TEST_CROP_SIZE
+    clip = np.random.RandomState(11).randint(
+        0, 255, (1, cfg.DATA.NUM_FRAMES, crop, crop, 3)).astype(np.uint8)
+    temper_logits(cpu_model, clip, cfg)
+    want = make_eval_step(cfg, cpu_model)({"inputs": [torch.from_numpy(clip)]})
+    gpu_model = build_model(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = make_eval_step(cfg, gpu_model)({"inputs": [torch.from_numpy(clip).cuda()]}).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = (got - want).abs().max().item()
+    check(got.shape == (1, cfg.MODEL.NUM_CLASSES) and torch.isfinite(got).all().item(),
+          f"bad output {got.shape}")
+    check(want.max().item() < 0.5, f"saturated softmax {want.max().item()}")
+    check(err <= FULL_WIDTH_ATOL, f"{cfg.MODEL.MODEL_NAME}: card vs CPU softmax err {err}")
+    return {"max_abs_err": err, "atol": FULL_WIDTH_ATOL, "max_prob": want.max().item(),
+            "argmax_equal": bool(got.argmax() == want.argmax()), "crop": crop,
+            "frames": cfg.DATA.NUM_FRAMES, "params": sum(p.numel() for p in cpu_model.parameters())}
+
+
+def cnn_train_steps(cfg, runs):
+    """Train steps of 16 clips in bf16 on one seeded batch: ``runs`` is a
+    list of (label, set_up) pairs, each set_up(model) called before its
+    steps; the runs take turns, two turns each, and every turn starts from
+    the same weights and optimizer state: one untimed step, then 3 timed.
+    Each turn's first loss must be finite. Returns per label the p50 step
+    ms, the peak memory and the losses."""
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    model = build_model(cfg, device="cuda")
+    opt = construct_optimizer(model, cfg)
+    step = make_train_step(cfg, model, opt, torch.Generator().manual_seed(cfg.RNG_SEED))
+    start = ({k: v.clone() for k, v in model.state_dict().items()}, opt.state_dict())
+    crop, n = cfg.DATA.TRAIN_CROP_SIZE, CNN_TRAIN_CLIPS
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"inputs": [torch.randint(0, 256, (n, cfg.DATA.NUM_FRAMES, crop, crop, 3),
+                                      dtype=torch.uint8, device="cuda", generator=gen)],
+             "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (n,), device="cuda",
+                                     generator=gen),
+             "epoch_exact": 0.0}
+    out = {label: {"steps_ms": [], "losses": [], "max_memory_allocated": 0}
+           for label, _ in runs}
+    for _ in range(2):
+        for label, set_up in runs:
+            model.load_state_dict(start[0])
+            opt.load_state_dict(start[1])
+            set_up(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            for i in range(4):
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                if i:
+                    out[label]["steps_ms"].append((time.perf_counter() - t0) * 1e3)
+                out[label]["losses"].append(m["loss"].item())
+            check(np.isfinite(out[label]["losses"][-4]),
+                  f"{label}: non-finite loss {out[label]['losses']}")
+            out[label]["max_memory_allocated"] = max(out[label]["max_memory_allocated"],
+                                                     torch.cuda.max_memory_allocated())
+            out[label]["launches"] = read_launches()
+    for label, run in out.items():
+        check(run["launches"]["preprocess_u8"] == 4, f"{label}: launches {run['launches']}")
+        run["step_p50_ms"] = statistics.median(run["steps_ms"])
+        run["train_clips_per_s"] = n / run["step_p50_ms"] * 1e3
+    return out
+
+
+def phase_cnn_family():
+    """X3D-M (16 frames at 224²) and I3D-NLN R50 (8 frames at 224², softmax
+    non-local blocks in res3 and res4) at full width: the fp32 eval forward
+    card vs CPU, and bf16 train steps of 16 clips; X3D-M's with its
+    channelwise convs on the channels_last_3d view (the default) and on a
+    contiguous NCDHW copy (each channelwise ``Conv3D``'s forward swapped for
+    ``ncdhw_forward`` in that run)."""
+    import gc
+    import types
+
+    import torch.nn.functional as F
+
+    from slowfast_tpu_torch.models.common import Conv3D, to_ncthw, to_nthwc
+
+    def ncdhw_forward(self, x):
+        """``Conv3D.forward`` on a contiguous NCDHW copy of the input."""
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        y = F.conv3d(to_ncthw(x).contiguous(), self.weight.to(x.dtype), b, self.stride,
+                     self.padding, self.dilation, self.groups)
+        return to_nthwc(y)
+
+    def set_layout(ncdhw):
+        def set_up(model):
+            convs = [m for m in model.modules() if isinstance(m, Conv3D) and m.groups > 1]
+            check(convs, "no channelwise conv")
+            for m in convs:
+                if ncdhw:
+                    m.forward = types.MethodType(ncdhw_forward, m)
+                else:
+                    m.__dict__.pop("forward", None)
+        return set_up
+
+    rows = {}
+    for name, yaml, runs in (
+            ("x3d_m", X3D_YAML, [("channels_last_3d", set_layout(False)),
+                                 ("ncdhw", set_layout(True))]),
+            ("i3d_nln", I3D_NLN_YAML, [("default", lambda model: None)])):
+        def make_cfg(extra, yaml=yaml, name=name):
+            return slowfast_cfg(["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS)]
+                                + list(extra), yaml, os.path.join(OUT_DIR, name))
+        fp32 = cnn_fp32(make_cfg)
+        cfg = make_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"])
+        train = cnn_train_steps(cfg, runs)
+        row = {"phase": "cnn_family", "model": name, "yaml": os.path.relpath(yaml, ROOT),
+               "fp32": fp32, "train_dtype": "bfloat16", "clips_per_step": CNN_TRAIN_CLIPS,
+               "train_frames": cfg.DATA.NUM_FRAMES, "train_crop": cfg.DATA.TRAIN_CROP_SIZE,
+               "train": train}
+        if name == "i3d_nln":
+            row["nonlocal_blocks"] = cfg.NONLOCAL.LOCATION
+        emit(row)
+        rows[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def count_conv_flops(model, step, batch):
     """Operations (2 per multiply-add) of every conv in one eval step, from
     the shapes the step gives them."""
@@ -1739,7 +2185,7 @@ def main():
     phase_build()
     kernel = phase_kernel()
     phase_fp32()
-    launches = phase_slice()
+    phase_slice()
     phase_breakdown()
     attn = phase_attn_kernel()
     phase_mvit_fp32()
@@ -1749,11 +2195,16 @@ def main():
     train_runs = phase_mvit_train_fused()
     phase_mvit_train_fp32()
     train_launches = phase_mvit_train_slice(attn_bwd, attn)
+    phase_sf_train_fp32()
+    sf_launches = phase_sf_train_slice()
+    phase_cnn_family()
+    # The preprocess kernel's launches are those of the SlowFast train run
+    # (4 steps, 4 precise-BN batches, 4 val batches).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
         "replaces": "slowfast_tpu/ops/preprocess.py:42",
-        "launches": launches["preprocess_u8"], "max_abs_err": kernel["max_abs_err"],
+        "launches": sf_launches["preprocess_u8"], "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
         "library_ms": None,

@@ -4,7 +4,7 @@ A uint8 NTHWC clip batch goes through the preprocess kernel (normalize,
 channel reverse per ``DATA.REVERSE_INPUT_CHANNEL``, slow-pathway index),
 then through the model in the configured compute dtype with fp32
 parameters. The train step adds mixup, the fp32 loss, the backward, the
-global-norm clip and the AdamW update; the eval step runs under
+global-norm clip and the optimizer's update; the eval step runs under
 ``torch.inference_mode()``.
 """
 
@@ -44,7 +44,7 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
     fractional epoch ``"epoch_exact"`` (a float) that sets the LR. In order:
     preprocess, mixup (``cfg.MIXUP``, draws from ``mix_generator``), forward
     in train mode, loss in fp32, backward, the gradient norm before the
-    clip, the clip, ``lr = lr_fn(epoch_exact)`` and the AdamW update.
+    clip, the clip, ``lr = lr_fn(epoch_exact)`` and the optimizer's update.
     Returns ``loss``, ``grad_norm`` and ``top1_err``/``top5_err`` against the
     integer labels as device tensors (nothing is read back), and ``lr``.
     """

@@ -2,10 +2,12 @@
 :298-479, the classification branch; reference tools/train_net.py).
 
 Each epoch shuffles the train loader, runs the train step on every batch,
-saves a checkpoint on the checkpoint cadence and runs a val epoch on the
-eval cadence. The step's metrics stay on the device and are read back only
-every ``LOG_PERIOD`` iterations and at the epoch's end, so the host does not
-wait for the card on every step; the NaN guard runs on the same cadence.
+then, on the checkpoint or eval cadence, recomputes the BN statistics
+(``BN.USE_PRECISE_STATS``), saves a checkpoint on the checkpoint cadence and
+runs a val epoch on the eval cadence. The step's metrics stay on the device
+and are read back only every ``LOG_PERIOD`` iterations and at the epoch's
+end, so the host does not wait for the card on every step; the NaN guard
+runs on the same cadence.
 """
 
 import math
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from slowfast_tpu_torch.data import construct_loader, shuffle_dataset
+from slowfast_tpu_torch.engine.precise_bn import compute_precise_bn_stats
 from slowfast_tpu_torch.engine.steps import make_eval_step, make_train_step
 from slowfast_tpu_torch.models.build import build_model, resolve_device
 from slowfast_tpu_torch.solver.optimizer import construct_optimizer
@@ -100,8 +103,6 @@ def train(cfg, device="cuda"):
     np.random.seed(cfg.RNG_SEED)
 
     model = build_model(cfg, device)
-    if cfg.BN.USE_PRECISE_STATS and any(True for _ in model.buffers()):
-        raise NotImplementedError("precise BN is not ported yet")
     optimizer = construct_optimizer(model, cfg)
     start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
 
@@ -123,9 +124,16 @@ def train(cfg, device="cuda"):
         logger.info("Epoch %d takes %.2fs. Epochs from %d to %d take %.2fs in average.",
                     cur_epoch + 1, epoch_timer.last_epoch_time(), start_epoch + 1,
                     cur_epoch + 1, epoch_timer.avg_epoch_time())
-        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+        is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch)
+        is_eval = is_eval_epoch(cfg, cur_epoch)
+        # Precise BN before the checkpoint and the val epoch (reference
+        # train_net.py:698-710).
+        if cfg.BN.USE_PRECISE_STATS and (is_checkp or is_eval):
+            compute_precise_bn_stats(cfg, model, train_loader,
+                                     min(cfg.BN.NUM_BATCHES_PRECISE, len(train_loader)))
+        if is_checkp:
             cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg)
-        if is_eval_epoch(cfg, cur_epoch):
+        if is_eval:
             eval_epoch(val_loader, eval_fn, val_meter, cur_epoch)
     logger.info("training done")
     return model

@@ -13,9 +13,15 @@ from torch import nn
 
 from .common import Conv3D, msra_fill_, trunc_normal_
 from .mvit import MViT
-from .video_models import SlowFast
+from .resnet import ResBlock
+from .video_models import X3D, ResNet, SlowFast
 
-MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT}
+# The reference's pytorchvideo-backed names map to the native models
+# (slowfast_tpu/models/__init__.py:4-19); ResNet_nopool is the ResNet
+# without the temporal pool after res2.
+MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT,
+                  "ResNet": ResNet, "PTVResNet": ResNet, "ResNet_nopool": ResNet,
+                  "X3D": X3D, "PTVX3D": X3D}
 
 
 def resolve_device(device):
@@ -27,19 +33,23 @@ def resolve_device(device):
 
 
 def init_weights(model, cfg, generator):
-    """MSRA fan-out normal convs, N(0, FC_INIT_STD) projection with zero
-    bias; BN starts at scale 1 (0 for zero-init final BNs), bias 0, mean 0,
-    var 1 (slowfast_tpu/models/common.py:14, heads.py:76-82, batchnorm.py)."""
-    for name, m in model.named_modules():
+    """MSRA fan-out normal conv weights (zero for each residual branch's
+    final conv under ``RESNET.ZERO_INIT_FINAL_CONV``) and zero conv biases
+    (SE, non-local), N(0, FC_INIT_STD) projection with zero bias; BN starts
+    at scale 1 (0 for zero-init BNs: final BNs, the non-local ``bn``), bias
+    0, mean 0, var 1 (slowfast_tpu/models/common.py:14, :58, heads.py:76-82,
+    batchnorm.py)."""
+    for m in model.modules():
         if isinstance(m, Conv3D):
-            if cfg.RESNET.ZERO_INIT_FINAL_CONV and name.endswith("branch2.c"):
-                nn.init.zeros_(m.weight)
-            else:
-                msra_fill_(m.weight, generator)
+            msra_fill_(m.weight, generator)
         elif isinstance(m, nn.Linear):
             with torch.no_grad():
                 m.weight.normal_(0.0, cfg.MODEL.FC_INIT_STD, generator=generator)
             nn.init.zeros_(m.bias)
+    if cfg.RESNET.ZERO_INIT_FINAL_CONV:
+        for m in model.modules():
+            if isinstance(m, ResBlock):
+                nn.init.zeros_(getattr(m.branch2, m.branch2.FINAL_CONV).weight)
 
 
 def init_mvit_weights(model, cfg, generator):

@@ -14,6 +14,13 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def sum_dtype(dtype):
+    """The dtype the CNN modules take sums and statistics in: fp32, or
+    float64 for float64 tensors (a float64 run of the model is the
+    yardstick of its fp32 rounding)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def to_ncthw(x):
     return x.permute(0, 4, 1, 2, 3)
 
@@ -97,7 +104,10 @@ class Conv3D(nn.Module):
 
     The weight is fp32 in torch layout (O, I/groups, kt, kh, kw) and is cast
     to the input dtype at each call, as slowfast_tpu/models/common.py:48
-    does.
+    does. The conv takes the ``channels_last_3d`` view of its NTHWC input,
+    channelwise convs too: X3D-M's trained no faster on a contiguous NCDHW
+    copy (PERF.md), as cuDNN's channelwise weight-gradient kernel takes most
+    of the step either way.
     """
 
     def __init__(self, dim_in, dim_out, kernel, stride=(1, 1, 1),
@@ -118,6 +128,36 @@ class Conv3D(nn.Module):
         return to_nthwc(y)
 
 
+def round_width(width, multiplier, min_width=1, divisor=1):
+    """X3D/MViT width rounding (reference slowfast/models/utils.py:10-25)."""
+    if not multiplier:
+        return width
+    width *= multiplier
+    min_width = min_width or divisor
+    width_out = max(min_width, int(width + divisor / 2) // divisor * divisor)
+    if width_out < 0.9 * width:
+        width_out += divisor
+    return int(width_out)
+
+
+class SE(nn.Module):
+    """Squeeze-and-excitation (slowfast_tpu/models/common.py:293-318,
+    reference operators.py:15-59): the mean over T, H, W (in ``sum_dtype``),
+    1x1x1 ``fc1`` -> ReLU -> ``fc2`` -> sigmoid, times the input. ``fc1``
+    has ``round_width(dim_in, ratio)`` channels, at least 8 and a multiple
+    of 8."""
+
+    def __init__(self, dim_in, ratio):
+        super().__init__()
+        dim_fc = round_width(dim_in, ratio, min_width=8, divisor=8)
+        self.fc1 = Conv3D(dim_in, dim_fc, (1, 1, 1), bias=True)
+        self.fc2 = Conv3D(dim_fc, dim_in, (1, 1, 1), bias=True)
+
+    def forward(self, x):
+        s = x.to(sum_dtype(x.dtype)).mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
+        return x * torch.sigmoid(self.fc2(F.relu(self.fc1(s))))
+
+
 def max_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
     """Torch MaxPool3d on NTHWC input."""
     y = F.max_pool3d(to_ncthw(x), tuple(kernel), tuple(stride or kernel), tuple(padding))
@@ -131,7 +171,7 @@ def avg_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
     CUDA kernel does for bf16 and what its CPU kernel, which has no bf16
     version, then does too.
     """
-    y = F.avg_pool3d(to_ncthw(x).float(), tuple(kernel), tuple(stride or kernel),
+    y = F.avg_pool3d(to_ncthw(x).to(sum_dtype(x.dtype)), tuple(kernel), tuple(stride or kernel),
                      tuple(padding))
     return to_nthwc(y).to(x.dtype)
 

@@ -1,17 +1,17 @@
-"""Classification heads (counterpart of slowfast_tpu/models/heads.py:29-91
-and :262; reference head_helper.py:198-350, 491-563).
+"""Classification heads (counterpart of slowfast_tpu/models/heads.py:29-146
+and :262; reference head_helper.py:198-563).
 
-Training returns raw logits; the transformer head's dropout draws from the
-model's generator, the ResNet head's is not ported yet. Eval applies the
-activation; the ResNet head applies it per position and then, for
-fully-convolutional inference on crops larger than the training crop,
-averages over the remaining T/H/W positions.
+Training returns raw logits, with dropout drawn from the model's generator.
+Eval applies the activation; the ResNet and X3D heads apply it per position
+and then, for fully-convolutional inference on crops larger than the
+training crop, average over the remaining T/H/W positions.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .common import avg_pool3d, linear
+from .common import Conv3D, avg_pool3d, linear
 
 
 def _check_act(act_func):
@@ -36,6 +36,20 @@ def _activate(x, act_func):
     return x
 
 
+def _project(head, x):
+    """Dropout (training only), the projection in ``x``'s dtype and, in
+    eval, the activation per position averaged over the positions; returns
+    ``(B, num_classes)``."""
+    if head.training and head.dropout_rate > 0.0:
+        x = dropout(x, head.dropout_rate, head.generator)
+    x = linear(x, head.projection, x.dtype)
+    if not head.training:
+        x = _activate(x, head.act_func)
+        if x.shape[1:4] != (1, 1, 1):
+            x = x.mean(dim=(1, 2, 3), keepdim=True)
+    return x.reshape(x.shape[0], -1)
+
+
 class ResNetBasicHead(nn.Module):
     """Per-pathway avg-pool -> concat -> dropout -> linear projection.
 
@@ -51,6 +65,7 @@ class ResNetBasicHead(nn.Module):
         self.dropout_rate = dropout_rate
         self.act_func = act_func
         self.projection = nn.Linear(sum(dim_in), num_classes)
+        self.generator = None  # the model's, set by models.build.build_model
 
     def forward(self, xs):
         pooled = []
@@ -59,15 +74,41 @@ class ResNetBasicHead(nn.Module):
                 pooled.append(x.mean(dim=(1, 2, 3), keepdim=True))
             else:
                 pooled.append(avg_pool3d(x, self.pool_size[p], (1, 1, 1)))
-        x = torch.cat(pooled, dim=-1)
-        if self.training and self.dropout_rate > 0.0:
-            raise NotImplementedError("head dropout in training is not ported yet")
-        x = linear(x, self.projection, x.dtype)
-        if not self.training:
-            x = _activate(x, self.act_func)
-            if x.shape[1:4] != (1, 1, 1):
-                x = x.mean(dim=(1, 2, 3), keepdim=True)
-        return x.reshape(x.shape[0], -1)
+        return _project(self, torch.cat(pooled, dim=-1))
+
+
+class X3DHead(nn.Module):
+    """conv_5 -> BN -> ReLU -> avg-pool -> lin_5 -> (BN) -> ReLU -> dropout
+    -> projection (slowfast_tpu/models/heads.py:94-146, reference
+    head_helper.py:353-488). ``pool_size is None`` means global average
+    pooling."""
+
+    def __init__(self, dim_in, dim_inner, dim_out, num_classes, pool_size, norm,
+                 dropout_rate=0.0, act_func="softmax", bn_lin5_on=False):
+        super().__init__()
+        _check_act(act_func)
+        self.pool_size = pool_size
+        self.dropout_rate = dropout_rate
+        self.act_func = act_func
+        self.conv_5 = Conv3D(dim_in, dim_inner, (1, 1, 1))
+        self.conv_5_bn = norm(dim_inner)
+        self.lin_5 = Conv3D(dim_inner, dim_out, (1, 1, 1))
+        self.lin_5_bn = norm(dim_out) if bn_lin5_on else None
+        self.projection = nn.Linear(dim_out, num_classes)
+        self.generator = None  # the model's, set by models.build.build_model
+
+    def forward(self, xs):
+        if len(xs) != 1:
+            raise ValueError("X3DHead is single-pathway")
+        x = F.relu(self.conv_5_bn(self.conv_5(xs[0])))
+        if self.pool_size is None:
+            x = x.mean(dim=(1, 2, 3), keepdim=True)
+        else:
+            x = avg_pool3d(x, self.pool_size, (1, 1, 1))
+        x = self.lin_5(x)
+        if self.lin_5_bn is not None:
+            x = self.lin_5_bn(x)
+        return _project(self, F.relu(x))
 
 
 class TransformerBasicHead(nn.Module):

@@ -13,10 +13,10 @@ import torch
 from torch import nn
 
 from .attention import MultiScaleBlock
-from .common import layer_norm
+from .common import layer_norm, round_width
 from .heads import TransformerBasicHead
 from .stem import PatchEmbed
-from .video_models import compute_dtype, round_width
+from .video_models import compute_dtype
 
 
 def mvit_block_schedule(cfg):

@@ -2,22 +2,48 @@
 slowfast_tpu/models/resnet.py; reference resnet_helper.py).
 
 Module names mirror the reference's (``a``/``a_bn``/..., ``branch1``/
-``branch2``, ``pathway{p}_res{i}``), so reference checkpoints load with no
-mapping.
+``branch2``, ``pathway{p}_res{i}``, ``pathway{p}_nonlocal{i}``), so
+reference checkpoints load with no mapping. Every transform takes the same
+arguments; ``FINAL_CONV`` names the conv that ``RESNET.ZERO_INIT_FINAL_CONV``
+zeroes.
 """
 
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv3D, DropPath
+from .common import SE, Conv3D, DropPath
+from .nonlocal_block import Nonlocal
+
+
+class BasicTransform(nn.Module):
+    """Tx3x3 -> BN -> ReLU -> 1x3x3 -> BN (slowfast_tpu/models/resnet.py:18-63,
+    reference resnet_helper.py:27-115)."""
+
+    FINAL_CONV = "b"
+
+    def __init__(self, dim_in, dim_out, temp_kernel_size, stride, dim_inner,
+                 num_groups, norm, stride_1x1=False, dilation=1,
+                 zero_init_final_bn=False, block_idx=0):
+        super().__init__()
+        self.a = Conv3D(dim_in, dim_out, (temp_kernel_size, 3, 3), (1, stride, stride),
+                        (temp_kernel_size // 2, 1, 1))
+        self.a_bn = norm(dim_out)
+        self.b = Conv3D(dim_out, dim_out, (1, 3, 3), (1, 1, 1), (0, dilation, dilation),
+                        dilation=(1, dilation, dilation))
+        self.b_bn = norm(dim_out, zero_init_gamma=zero_init_final_bn)
+
+    def forward(self, x):
+        return self.b_bn(self.b(F.relu(self.a_bn(self.a(x)))))
 
 
 class BottleneckTransform(nn.Module):
     """Tx1x1 -> 1x3x3 -> 1x1x1 bottleneck (reference resnet_helper.py:259-392)."""
 
+    FINAL_CONV = "c"
+
     def __init__(self, dim_in, dim_out, temp_kernel_size, stride, dim_inner,
                  num_groups, norm, stride_1x1=False, dilation=1,
-                 zero_init_final_bn=False):
+                 zero_init_final_bn=False, block_idx=0):
         super().__init__()
         str1x1, str3x3 = (stride, 1) if stride_1x1 else (1, stride)
         self.a = Conv3D(dim_in, dim_inner, (temp_kernel_size, 1, 1),
@@ -36,7 +62,40 @@ class BottleneckTransform(nn.Module):
         return self.c_bn(self.c(x))
 
 
-TRANS_FUNCS = {"bottleneck_transform": BottleneckTransform}
+class X3DTransform(nn.Module):
+    """1x1x1 -> BN -> ReLU -> channelwise Tx3x3 -> BN -> (SE on even block
+    indices) -> Swish -> 1x1x1 -> BN (slowfast_tpu/models/resnet.py:157-214,
+    reference resnet_helper.py:118-256)."""
+
+    FINAL_CONV = "c"
+
+    def __init__(self, dim_in, dim_out, temp_kernel_size, stride, dim_inner,
+                 num_groups, norm, stride_1x1=False, dilation=1,
+                 zero_init_final_bn=False, block_idx=0):
+        super().__init__()
+        str1x1, str3x3 = (stride, 1) if stride_1x1 else (1, stride)
+        self.a = Conv3D(dim_in, dim_inner, (1, 1, 1), (1, str1x1, str1x1))
+        self.a_bn = norm(dim_inner)
+        self.b = Conv3D(dim_inner, dim_inner, (temp_kernel_size, 3, 3), (1, str3x3, str3x3),
+                        (temp_kernel_size // 2, dilation, dilation), groups=num_groups,
+                        dilation=(1, dilation, dilation))
+        self.b_bn = norm(dim_inner)
+        # The reference's use_se: (block_idx + 1) % 2, at its se_ratio 0.0625.
+        self.se = SE(dim_inner, 0.0625) if (block_idx + 1) % 2 else None
+        self.c = Conv3D(dim_inner, dim_out, (1, 1, 1))
+        self.c_bn = norm(dim_out, zero_init_gamma=zero_init_final_bn)
+
+    def forward(self, x):
+        x = F.relu(self.a_bn(self.a(x)))
+        x = self.b_bn(self.b(x))
+        if self.se is not None:
+            x = self.se(x)
+        return self.c_bn(self.c(F.silu(x)))
+
+
+TRANS_FUNCS = {"bottleneck_transform": BottleneckTransform,
+               "basic_transform": BasicTransform,
+               "x3d_transform": X3DTransform}
 
 
 class ResBlock(nn.Module):
@@ -45,7 +104,7 @@ class ResBlock(nn.Module):
 
     def __init__(self, dim_in, dim_out, temp_kernel_size, stride, trans_func_name,
                  dim_inner, num_groups, norm, stride_1x1=False, dilation=1,
-                 zero_init_final_bn=False, drop_connect_rate=0.0):
+                 zero_init_final_bn=False, drop_connect_rate=0.0, block_idx=0):
         super().__init__()
         if trans_func_name not in TRANS_FUNCS:
             raise NotImplementedError(f"{trans_func_name} is not ported yet")
@@ -57,7 +116,7 @@ class ResBlock(nn.Module):
         self.branch2 = TRANS_FUNCS[trans_func_name](
             dim_in, dim_out, temp_kernel_size, stride, dim_inner, num_groups,
             norm, stride_1x1=stride_1x1, dilation=dilation,
-            zero_init_final_bn=zero_init_final_bn,
+            zero_init_final_bn=zero_init_final_bn, block_idx=block_idx,
         )
         self.drop_path = DropPath(drop_connect_rate)
 
@@ -75,18 +134,21 @@ def temporal_kernel_schedule(temp_kernel_sizes, num_blocks, num_block_temp_kerne
 
 
 class ResStage(nn.Module):
-    """A multi-pathway stage of residual blocks (reference
-    resnet_helper.py:524-726). Non-local blocks are not ported yet."""
+    """A multi-pathway stage of residual blocks, with a non-local block after
+    each block whose index is in ``nonlocal_inds[p]`` (reference
+    resnet_helper.py:524-726). A non-local group > 1 folds that many
+    temporal groups into the batch around the block."""
 
     def __init__(self, dim_in, dim_out, dim_inner, temp_kernel_sizes, stride,
                  num_blocks, num_groups, num_block_temp_kernel, nonlocal_inds,
                  trans_func_name, norm, stride_1x1=False, dilation=(1, 1),
-                 zero_init_final_bn=False, drop_connect_rate=0.0):
+                 zero_init_final_bn=False, drop_connect_rate=0.0,
+                 nonlocal_group=None, nonlocal_pool=None, instantiation="softmax"):
         super().__init__()
-        if any(nonlocal_inds):
-            raise NotImplementedError("Non-local blocks are not ported yet")
         self.num_pathways = len(num_blocks)
         self.num_blocks = list(num_blocks)
+        self.nonlocal_inds = [list(inds) for inds in nonlocal_inds]
+        self.nonlocal_group = list(nonlocal_group or [1] * self.num_pathways)
         for p in range(self.num_pathways):
             tks = temporal_kernel_schedule(temp_kernel_sizes[p], num_blocks[p],
                                            num_block_temp_kernel[p])
@@ -96,13 +158,23 @@ class ResStage(nn.Module):
                     stride[p] if i == 0 else 1, trans_func_name, dim_inner[p],
                     num_groups[p], norm, stride_1x1=stride_1x1,
                     dilation=dilation[p], zero_init_final_bn=zero_init_final_bn,
-                    drop_connect_rate=drop_connect_rate,
+                    drop_connect_rate=drop_connect_rate, block_idx=i,
                 ))
+                if i in self.nonlocal_inds[p]:
+                    self.add_module(f"pathway{p}_nonlocal{i}", Nonlocal(
+                        dim_out[p], dim_out[p] // 2, pool_size=nonlocal_pool[p],
+                        instantiation=instantiation, norm=norm))
 
     def forward(self, xs):
         out = []
         for p, x in enumerate(xs):
+            group = self.nonlocal_group[p]
             for i in range(self.num_blocks[p]):
                 x = getattr(self, f"pathway{p}_res{i}")(x)
+                if i in self.nonlocal_inds[p]:
+                    b, t, h, w, c = x.shape
+                    x = getattr(self, f"pathway{p}_nonlocal{i}")(
+                        x.reshape(b * group, t // group, h, w, c))
+                    x = x.reshape(b, t, h, w, c)
             out.append(x)
         return out

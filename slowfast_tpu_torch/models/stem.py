@@ -24,17 +24,37 @@ class ResNetBasicStem(nn.Module):
         return max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
 
+class X3DStem(nn.Module):
+    """1xkxk ``conv_xy`` -> channelwise kx1x1 ``conv`` -> BN -> ReLU
+    (slowfast_tpu/models/stem.py:139-173, reference stem_helper.py:204-285)."""
+
+    def __init__(self, dim_in, dim_out, kernel, stride, padding, norm):
+        super().__init__()
+        self.conv_xy = Conv3D(dim_in, dim_out, (1, kernel[1], kernel[2]),
+                              (1, stride[1], stride[2]), (0, padding[1], padding[2]))
+        self.conv = Conv3D(dim_out, dim_out, (kernel[0], 1, 1), (stride[0], 1, 1),
+                           (padding[0], 0, 0), groups=dim_out)
+        self.bn = norm(dim_out)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(self.conv_xy(x))))
+
+
+STEM_FUNCS = {"basic_stem": ResNetBasicStem, "x3d_stem": X3DStem}
+
+
 class VideoModelStem(nn.Module):
     """One stem per pathway, named ``pathway{p}_stem`` as in the reference."""
 
-    def __init__(self, dim_in, dim_out, kernel, stride, padding, norm):
+    def __init__(self, dim_in, dim_out, kernel, stride, padding, norm,
+                 stem_func_name="basic_stem"):
         super().__init__()
         self.num_pathways = len(dim_in)
         for p in range(self.num_pathways):
             self.add_module(
                 f"pathway{p}_stem",
-                ResNetBasicStem(dim_in[p], dim_out[p], kernel[p], stride[p],
-                                padding[p], norm),
+                STEM_FUNCS[stem_func_name](dim_in[p], dim_out[p], kernel[p], stride[p],
+                                           padding[p], norm),
             )
 
     def forward(self, xs):

@@ -1,19 +1,21 @@
-"""SlowFast on NTHWC tensors (counterpart of slowfast_tpu/models/video_models.py;
-reference video_model_builder.py:36-441).
+"""SlowFast, ResNet (C2D/I3D/Slow) and X3D on NTHWC tensors (counterpart of
+slowfast_tpu/models/video_models.py; reference video_model_builder.py:36-802).
 
-The model takes a list of NTHWC pathway tensors and returns logits (train)
+Each model takes a list of NTHWC pathway tensors and returns logits (train)
 or activated, position-averaged predictions (eval), per the head contract.
 The T-folded fuse, remat and ``TPU.TRUNCATE_AT`` machinery of the JAX
 package are TPU workarounds and are not ported; nor is the detection head.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .batchnorm import norm_builder
-from .common import Conv3D, max_pool3d
-from .heads import ResNetBasicHead
+from .common import Conv3D, max_pool3d, round_width
+from .heads import ResNetBasicHead, X3DHead
 from .resnet import ResStage
 from .stem import VideoModelStem
 
@@ -54,21 +56,23 @@ def compute_dtype(cfg):
     return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
 
 
-def round_width(width, multiplier, min_width=1, divisor=1):
-    """X3D/MViT width rounding (reference slowfast/models/utils.py:10-25)."""
-    if not multiplier:
-        return width
-    width *= multiplier
-    min_width = min_width or divisor
-    width_out = max(min_width, int(width + divisor / 2) // divisor * divisor)
-    if width_out < 0.9 * width:
-        width_out += divisor
-    return int(width_out)
-
-
 def _per_pathway(value):
     """A per-pathway config entry: a single value applies to both pathways."""
     return list(value) * 2 if len(value) == 1 else list(value)
+
+
+def _check_classification(cfg):
+    if cfg.DETECTION.ENABLE:
+        raise NotImplementedError("the detection head is not ported yet")
+    if cfg.CONTRASTIVE.NUM_MLP_LAYERS > 1:
+        raise NotImplementedError("the MLP projection head is not ported yet")
+
+
+def _nonlocal_args(cfg, i, per_pathway=list):
+    return dict(nonlocal_inds=per_pathway(cfg.NONLOCAL.LOCATION[i]),
+                nonlocal_group=per_pathway(cfg.NONLOCAL.GROUP[i]),
+                nonlocal_pool=cfg.NONLOCAL.POOL[i],
+                instantiation=cfg.NONLOCAL.INSTANTIATION)
 
 
 class FuseFastToSlow(nn.Module):
@@ -93,10 +97,7 @@ class SlowFast(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.DETECTION.ENABLE:
-            raise NotImplementedError("the detection head is not ported yet")
-        if cfg.CONTRASTIVE.NUM_MLP_LAYERS > 1:
-            raise NotImplementedError("the MLP projection head is not ported yet")
+        _check_classification(cfg)
         self.dtype = compute_dtype(cfg)
         norm = norm_builder(cfg)
         self.pool1 = POOL1[cfg.MODEL.ARCH]
@@ -137,7 +138,7 @@ class SlowFast(nn.Module):
                 num_blocks=[depths[i]] * 2,
                 num_groups=[num_groups] * 2,
                 num_block_temp_kernel=_per_pathway(cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[i]),
-                nonlocal_inds=_per_pathway(cfg.NONLOCAL.LOCATION[i]),
+                **_nonlocal_args(cfg, i, _per_pathway),
                 trans_func_name=cfg.RESNET.TRANS_FUNC,
                 norm=norm,
                 stride_1x1=cfg.RESNET.STRIDE_1X1,
@@ -174,3 +175,122 @@ class SlowFast(nn.Module):
         xs = self.s3_fuse(self.s3(xs))
         xs = self.s4_fuse(self.s4(xs))
         return self.head(self.s5(xs))
+
+
+class ResNet(nn.Module):
+    """Single-pathway C2D/I3D/Slow ResNet (slowfast_tpu/models/video_models.py:364,
+    reference :444-660). ``ResNet_nopool`` drops the temporal max pool after
+    res2 (POOL1), so the head pools the full temporal extent."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        _check_classification(cfg)
+        self.dtype = compute_dtype(cfg)
+        norm = norm_builder(cfg)
+        pool1 = [1, 1, 1] if cfg.MODEL.MODEL_NAME == "ResNet_nopool" else POOL1[cfg.MODEL.ARCH][0]
+        self.pool1 = pool1
+        depths = MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
+        num_groups = cfg.RESNET.NUM_GROUPS
+        w = cfg.RESNET.WIDTH_PER_GROUP
+        dim_inner = num_groups * w
+        tk = TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH]
+
+        self.s1 = VideoModelStem(
+            dim_in=cfg.DATA.INPUT_CHANNEL_NUM, dim_out=[w], kernel=[tk[0][0] + [7, 7]],
+            stride=[[1, 2, 2]], padding=[[tk[0][0][0] // 2, 3, 3]], norm=norm)
+        ins = [w, w * 4, w * 8, w * 16]
+        outs = [w * 4, w * 8, w * 16, w * 32]
+        inners = [dim_inner, dim_inner * 2, dim_inner * 4, dim_inner * 8]
+        for i in range(4):
+            self.add_module(f"s{i + 2}", ResStage(
+                dim_in=[ins[i]], dim_out=[outs[i]], dim_inner=[inners[i]],
+                temp_kernel_sizes=tk[i + 1],
+                stride=cfg.RESNET.SPATIAL_STRIDES[i],
+                num_blocks=[depths[i]],
+                num_groups=[num_groups],
+                num_block_temp_kernel=cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[i],
+                **_nonlocal_args(cfg, i),
+                trans_func_name=cfg.RESNET.TRANS_FUNC,
+                norm=norm,
+                stride_1x1=cfg.RESNET.STRIDE_1X1,
+                dilation=cfg.RESNET.SPATIAL_DILATIONS[i],
+                zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
+                drop_connect_rate=cfg.MODEL.DROPCONNECT_RATE,
+            ))
+
+        t, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+        pool = None if (cfg.MULTIGRID.SHORT_CYCLE
+                        or cfg.MODEL.MODEL_NAME == "ContrastiveModel") else [
+            [t // pool1[0], crop // 32 // pool1[1], crop // 32 // pool1[2]]]
+        self.head = ResNetBasicHead(
+            dim_in=[w * 32], num_classes=cfg.MODEL.NUM_CLASSES, pool_size=pool,
+            dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT)
+
+    def forward(self, xs):
+        xs = self.s2(self.s1([x.to(self.dtype) for x in xs]))
+        if any(k > 1 for k in self.pool1):
+            xs = [max_pool3d(xs[0], self.pool1, self.pool1)]
+        return self.head(self.s5(self.s4(self.s3(xs))))
+
+
+class X3D(nn.Module):
+    """X3D (slowfast_tpu/models/video_models.py:476-571, reference :663-802):
+    widths and depths scaled by ``X3D.WIDTH_FACTOR`` / ``DEPTH_FACTOR`` with
+    ``round_width``, channelwise 3x3x3 convs under ``X3D.CHANNELWISE_3x3x3``,
+    drop-connect growing with the stage, and the X3D stem and head."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        _check_classification(cfg)
+        self.dtype = compute_dtype(cfg)
+        norm = norm_builder(cfg)
+        tk = TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH]
+        exp_stage = 2.0
+        dim_c1 = cfg.X3D.DIM_C1
+        dim_res2 = round_width(dim_c1, exp_stage, divisor=8) if cfg.X3D.SCALE_RES2 else dim_c1
+        dim_res3 = round_width(dim_res2, exp_stage, divisor=8)
+        dim_res4 = round_width(dim_res3, exp_stage, divisor=8)
+        dim_res5 = round_width(dim_res4, exp_stage, divisor=8)
+        # [blocks before the depth factor, width before the width factor, stride]
+        block_basis = [[1, dim_res2, 2], [2, dim_res3, 2], [5, dim_res4, 2], [3, dim_res5, 2]]
+        w_mul, d_mul = cfg.X3D.WIDTH_FACTOR, cfg.X3D.DEPTH_FACTOR
+        dim_in = round_width(dim_c1, w_mul)
+
+        self.s1 = VideoModelStem(
+            dim_in=cfg.DATA.INPUT_CHANNEL_NUM, dim_out=[dim_in], kernel=[tk[0][0] + [3, 3]],
+            stride=[[1, 2, 2]], padding=[[tk[0][0][0] // 2, 1, 1]], norm=norm,
+            stem_func_name="x3d_stem")
+        for stage, (blocks, width, stride) in enumerate(block_basis):
+            dim_out = round_width(width, w_mul)
+            dim_inner = int(cfg.X3D.BOTTLENECK_FACTOR * dim_out)
+            n_rep = int(math.ceil(d_mul * blocks)) if d_mul else blocks
+            self.add_module(f"s{stage + 2}", ResStage(
+                dim_in=[dim_in], dim_out=[dim_out], dim_inner=[dim_inner],
+                temp_kernel_sizes=tk[1],
+                stride=[stride],
+                num_blocks=[n_rep],
+                num_groups=[dim_inner] if cfg.X3D.CHANNELWISE_3x3x3 else [cfg.RESNET.NUM_GROUPS],
+                num_block_temp_kernel=[n_rep],
+                # Every stage reads the first stage's non-local entries, as
+                # slowfast_tpu/models/video_models.py:537 does.
+                **_nonlocal_args(cfg, 0),
+                trans_func_name=cfg.RESNET.TRANS_FUNC,
+                norm=norm,
+                stride_1x1=cfg.RESNET.STRIDE_1X1,
+                dilation=cfg.RESNET.SPATIAL_DILATIONS[stage],
+                zero_init_final_bn=cfg.RESNET.ZERO_INIT_FINAL_BN,
+                drop_connect_rate=cfg.MODEL.DROPCONNECT_RATE * (stage + 2) / (len(block_basis) + 1),
+            ))
+            dim_in = dim_out
+
+        spat_sz = int(math.ceil(cfg.DATA.TRAIN_CROP_SIZE / 32.0))
+        self.head = X3DHead(
+            dim_in=dim_out, dim_inner=dim_inner, dim_out=cfg.X3D.DIM_C5,
+            num_classes=cfg.MODEL.NUM_CLASSES,
+            pool_size=[cfg.DATA.NUM_FRAMES, spat_sz, spat_sz], norm=norm,
+            dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
+            bn_lin5_on=cfg.X3D.BN_LIN5)
+
+    def forward(self, xs):
+        xs = self.s1([x.to(self.dtype) for x in xs])
+        return self.head(self.s5(self.s4(self.s3(self.s2(xs)))))

@@ -1,12 +1,15 @@
 """Where an eval or train step's device time goes: ``torch.profiler`` over a
-few steps on one seeded uint8 batch that already lies on the card.
+few steps on one seeded uint8 batch that already lies on the card, for any
+registered model.
 
     python -m slowfast_tpu_torch.profile_eval --cfg configs/Kinetics/MVITv2_S_16x4.yaml \\
         [--train] [--steps 3] [--top 12] [--opts NUM_GPUS 1 TEST.BATCH_SIZE 8 ...]
 
-``--train`` profiles the train step (mixup, forward, backward, AdamW) on
-``TRAIN.BATCH_SIZE x AUG.NUM_SAMPLE`` clips of ``TRAIN_CROP_SIZE``; without
-it, the eval step on ``TEST.BATCH_SIZE`` clips of ``TEST_CROP_SIZE``.
+``--train`` profiles the recipe's train step (mixup if ``MIXUP.ENABLE``,
+forward with its dropout, backward, the clip and the recipe's optimizer) on
+``TRAIN.BATCH_SIZE`` clips (times ``AUG.NUM_SAMPLE`` under ``AUG.ENABLE``)
+of ``TRAIN_CROP_SIZE``; without it, the eval step on ``TEST.BATCH_SIZE``
+clips of ``TEST_CROP_SIZE``.
 
 Prints one JSON line: the median step time on the host clock (each step
 ends in a synchronize), the kernel time per step, the device's idle share

@@ -1,19 +1,24 @@
-"""Parameter partition and AdamW (counterpart of
-slowfast_tpu/solver/optimizer.py:22-125, :287-361; reference
+"""Parameter partition, SGD, Adam and AdamW (counterpart of
+slowfast_tpu/solver/optimizer.py:22-125, :133-170, :287-361; reference
 slowfast/models/optimizer.py).
 
 The port's ``named_parameters()`` carry the dotted names that the JAX
 package derives from its flax tree, so the partition rules apply to them as
-they are. The update is the optax chain ``construct_optimizer`` builds for
-``adamw``:
+they are. Each update is the optax chain ``construct_optimizer`` builds for
+its method:
 
 1. global-norm clip (``CLIP_GRAD_L2NORM``): the gradients are scaled by
    ``max_norm / norm`` only when ``norm >= max_norm``, with no epsilon, as
    ``optax.clip_by_global_norm`` does (``clip_grad_norm_`` adds 1e-6);
-2. ``scale_by_adam`` with ``SOLVER.BETAS`` and eps 1e-8;
-3. decoupled weight decay ``+ wd * p`` on the old parameters;
-4. the per-parameter layer-decay scale;
-5. ``p -= lr * u``, with ``lr`` given by the step, not held by the optimizer.
+2. ``sgd``: coupled weight decay ``g + wd * p``, then momentum
+   (``optax.trace``: ``v = m * v + g`` from ``v = 0``, Nesterov returns
+   ``g + m * v``; with ``DAMPENING`` the first step takes ``v = g`` and later
+   ones ``v = m * v + (1 - d) * g``, and Nesterov is refused). ``adam``:
+   coupled weight decay, then ``scale_by_adam``. ``adamw``:
+   ``scale_by_adam``, then decoupled weight decay ``+ wd * p``. Adam's eps
+   is 1e-8, and the decay always reads the parameters before the update;
+3. the per-parameter layer-decay scale;
+4. ``p -= lr * u``, with ``lr`` given by the step, not held by the optimizer.
 
 Every operation is a ``torch._foreach_*`` call over the parameter list and
 stays on the device: nothing is read back to the host.
@@ -86,26 +91,26 @@ def get_grad_norm(grads):
         torch.stack(torch._foreach_norm([g.float() for g in grads])))
 
 
-class AdamW:
-    """The ``adamw`` chain of the JAX package's ``construct_optimizer``.
+class _Chain:
+    """What every method's chain shares: the parameter list in a fixed
+    order, its (weight decay, LR scale) groups, the clip and the final
+    update.
 
     ``step(lr)`` reads each parameter's ``.grad`` (a missing gradient counts
-    as zeros, as JAX's gradient tree has one for every leaf), clips it in
-    place and returns the global gradient norm before the clip, as a device
-    tensor.
+    as zeros, as JAX's gradient tree has one for every leaf), clips it and
+    returns the global gradient norm before the clip, as a device tensor.
+    ``state_dict()`` holds ``count`` and one ``{name: tensor}`` per state
+    buffer of the method (``BUFFERS``).
     """
 
+    BUFFERS = ()
+
     def __init__(self, model, cfg):
-        if cfg.SOLVER.OPTIMIZING_METHOD not in ("adamw", "mt_adamw"):
-            raise NotImplementedError(
-                f"{cfg.SOLVER.OPTIMIZING_METHOD!r} is not ported yet; only adamw is")
         if cfg.SOLVER.LARS_ON:
             raise NotImplementedError("LARS is not ported yet")
         if cfg.SOLVER.CLIP_GRAD_VAL:
             raise NotImplementedError("SOLVER.CLIP_GRAD_VAL is not ported yet")
         self.max_norm = cfg.SOLVER.CLIP_GRAD_L2NORM
-        self.b1, self.b2 = (float(b) for b in cfg.SOLVER.BETAS)
-        self.eps = 1e-8
         scales = build_param_scales(model, cfg)
         self.names = list(scales)
         named = dict(model.named_parameters())
@@ -115,11 +120,11 @@ class AdamW:
         for i, name in enumerate(self.names):
             self.groups.setdefault(scales[name], []).append(i)
         self.count = 0
-        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        for buf in self.BUFFERS:
+            setattr(self, buf, [torch.zeros_like(p, dtype=torch.float32)
+                                for p in self.params])
 
-    @torch.no_grad()
-    def step(self, lr):
+    def _clipped_grads(self):
         grads = [p.grad.float() if p.grad is not None
                  else torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         norm = get_grad_norm(grads)
@@ -127,40 +132,128 @@ class AdamW:
             coef = torch.where(norm < self.max_norm, torch.ones_like(norm),
                                self.max_norm / norm)
             torch._foreach_mul_(grads, coef)
-        self.count += 1
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        mu_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
-        nu_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
-        denom = torch._foreach_sqrt(nu_hat)
-        torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(mu_hat, denom)
-        for (wd, scale), idx in self.groups.items():
-            u = [updates[i] for i in idx]
-            p = [self.params[i] for i in idx]
+        return grads, norm
+
+    def _add_decay(self, tensors):
+        """``t += wd * p`` for each parameter's tensor, by group."""
+        for (wd, _), idx in self.groups.items():
             if wd:
-                torch._foreach_add_(u, p, alpha=wd)
+                torch._foreach_add_([tensors[i] for i in idx],
+                                    [self.params[i] for i in idx], alpha=wd)
+
+    def _apply(self, updates, lr):
+        """``p -= lr * (scale * u)``, by group."""
+        for (_, scale), idx in self.groups.items():
+            u = [updates[i] for i in idx]
             if scale != 1.0:
                 torch._foreach_mul_(u, scale)
             torch._foreach_mul_(u, lr)
-            torch._foreach_sub_(p, u)
-        return norm
+            torch._foreach_sub_([self.params[i] for i in idx], u)
+
+    def _adam_direction(self, grads, b1, b2, eps=1e-8):
+        """``optax.scale_by_adam``: bias-corrected ``mu / (sqrt(nu) + eps)``.
+        The corrections ``1 - b ** count`` are taken in fp32, as optax takes
+        them: in double they differ by up to 2e-5 relative at ``b2 = 0.999``,
+        where fp32 cancels."""
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
+        count = torch.tensor(float(self.count))
+        mu_hat = torch._foreach_div(self.mu, float(1.0 - torch.tensor(b1) ** count))
+        nu_hat = torch._foreach_div(self.nu, float(1.0 - torch.tensor(b2) ** count))
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, eps)
+        return torch._foreach_div(mu_hat, denom)
 
     def state_dict(self):
-        return {"count": self.count,
-                "mu": {n: t.detach().cpu() for n, t in zip(self.names, self.mu)},
-                "nu": {n: t.detach().cpu() for n, t in zip(self.names, self.nu)}}
+        out = {"count": self.count}
+        for buf in self.BUFFERS:
+            out[buf] = {n: t.detach().cpu() for n, t in zip(self.names, getattr(self, buf))}
+        return out
 
     def load_state_dict(self, state):
-        if sorted(state["mu"]) != sorted(self.names):
-            raise ValueError("optimizer state does not match the model's parameters")
+        for buf in self.BUFFERS:
+            if sorted(state[buf]) != sorted(self.names):
+                raise ValueError("optimizer state does not match the model's parameters")
         self.count = int(state["count"])
-        for i, n in enumerate(self.names):
-            self.mu[i].copy_(state["mu"][n])
-            self.nu[i].copy_(state["nu"][n])
+        for buf in self.BUFFERS:
+            for t, n in zip(getattr(self, buf), self.names):
+                t.copy_(state[buf][n])
+
+
+class AdamW(_Chain):
+    """The ``adamw`` chain: Adam, then decoupled weight decay."""
+
+    BUFFERS = ("mu", "nu")
+
+    def __init__(self, model, cfg):
+        super().__init__(model, cfg)
+        self.b1, self.b2 = (float(b) for b in cfg.SOLVER.BETAS)
+
+    @torch.no_grad()
+    def step(self, lr):
+        grads, norm = self._clipped_grads()
+        self.count += 1
+        updates = self._adam_direction(grads, self.b1, self.b2)
+        self._add_decay(updates)
+        self._apply(updates, lr)
+        return norm
+
+
+class Adam(AdamW):
+    """The ``adam`` chain: weight decay coupled into the gradient, then Adam."""
+
+    @torch.no_grad()
+    def step(self, lr):
+        grads, norm = self._clipped_grads()
+        self.count += 1
+        self._add_decay(grads)
+        self._apply(self._adam_direction(grads, self.b1, self.b2), lr)
+        return norm
+
+
+class SGD(_Chain):
+    """The ``sgd`` chain: weight decay coupled into the gradient, then
+    momentum with optional dampening or Nesterov (``optax.trace`` or the
+    JAX package's ``trace_with_dampening``)."""
+
+    BUFFERS = ("trace",)
+
+    def __init__(self, model, cfg):
+        super().__init__(model, cfg)
+        self.momentum = float(cfg.SOLVER.MOMENTUM)
+        self.dampening = float(cfg.SOLVER.DAMPENING)
+        self.nesterov = bool(cfg.SOLVER.NESTEROV)
+        if self.dampening and self.nesterov:
+            # torch forbids it too (optim/sgd.py).
+            raise ValueError("SOLVER.DAMPENING requires SOLVER.NESTEROV False")
+
+    @torch.no_grad()
+    def step(self, lr):
+        grads, norm = self._clipped_grads()
+        self._add_decay(grads)
+        if self.dampening and self.count == 0:
+            torch._foreach_copy_(self.trace, grads)
+        else:
+            torch._foreach_mul_(self.trace, self.momentum)
+            torch._foreach_add_(self.trace, grads, alpha=1.0 - self.dampening)
+        self.count += 1
+        if self.nesterov:
+            torch._foreach_add_(grads, self.trace, alpha=self.momentum)
+            updates = grads
+        else:
+            updates = [t.clone() for t in self.trace]
+        self._apply(updates, lr)
+        return norm
+
+
+OPTIMIZERS = {"sgd": SGD, "adam": Adam, "adamw": AdamW, "mt_adamw": AdamW}
 
 
 def construct_optimizer(model, cfg):
-    return AdamW(model, cfg)
+    method = cfg.SOLVER.OPTIMIZING_METHOD
+    if method not in OPTIMIZERS:
+        raise NotImplementedError(f"{method!r} is not ported yet; available: "
+                                  f"{sorted(OPTIMIZERS)}")
+    return OPTIMIZERS[method](model, cfg)

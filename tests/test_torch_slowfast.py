@@ -184,9 +184,17 @@ def test_run_net_cli_runs_the_test(tmp_path):
 
 
 def test_run_net_refuses_training(tmp_path):
-    with pytest.raises(NotImplementedError):
+    """``run_net`` refuses to train on what the port lacks, before any
+    step: the YAML's own ``kinetics`` dataset (only ``syntheticvideo`` is
+    ported) and LARS."""
+    with pytest.raises(NotImplementedError, match="dataset 'Kinetics' is not ported"):
         run_net_main(["--device", "cpu", "--cfg", YAML, "--opts",
                       "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="LARS is not ported"):
+        run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", *NARROW,
+                      "TRAIN.ENABLE", "True", "TRAIN.DATASET", "syntheticvideo",
+                      "DATA.SYNTHETIC_SIZE", "2", "SOLVER.LARS_ON", "True",
+                      "TEST.ENABLE", "False", "OUTPUT_DIR", str(tmp_path)])
 
 
 def test_cuda_is_the_default_and_never_falls_back():

@@ -214,7 +214,8 @@ def test_adamw_update_matches_optax_chain(variables):
 
 
 def test_unported_optimizers_raise(variables):
-    for extra in (["SOLVER.OPTIMIZING_METHOD", "sgd"], ["SOLVER.LARS_ON", "True"]):
+    for extra in (["SOLVER.OPTIMIZING_METHOD", "lars"], ["SOLVER.LARS_ON", "True"],
+                  ["SOLVER.CLIP_GRAD_VAL", "1.0"]):
         with pytest.raises(NotImplementedError):
             toptim.construct_optimizer(port_model(variables), narrow_cfg(get_cfg, extra=extra))
 
