@@ -109,13 +109,29 @@ Phases, each printing one JSON line:
               reload into a fresh model with an identical eval output; the
               preprocess kernel launched once per train, precise-BN and val
               batch.
- 15. cnn_family  X3D-M and I3D-NLN R50 at full width: the eval forward of
-              one clip card vs CPU in fp32 (TF32 off) within 1e-4, and bf16
-              train steps of 16 clips (step p50, peak memory); X3D-M's with
-              its channelwise convs on the channels_last_3d view and on a
-              contiguous NCDHW copy.
+ 14a. data_slice  run_net.main training SLOWFAST_4x16_R50 as sf_train_slice
+              does, but on decoded video: a corpus of 64 mp4s of 340 x 256
+              at 30 fps, 300 frames each, written with cv2 into a temporary
+              directory; Kinetics with the recipe's jitter 256-320, crop
+              224, flip, 32 frames at rate 2; 4 steps of 16 clips, precise
+              BN, a val epoch of 2 batches, then the 10 x 3 test of 2 videos
+              on the epoch-1 checkpoint. Also the train loader alone (no
+              model) per 16-clip batch. Prints the step p50 beside
+              sf_train_slice's, the share of the steps spent waiting for
+              data, the decode backend, and the preprocess launches, which
+              must equal the batches. If cv2 does not import it prints
+              {"phase": "data_slice", "ran": false, "missing": ["cv2"]}.
+ 15. cnn_family  X3D-M, I3D-NLN R50, CSN R101 (32 frames, channelwise
+              3x3x3) and R(2+1)D R50 (16 frames) at full width: the eval
+              forward of one clip card vs CPU in fp32 (TF32 off) within
+              1e-4, and bf16 train steps of 16 clips, or 8 where 16 do not
+              fit (step p50, peak memory); X3D-M's with its channelwise
+              convs on the channels_last_3d view and on a contiguous NCDHW
+              copy.
  16. kernels  one line per kernel with its launches on its path, error,
               times and bound.
+Before the phases, one line per host library that the data path may use
+(cv2, PIL, sklearn): whether it imports, and its version.
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without printing that line.
 """
@@ -176,6 +192,14 @@ CNN_TRAIN_CLIPS = 16
 BN_BUFFER_TOL = 1e-4
 X3D_YAML = os.path.join(ROOT, "configs", "Kinetics", "X3D_M.yaml")
 I3D_NLN_YAML = os.path.join(ROOT, "configs", "Kinetics", "I3D_NLN_8x8_R50.yaml")
+PTV_YAML = os.path.join(ROOT, "configs", "Kinetics", "pytorchvideo")
+# The recipes of CSN and R(2+1)D leave RESNET.TRANS_FUNC at the bottleneck;
+# their transforms are selected by it (slowfast_tpu/models/__init__.py:13).
+CSN = (os.path.join(PTV_YAML, "CSN_32x2_R101.yaml"), ["RESNET.TRANS_FUNC", "csn_transform"])
+R2PLUS1D = (os.path.join(PTV_YAML, "R2PLUS1D_16x4_R50.yaml"),
+            ["RESNET.TRANS_FUNC", "r2plus1d_transform"])
+# data_slice's corpus: Kinetics' storage shape at short side 256, 10 s clips.
+CORPUS = {"train": 4 * CNN_TRAIN_CLIPS, "val": 2 * CNN_TRAIN_CLIPS, "test": 2}
 
 
 def emit(obj):
@@ -294,6 +318,20 @@ def phase_device():
             "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(info)
     return info
+
+
+def phase_host_libs():
+    """Whether each host library of the data path imports, one line each."""
+    import importlib
+
+    for name in ("cv2", "PIL", "sklearn"):
+        try:
+            module = importlib.import_module(name)
+        except ImportError as e:
+            emit({"host_lib": name, "imports": False, "error": str(e)})
+        else:
+            emit({"host_lib": name, "imports": True,
+                  "version": getattr(module, "__version__", None)})
 
 
 def ptxas_usage(log):
@@ -1956,6 +1994,142 @@ def phase_sf_train_slice():
     del models[:], fresh
     gc.collect()
     torch.cuda.empty_cache()
+    return row
+
+
+def phase_data_slice(sf_train):
+    """``run_net.main`` training SlowFast 4x16 R50 on decoded mp4s (Kinetics,
+    cv2) for one epoch of 4 steps of 16 clips, precise BN, a val epoch of 2
+    batches, then the 10 x 3 test of 2 videos on the epoch-1 checkpoint;
+    before it, the train loader alone. Returns the run's launches, or None
+    when cv2 does not import on this host."""
+    import gc
+    import shutil
+    import tempfile
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        emit({"phase": "data_slice", "ran": False, "missing": ["cv2"]})
+        return None
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.data import construct_loader, decoder, synth_media
+    from slowfast_tpu_torch.engine import trainer
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    out_dir = os.path.join(OUT_DIR, "data_slice")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    corpus = tempfile.mkdtemp(prefix="data_slice_corpus_")
+    try:
+        t0 = time.perf_counter()
+        synth_media.make_video_corpus(corpus, CORPUS, frames=300, size=(340, 256), fps=30,
+                                      workers=os.cpu_count() or 1)
+        corpus_s = time.perf_counter() - t0
+        corpus_bytes = sum(os.path.getsize(os.path.join(corpus, f)) for f in os.listdir(corpus))
+        results = os.path.join(out_dir, "results.pkl")
+        opts = ["NUM_GPUS", "1", "TRAIN.DATASET", "kinetics", "TEST.DATASET", "kinetics",
+                "DATA.PATH_TO_DATA_DIR", corpus, "TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS),
+                "TEST.BATCH_SIZE", "8", "SOLVER.MAX_EPOCH", "1", "TEST.ENABLE", "True",
+                "TEST.CHECKPOINT_FILE_PATH", cu.get_path_to_checkpoint(out_dir, 1),
+                "TEST.SAVE_RESULTS_PATH", results, "OUTPUT_DIR", out_dir]
+        cfg = slowfast_cfg(opts + ["TRAIN.ENABLE", "True"], out_dir=out_dir)
+
+        # The train loader alone: the 4 batches of an epoch, each to a synchronize.
+        loader = construct_loader(cfg, "train", device="cuda")
+        loader.set_epoch(0)
+        load_ms = []
+        t0 = time.perf_counter()
+        for _ in loader:
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+
+        steps, epochs = [], []
+        make_step, train_epoch = trainer.make_train_step, trainer.train_epoch
+
+        def recording_make_step(cfg, model, optimizer, generator):
+            step = make_step(cfg, model, optimizer, generator)
+
+            def timed(batch):
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                steps.append({"start": t0, "end": time.perf_counter(), "loss": m["loss"].item(),
+                              "clips": batch["labels"].shape[0]})
+                return m
+
+            return timed
+
+        def recording_train_epoch(*args, **kwargs):
+            epochs.append(time.perf_counter())
+            return train_epoch(*args, **kwargs)
+
+        trainer.make_train_step = recording_make_step
+        trainer.train_epoch = recording_train_epoch
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            run_net.main(["--cfg", YAML, "--opts", *opts])
+        finally:
+            trainer.make_train_step = make_step
+            trainer.train_epoch = train_epoch
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    by_type = {}
+    for stats in logged:
+        by_type.setdefault(stats["_type"], []).append(stats)
+    with open(results, "rb") as f:
+        video_preds, _ = pickle.load(f)
+    test_clips = CORPUS["test"] * cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    test_batches = -(-test_clips // cfg.TEST.BATCH_SIZE)
+    val_batches = CORPUS["val"] // CNN_TRAIN_CLIPS
+    batches = len(steps) + len(steps) + val_batches + test_batches  # precise BN: the 4 again
+    check(len(steps) == 4 and all(s["clips"] == CNN_TRAIN_CLIPS for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    check(all(np.isfinite(s["loss"]) for s in steps), f"non-finite loss: {steps}")
+    check(len(by_type.get("val_epoch", [])) == 1, f"logged {list(by_type)}")
+    check(len(by_type.get("test_iter", [])) == test_batches and "test_final" in by_type,
+          f"test iterations {len(by_type.get('test_iter', []))}, expected {test_batches}")
+    check(video_preds.shape == (CORPUS["test"], cfg.MODEL.NUM_CLASSES)
+          and np.isfinite(video_preds).all(), "bad test predictions")
+    check(only_launched(launches, (), 0), f"SlowFast launched an attention kernel: {launches}")
+    check(launches["preprocess_u8"] == batches,
+          f"preprocess launches {launches['preprocess_u8']} for {batches} batches")
+
+    step_ms = [(s["end"] - s["start"]) * 1e3 for s in steps]
+    wait_ms = [(steps[0]["start"] - epochs[0]) * 1e3] + [
+        (b["start"] - a["end"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    row = {"phase": "data_slice", "ran": True, "decode_backend": decoder.BACKEND,
+           "decoding_backend_cfg": cfg.DATA.DECODING_BACKEND,
+           "corpus": {"videos": max(CORPUS.values()), "frames": 300, "size": [340, 256],
+                      "fps": 30, "bytes": corpus_bytes, "write_s": corpus_s},
+           "num_workers_cfg": cfg.DATA_LOADER.NUM_WORKERS,
+           "num_workers": loader.num_workers, "clips_per_step": CNN_TRAIN_CLIPS,
+           "frames": cfg.DATA.NUM_FRAMES, "crop": cfg.DATA.TRAIN_CROP_SIZE,
+           "loader_batch_ms": load_ms, "loader_batch_p50_ms": statistics.median(load_ms),
+           "step_ms": step_ms, "step_p50_ms": statistics.median(step_ms),
+           "synthetic_step_p50_ms": sf_train["step_p50_ms"],
+           "data_wait_ms": wait_ms,
+           "data_wait_share": sum(wait_ms[1:]) / (sum(wait_ms[1:]) + sum(step_ms[1:])),
+           "data_wait_share_with_first": sum(wait_ms) / (sum(wait_ms) + sum(step_ms)),
+           "losses": [s["loss"] for s in steps], "val_epoch": by_type["val_epoch"][-1],
+           "test_final": by_type["test_final"][-1], "test_clips": test_clips,
+           "batches": {"train": len(steps), "precise_bn": len(steps), "val": val_batches,
+                       "test": test_batches},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "wall_s": wall,
+           "launches": launches}
+    emit(row)
+    os.remove(cu.get_path_to_checkpoint(out_dir, 1))  # too large to keep among the run's files
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2010,8 +2184,8 @@ def cnn_fp32(make_cfg):
             "frames": cfg.DATA.NUM_FRAMES, "params": sum(p.numel() for p in cpu_model.parameters())}
 
 
-def cnn_train_steps(cfg, runs):
-    """Train steps of 16 clips in bf16 on one seeded batch: ``runs`` is a
+def cnn_train_steps(cfg, runs, n=CNN_TRAIN_CLIPS):
+    """Train steps of ``n`` clips in bf16 on one seeded batch: ``runs`` is a
     list of (label, set_up) pairs, each set_up(model) called before its
     steps; the runs take turns, two turns each, and every turn starts from
     the same weights and optimizer state: one untimed step, then 3 timed.
@@ -2025,7 +2199,7 @@ def cnn_train_steps(cfg, runs):
     opt = construct_optimizer(model, cfg)
     step = make_train_step(cfg, model, opt, torch.Generator().manual_seed(cfg.RNG_SEED))
     start = ({k: v.clone() for k, v in model.state_dict().items()}, opt.state_dict())
-    crop, n = cfg.DATA.TRAIN_CROP_SIZE, CNN_TRAIN_CLIPS
+    crop = cfg.DATA.TRAIN_CROP_SIZE
     gen = torch.Generator(device="cuda").manual_seed(12)
     batch = {"inputs": [torch.randint(0, 256, (n, cfg.DATA.NUM_FRAMES, crop, crop, 3),
                                       dtype=torch.uint8, device="cuda", generator=gen)],
@@ -2055,19 +2229,34 @@ def cnn_train_steps(cfg, runs):
                                                      torch.cuda.max_memory_allocated())
             out[label]["launches"] = read_launches()
     for label, run in out.items():
-        check(run["launches"]["preprocess_u8"] == 4, f"{label}: launches {run['launches']}")
+        check(run["launches"]["preprocess_u8"] == 4 and only_launched(run["launches"], (), 0),
+              f"{label}: launches {run['launches']}")
         run["step_p50_ms"] = statistics.median(run["steps_ms"])
         run["train_clips_per_s"] = n / run["step_p50_ms"] * 1e3
     return out
 
 
+def fitting_train_steps(cfg, runs):
+    """``cnn_train_steps`` at 16 clips, or at 8 if 16 run out of the card's
+    memory; returns (clips, result)."""
+    import gc
+
+    try:
+        return CNN_TRAIN_CLIPS, cnn_train_steps(cfg, runs)
+    except torch.cuda.OutOfMemoryError:
+        gc.collect()
+        torch.cuda.empty_cache()
+        return CNN_TRAIN_CLIPS // 2, cnn_train_steps(cfg, runs, CNN_TRAIN_CLIPS // 2)
+
+
 def phase_cnn_family():
-    """X3D-M (16 frames at 224²) and I3D-NLN R50 (8 frames at 224², softmax
-    non-local blocks in res3 and res4) at full width: the fp32 eval forward
-    card vs CPU, and bf16 train steps of 16 clips; X3D-M's with its
-    channelwise convs on the channels_last_3d view (the default) and on a
-    contiguous NCDHW copy (each channelwise ``Conv3D``'s forward swapped for
-    ``ncdhw_forward`` in that run)."""
+    """X3D-M (16 frames at 224²), I3D-NLN R50 (8 frames at 224², softmax
+    non-local blocks in res3 and res4), CSN R101 (32 frames, channelwise
+    3x3x3 convs) and R(2+1)D R50 (16 frames) at full width: the fp32 eval
+    forward card vs CPU, and bf16 train steps of 16 clips (8 where 16 do
+    not fit); X3D-M's with its channelwise convs on the channels_last_3d
+    view (the default) and on a contiguous NCDHW copy (each channelwise
+    ``Conv3D``'s forward swapped for ``ncdhw_forward`` in that run)."""
     import gc
     import types
 
@@ -2094,20 +2283,23 @@ def phase_cnn_family():
         return set_up
 
     rows = {}
-    for name, yaml, runs in (
-            ("x3d_m", X3D_YAML, [("channels_last_3d", set_layout(False)),
-                                 ("ncdhw", set_layout(True))]),
-            ("i3d_nln", I3D_NLN_YAML, [("default", lambda model: None)])):
-        def make_cfg(extra, yaml=yaml, name=name):
+    default = [("default", lambda model: None)]
+    for name, yaml, opts, runs in (
+            ("x3d_m", X3D_YAML, [], [("channels_last_3d", set_layout(False)),
+                                     ("ncdhw", set_layout(True))]),
+            ("i3d_nln", I3D_NLN_YAML, [], default),
+            ("csn_r101", *CSN, default),
+            ("r2plus1d_r50", *R2PLUS1D, default)):
+        def make_cfg(extra, yaml=yaml, name=name, opts=opts):
             return slowfast_cfg(["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS)]
-                                + list(extra), yaml, os.path.join(OUT_DIR, name))
+                                + opts + list(extra), yaml, os.path.join(OUT_DIR, name))
         fp32 = cnn_fp32(make_cfg)
         cfg = make_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"])
-        train = cnn_train_steps(cfg, runs)
+        clips, train = fitting_train_steps(cfg, runs)
         row = {"phase": "cnn_family", "model": name, "yaml": os.path.relpath(yaml, ROOT),
-               "fp32": fp32, "train_dtype": "bfloat16", "clips_per_step": CNN_TRAIN_CLIPS,
-               "train_frames": cfg.DATA.NUM_FRAMES, "train_crop": cfg.DATA.TRAIN_CROP_SIZE,
-               "train": train}
+               "opts": opts, "fp32": fp32, "train_dtype": "bfloat16",
+               "clips_per_step": clips, "train_frames": cfg.DATA.NUM_FRAMES,
+               "train_crop": cfg.DATA.TRAIN_CROP_SIZE, "train": train}
         if name == "i3d_nln":
             row["nonlocal_blocks"] = cfg.NONLOCAL.LOCATION
         emit(row)
@@ -2182,6 +2374,7 @@ def main():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     info = phase_device()
+    phase_host_libs()
     phase_build()
     kernel = phase_kernel()
     phase_fp32()
@@ -2196,15 +2389,20 @@ def main():
     phase_mvit_train_fp32()
     train_launches = phase_mvit_train_slice(attn_bwd, attn)
     phase_sf_train_fp32()
-    sf_launches = phase_sf_train_slice()
+    sf_train = phase_sf_train_slice()
+    data_launches = phase_data_slice(sf_train)
     phase_cnn_family()
     # The preprocess kernel's launches are those of the SlowFast train run
-    # (4 steps, 4 precise-BN batches, 4 val batches).
+    # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches) and
+    # of the one on decoded video (the same, with 2 val batches, and the
+    # test's 8 batches).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
         "replaces": "slowfast_tpu/ops/preprocess.py:42",
-        "launches": sf_launches["preprocess_u8"], "max_abs_err": kernel["max_abs_err"],
+        "launches": sf_train["launches"]["preprocess_u8"]
+        + (data_launches["preprocess_u8"] if data_launches else 0),
+        "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
         "library_ms": None,

@@ -1,25 +1,213 @@
-"""Synthetic video dataset (counterpart of slowfast_tpu/data/kinetics.py:509-607).
+"""Kinetics and synthetic video datasets (counterpart of
+slowfast_tpu/data/kinetics.py:24-475, the classification paths, and
+:509-607).
 
-Clips are the same bytes as the JAX package's ``Syntheticvideo``:
-``np.random.RandomState(index)`` frames, labels seeded by
-``index // num_clips`` so every view of a video has one label, and
-``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` clips per video in test mode.
-Train and val clips are ``TRAIN_CROP_SIZE`` square; in train mode with
-``AUG.ENABLE`` and ``AUG.NUM_SAMPLE > 1`` an item is that many copies of
-the clip (the repeated-augmentation contract, flattened into the batch by
-``loader.multiple_samples_collate``). Real Kinetics decoding is not ported
-yet.
+``Kinetics`` reads ``{train,val,test}.csv`` of ``path label`` lines (split
+by ``DATA.PATH_LABEL_SEPARATOR``, paths under ``DATA.PATH_PREFIX``) and
+decodes with cv2 (``decoder``). Train and val draw one random window and
+crop; test expands each video into ``NUM_ENSEMBLE_VIEWS x
+NUM_SPATIAL_CROPS`` clips, each its own temporal window and uniform crop.
+Training samples the short-side jitter before decoding
+(``DATA.DECODE_AT_SCALE``), jitters the frame rate
+(``DATA.TRAIN_JITTER_FPS``) or takes relative scale and aspect crops, and
+under ``AUG.ENABLE`` applies RandAugment, random erasing and ``NUM_SAMPLE``
+repeated augmentations of one decoded clip. A file that fails to decode is
+tried again, past half the retries with another random video (not in test).
+Each item draws from its own generators (``utils.sample_rngs``) in the JAX
+package's order, so seeding that package's ``random`` and ``np.random``
+with the same number gives the same clip. Items are uint8 clips; the card
+normalizes them. The decode backend is logged when a split is built.
+``DATA.FUSED_DECODE_CROP`` belongs to the FFmpeg decoder:
+under cv2 the JAX package pre-crops nothing, and treats a frame that comes
+out at the crop's size as cropped; so does the port.
+
+``Syntheticvideo`` clips are the same bytes as the JAX package's:
+``np.random.RandomState(index)`` frames, labels seeded by ``index //
+num_clips`` so every view of a video has one label; an item with repeated
+augmentation is ``NUM_SAMPLE`` copies of the clip.
 """
 
+import os
+
 import numpy as np
+
+from slowfast_tpu_torch.utils import logging as logging_utils
+from . import decoder, transform, utils
+from .rand_augment import rand_augment_transform
+from .random_erasing import RandomErasing
+
+logger = logging_utils.get_logger(__name__)
+
+
+def _check_uint8(cfg):
+    if not cfg.TPU.UINT8_PIPELINE:
+        raise NotImplementedError("the port's loader ships uint8 clips only")
+    if cfg.AUG.GEN_MASK_LOADER or cfg.DETECTION.ENABLE:
+        raise NotImplementedError("loader masks and detection boxes are not ported yet")
+
+
+class Kinetics(utils.SeededDataset):
+    def __init__(self, cfg, mode, num_retries=100):
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"unknown split {mode!r}")
+        _check_uint8(cfg)
+        unported = {"SSL multi-view clips (MODEL_NAME ContrastiveModel)":
+                    cfg.MODEL.MODEL_NAME == "ContrastiveModel",
+                    "DATA.SSL_COLOR_JITTER": cfg.DATA.SSL_COLOR_JITTER,
+                    "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0}
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"Kinetics with {name} is not ported yet")
+        self.cfg = cfg
+        self.mode = mode
+        self._num_retries = num_retries
+        self._num_clips = (1 if mode in ("train", "val")
+                           else cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS)
+        self._construct_loader()
+        train_aug = cfg.AUG.ENABLE and mode == "train"
+        self.randaug = None
+        if train_aug and cfg.AUG.AA_TYPE:
+            self.randaug = rand_augment_transform(cfg.AUG.AA_TYPE, dict(
+                translate_const=int(cfg.DATA.TRAIN_CROP_SIZE * 0.45),
+                img_mean=tuple(min(255, round(255 * m)) for m in cfg.DATA.MEAN),
+                interpolation=cfg.AUG.INTERPOLATION))
+        self.erasing = None
+        if train_aug and cfg.AUG.RE_PROB > 0:
+            self.erasing = RandomErasing(cfg.AUG.RE_PROB, mode=cfg.AUG.RE_MODE,
+                                         max_count=cfg.AUG.RE_COUNT,
+                                         num_splits=cfg.AUG.RE_COUNT)
+        self.dummy_output = None
+        logger.info("Kinetics %s: decoding video with %s (DATA.DECODING_BACKEND %s)", mode,
+                    decoder.BACKEND, cfg.DATA.DECODING_BACKEND)
+
+    def _construct_loader(self):
+        cfg = self.cfg
+        path_to_file = os.path.join(cfg.DATA.PATH_TO_DATA_DIR, f"{self.mode}.csv")
+        if not os.path.exists(path_to_file):
+            raise FileNotFoundError(f"{path_to_file} not found")
+        self._path_to_videos, self._labels, self._spatial_temporal_idx = [], [], []
+        with open(path_to_file) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                fields = line.split(cfg.DATA.PATH_LABEL_SEPARATOR)
+                if len(fields) != 2:
+                    raise ValueError(f"bad line {line!r} in {path_to_file}")
+                path, label = fields
+                for idx in range(self._num_clips):
+                    self._path_to_videos.append(os.path.join(cfg.DATA.PATH_PREFIX, path))
+                    self._labels.append(int(label))
+                    self._spatial_temporal_idx.append(idx)
+        if not self._path_to_videos:
+            raise ValueError(f"Failed to load Kinetics split {self.mode} from {path_to_file}")
+        logger.info("Constructed kinetics dataloader (size: %d) from %s",
+                    len(self._path_to_videos), path_to_file)
+
+    def __len__(self):
+        return len(self._path_to_videos)
+
+    @property
+    def num_videos(self):
+        """Number of clips, as the JAX dataset counts them."""
+        return len(self._path_to_videos)
+
+    def __getitem__(self, index):
+        if self.dummy_output is not None:
+            return self.dummy_output
+        return super().__getitem__(index)
+
+    def sample(self, index, rng, np_rng):
+        """Item ``index`` drawing from ``rng`` (``random.Random``) and
+        ``np_rng`` (``np.random.RandomState``): ``([clip], label, index,
+        time, {})``, or lists of ``NUM_SAMPLE`` of each under repeated
+        augmentation."""
+        cfg = self.cfg
+        train = self.mode == "train"
+        if self.mode in ("train", "val"):
+            temporal_sample_index = spatial_sample_index = -1
+            min_scale, max_scale = cfg.DATA.TRAIN_JITTER_SCALES
+            crop_size = cfg.DATA.TRAIN_CROP_SIZE
+            if cfg.MULTIGRID.DEFAULT_S > 0:
+                min_scale = int(round(float(min_scale) * crop_size / cfg.MULTIGRID.DEFAULT_S))
+        else:
+            crops = cfg.TEST.NUM_SPATIAL_CROPS
+            temporal_sample_index = self._spatial_temporal_idx[index] // crops
+            spatial_sample_index = self._spatial_temporal_idx[index] % crops if crops > 1 else 1
+            min_scale = max_scale = crop_size = cfg.DATA.TEST_CROP_SIZE
+        target_fps = cfg.DATA.TARGET_FPS
+        if train and cfg.DATA.TRAIN_JITTER_FPS > 0.0:
+            target_fps += rng.uniform(0.0, cfg.DATA.TRAIN_JITTER_FPS)
+        decode_at_scale = 0
+        if (train and cfg.DATA.DECODE_AT_SCALE and not cfg.DATA.TRAIN_JITTER_SCALES_RELATIVE
+                and not (cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1)):
+            decode_at_scale = transform.sample_jitter_size(min_scale, max_scale, rng,
+                                                           cfg.DATA.INV_UNIFORM_SAMPLE)
+            min_scale = max_scale = decode_at_scale
+        fused_crop = (decode_at_scale and cfg.DATA.FUSED_DECODE_CROP and not cfg.AUG.ENABLE
+                      and not cfg.DATA.TRAIN_JITTER_MOTION_SHIFT)
+        for i_try in range(self._num_retries):
+            rng.random(), rng.random()  # the FFmpeg decoder's crop placement, unused here
+            result = decoder.decode(
+                self._path_to_videos[index], cfg.DATA.SAMPLING_RATE, cfg.DATA.NUM_FRAMES, rng,
+                clip_idx=temporal_sample_index, num_clips=cfg.TEST.NUM_ENSEMBLE_VIEWS,
+                target_fps=target_fps,
+                max_spatial_scale=(cfg.DATA.DECODING_SHORT_SIZE if self.mode == "test"
+                                   else decode_at_scale),
+                use_offset=cfg.DATA.USE_OFFSET_SAMPLING)
+            if result is not None:
+                frames, _, _, time_frac = result
+                break
+            logger.warning("Failed to decode video idx %d, trial %d", index, i_try)
+            if self.mode != "test" and i_try > self._num_retries // 2:
+                index = rng.randint(0, len(self._path_to_videos) - 1)
+        else:
+            raise RuntimeError(f"Failed to fetch video after {self._num_retries} retries.")
+
+        label = self._labels[index]
+        time_out = np.asarray([time_frac], np.float32)
+        args = (spatial_sample_index, min_scale, max_scale, crop_size, rng, np_rng)
+        num_aug = cfg.AUG.NUM_SAMPLE if train and cfg.AUG.ENABLE else 1
+        if num_aug > 1:
+            out = ([self._process_clip(frames, *args) for _ in range(num_aug)],
+                   [label] * num_aug, [index] * num_aug, [time_out] * num_aug,
+                   [{}] * num_aug)
+        else:
+            pre_cropped = bool(fused_crop) and frames.shape[1:3] == (crop_size, crop_size)
+            out = (self._process_clip(frames, *args, pre_cropped=pre_cropped), label, index,
+                   time_out, {})
+        if cfg.DATA.DUMMY_LOAD and self.dummy_output is None:
+            self.dummy_output = out
+        return out
+
+    def _process_clip(self, frames, spatial_sample_index, min_scale, max_scale, crop_size,
+                      rng, np_rng, pre_cropped=False):
+        """RandAugment, the spatial sampling (or only the flip of a clip the
+        decoder already cropped), random erasing; returns ``[clip]``."""
+        cfg = self.cfg
+        if self.randaug is not None:
+            frames = self.randaug(frames, rng)
+        if pre_cropped:
+            if cfg.DATA.RANDOM_FLIP:
+                frames = transform.horizontal_flip(0.5, frames, np_rng)
+        else:
+            scl = cfg.DATA.TRAIN_JITTER_SCALES_RELATIVE
+            asp = cfg.DATA.TRAIN_JITTER_ASPECT_RELATIVE
+            frames = utils.spatial_sampling(
+                frames, rng, np_rng, spatial_idx=spatial_sample_index, min_scale=min_scale,
+                max_scale=max_scale, crop_size=crop_size,
+                random_horizontal_flip=cfg.DATA.RANDOM_FLIP,
+                inverse_uniform_sampling=cfg.DATA.INV_UNIFORM_SAMPLE,
+                aspect_ratio=asp or None, scale=scl or None,
+                motion_shift=cfg.DATA.TRAIN_JITTER_MOTION_SHIFT and self.mode == "train")
+        if self.erasing is not None:
+            frames = self.erasing(frames, rng, np_rng)
+        return [np.ascontiguousarray(frames)]
 
 
 class Syntheticvideo:
     def __init__(self, cfg, mode):
-        if not cfg.TPU.UINT8_PIPELINE:
-            raise NotImplementedError("the port's loader ships uint8 clips only")
-        if cfg.AUG.GEN_MASK_LOADER or cfg.DETECTION.ENABLE:
-            raise NotImplementedError("loader masks and detection boxes are not ported yet")
+        _check_uint8(cfg)
         self.cfg = cfg
         self.mode = mode
         self._size = cfg.DATA.SYNTHETIC_SIZE or (256 if mode == "train" else 64)

@@ -6,7 +6,8 @@ batches, and sent to the device from pinned memory with a non-blocking
 copy. Labels and clip ids stay on the host. The train split is shuffled
 per epoch with ``np.random.RandomState(RNG_SEED + epoch).permutation`` and
 drops its last partial batch, as the JAX ``ShardedLoader`` does; val and
-test keep their order and their last batch.
+test keep their order and their last batch. ``set_epoch`` also tells the
+dataset the epoch, from which each sample seeds its generators.
 """
 
 import os
@@ -16,9 +17,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .kinetics import Syntheticvideo
+from .charades import Charades
+from .kinetics import Kinetics, Syntheticvideo
+from .ssv2 import Ssv2
 
-DATASET_REGISTRY = {"Syntheticvideo": Syntheticvideo}
+# The reference's pytorchvideo-backed names map to the same datasets
+# (slowfast_tpu/data/kinetics.py:612, charades.py:147, ssv2.py:151).
+DATASET_REGISTRY = {"Syntheticvideo": Syntheticvideo, "Kinetics": Kinetics,
+                    "Ptvkinetics": Kinetics, "Charades": Charades, "Ptvcharades": Charades,
+                    "Ssv2": Ssv2, "Ptvssv2": Ssv2}
 PREFETCH = 2  # batches in the making beyond the one being consumed
 
 
@@ -31,10 +38,12 @@ def build_dataset(dataset_name, cfg, split):
 
 
 def collate(samples):
-    """Stack samples into ``(inputs, labels, clip_ids, times, meta)``."""
+    """Stack samples into ``(inputs, labels, clip_ids, times, meta)``: integer
+    labels as int64, multi-hot ones as float32."""
     num_pathways = len(samples[0][0])
     inputs = [np.stack([s[0][p] for s in samples]) for p in range(num_pathways)]
-    labels = np.asarray([s[1] for s in samples], np.int64)
+    labels = np.asarray([s[1] for s in samples])
+    labels = labels.astype(np.float32 if labels.dtype.kind == "f" else np.int64)
     index = np.asarray([s[2] for s in samples], np.int64)
     times = np.stack([np.asarray(s[3]) for s in samples])
     return inputs, labels, index, times, {}
@@ -68,6 +77,8 @@ class Loader:
 
     def set_epoch(self, epoch):
         self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self):
         n = len(self.dataset)

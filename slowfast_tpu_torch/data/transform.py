@@ -1,0 +1,195 @@
+"""Spatial and color transforms of host (T, H, W, C) clips (counterpart of
+slowfast_tpu/data/transform.py:14-273, the classification subset; reference
+slowfast/datasets/transform.py).
+
+Resizes are cv2's, as in the JAX package, so the same uint8 clip and the
+same draws give the same bytes. Every random draw comes from a generator
+the caller passes: ``rng``, a ``random.Random``, where the JAX package
+draws from the module ``random``, and ``np_rng``, a
+``np.random.RandomState``, where it draws from ``np.random``, in the same
+order; no function here touches the global generators.
+"""
+
+import math
+
+import numpy as np
+
+
+def _interp(img, size_wh, interpolation="bilinear"):
+    import cv2
+
+    flag = {"bilinear": cv2.INTER_LINEAR, "bicubic": cv2.INTER_CUBIC,
+            "nearest": cv2.INTER_NEAREST}[interpolation]
+    return cv2.resize(img, size_wh, interpolation=flag)
+
+
+def sample_jitter_size(min_size, max_size, rng, inverse_uniform_sampling=False):
+    """The short-side jitter size, drawn before decoding (decode at scale)."""
+    if inverse_uniform_sampling:
+        return int(round(1.0 / rng.uniform(1.0 / max_size, 1.0 / min_size)))
+    return int(round(rng.uniform(min_size, max_size)))
+
+
+def random_short_side_scale_jitter(frames, min_size, max_size, np_rng,
+                                   inverse_uniform_sampling=False):
+    """Scale the short side to a size drawn in [min_size, max_size] (reference
+    transform.py:48-98); the long side keeps the aspect, rounded down."""
+    if inverse_uniform_sampling:
+        size = int(round(1.0 / np_rng.uniform(1.0 / max_size, 1.0 / min_size)))
+    else:
+        size = int(round(np_rng.uniform(min_size, max_size)))
+    h, w = frames.shape[1], frames.shape[2]
+    if (w <= h and w == size) or (h <= w and h == size):
+        return frames
+    if w < h:
+        new_w, new_h = size, int(math.floor(h / w * size))
+    else:
+        new_w, new_h = int(math.floor(w / h * size)), size
+    return np.stack([_interp(f, (new_w, new_h)) for f in frames])
+
+
+def random_crop(frames, size, np_rng):
+    """A ``size`` square at a random offset (reference transform.py:120-149)."""
+    h, w = frames.shape[1], frames.shape[2]
+    if h == size and w == size:
+        return frames
+    y = int(np_rng.randint(0, h - size)) if h > size else 0
+    x = int(np_rng.randint(0, w - size)) if w > size else 0
+    return frames[:, y:y + size, x:x + size]
+
+
+def horizontal_flip(prob, frames, np_rng):
+    """Flip along W with probability ``prob`` (reference transform.py:152-184)."""
+    if np_rng.uniform() < prob:
+        frames = frames[:, :, ::-1]
+    return frames
+
+
+def uniform_crop(frames, size, spatial_idx):
+    """The left/top (0), centre (1) or right/bottom (2) ``size`` square along
+    the long side (reference transform.py:187-243)."""
+    if spatial_idx not in (0, 1, 2):
+        raise ValueError(f"spatial_idx {spatial_idx} is not 0, 1 or 2")
+    h, w = frames.shape[1], frames.shape[2]
+    y = int(math.ceil((h - size) / 2))
+    x = int(math.ceil((w - size) / 2))
+    if h > w:
+        if spatial_idx == 0:
+            y = 0
+        elif spatial_idx == 2:
+            y = h - size
+    elif spatial_idx == 0:
+        x = 0
+    elif spatial_idx == 2:
+        x = w - size
+    return frames[:, y:y + size, x:x + size]
+
+
+def _sample_resized_crop(height, width, scale, ratio, rng):
+    """torchvision's RandomResizedCrop window: ten tries at a random area and
+    log-uniform aspect, else the centre crop clamped to ``ratio``."""
+    area = height * width
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+        aspect = math.exp(rng.uniform(*log_ratio))
+        w = int(round(math.sqrt(target_area * aspect)))
+        h = int(round(math.sqrt(target_area / aspect)))
+        if 0 < w <= width and 0 < h <= height:
+            return rng.randint(0, height - h), rng.randint(0, width - w), h, w
+    in_ratio = width / height
+    if in_ratio < ratio[0]:
+        w = width
+        h = int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        h = height
+        w = int(round(h * ratio[1]))
+    else:
+        w, h = width, height
+    return (height - h) // 2, (width - w) // 2, h, w
+
+
+def random_resized_crop(frames, target_height, target_width, rng, scale=(0.08, 1.0),
+                        ratio=(3.0 / 4.0, 4.0 / 3.0), interpolation="bilinear"):
+    """Inception-style crop, one window for the clip (reference
+    transform.py:519-553)."""
+    i, j, ch, cw = _sample_resized_crop(frames.shape[1], frames.shape[2], scale, ratio, rng)
+    return np.stack([_interp(f, (target_width, target_height), interpolation)
+                     for f in frames[:, i:i + ch, j:j + cw]])
+
+
+def random_resized_crop_with_shift(frames, target_height, target_width, rng,
+                                   scale=(0.08, 1.0), ratio=(3.0 / 4.0, 4.0 / 3.0),
+                                   interpolation="bilinear"):
+    """Motion shift: the window moves linearly from one sampled crop to another
+    across the clip (reference transform.py:554-598)."""
+    t, h, w = frames.shape[:3]
+    i, j, ch, cw = _sample_resized_crop(h, w, scale, ratio, rng)
+    i_, j_, ch_, cw_ = _sample_resized_crop(h, w, scale, ratio, rng)
+    i_s, j_s, h_s, w_s = (np.linspace(a, b, t).astype(np.int64)
+                          for a, b in ((i, i_), (j, j_), (ch, ch_), (cw, cw_)))
+    out = np.empty((t, target_height, target_width, frames.shape[3]), frames.dtype)
+    for k in range(t):
+        crop = frames[k, i_s[k]:i_s[k] + h_s[k], j_s[k]:j_s[k] + w_s[k]]
+        out[k] = _interp(crop, (target_width, target_height), interpolation)
+    return out
+
+
+# Color ops on float (T, H, W, C) clips in [0, 1] (reference
+# transform.py:268-476).
+
+def blend(a, b, alpha):
+    return a * alpha + b * (1.0 - alpha)
+
+
+def grayscale(frames):
+    g = 0.299 * frames[..., 0] + 0.587 * frames[..., 1] + 0.114 * frames[..., 2]
+    return np.repeat(g[..., None], 3, axis=-1)
+
+
+def brightness_jitter(var, frames, np_rng):
+    alpha = 1.0 + np_rng.uniform(-var, var)
+    return blend(frames, np.zeros_like(frames), alpha)
+
+
+def contrast_jitter(var, frames, np_rng):
+    alpha = 1.0 + np_rng.uniform(-var, var)
+    g = grayscale(frames)
+    g[:] = g.mean(axis=(1, 2, 3), keepdims=True)
+    return blend(frames, g, alpha)
+
+
+def saturation_jitter(var, frames, np_rng):
+    alpha = 1.0 + np_rng.uniform(-var, var)
+    return blend(frames, grayscale(frames), alpha)
+
+
+_JITTERS = {"brightness": brightness_jitter, "contrast": contrast_jitter,
+            "saturation": saturation_jitter}
+
+
+def color_jitter(frames, np_rng, img_brightness=0, img_contrast=0, img_saturation=0):
+    """The non-zero jitters in a random order (reference transform.py:312-345)."""
+    jitter = [(name, var) for name, var in (("brightness", img_brightness),
+                                            ("contrast", img_contrast),
+                                            ("saturation", img_saturation)) if var != 0]
+    if jitter:
+        for idx in np_rng.permutation(len(jitter)):
+            name, var = jitter[idx]
+            frames = _JITTERS[name](var, frames, np_rng)
+    return frames
+
+
+def lighting_jitter(frames, alphastd, eigval, eigvec, np_rng):
+    """AlexNet-style PCA lighting noise (reference transform.py:392-428)."""
+    if alphastd == 0:
+        return frames
+    alpha = np_rng.normal(0, alphastd, size=(1, 3))
+    rgb = np.sum(np.asarray(eigvec) * alpha * np.asarray(eigval).reshape(1, 3), axis=1)
+    return frames + rgb.reshape(1, 1, 1, 3).astype(frames.dtype)
+
+
+def color_normalization(frames, mean, stddev):
+    mean = np.asarray(mean, frames.dtype).reshape(1, 1, 1, -1)
+    stddev = np.asarray(stddev, frames.dtype).reshape(1, 1, 1, -1)
+    return (frames - mean) / stddev

@@ -13,7 +13,7 @@ import torch
 from slowfast_tpu_torch.data.mixup import mixup_batch
 from slowfast_tpu_torch.models.video_models import compute_dtype
 from slowfast_tpu_torch.ops.preprocess import device_preprocess
-from slowfast_tpu_torch.solver.losses import get_loss_func
+from slowfast_tpu_torch.solver.losses import MULTI_LABEL_LOSSES, get_loss_func
 from slowfast_tpu_torch.solver.lr_policy import make_epoch_lr_fn
 from slowfast_tpu_torch.utils.metrics import topks_correct
 
@@ -40,17 +40,21 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
     """``batch -> metrics`` for one training iteration.
 
     ``batch`` holds ``"inputs"`` (``[clips_u8]`` or float pathways on the
-    model's device), integer ``"labels"`` on the same device and the
-    fractional epoch ``"epoch_exact"`` (a float) that sets the LR. In order:
-    preprocess, mixup (``cfg.MIXUP``, draws from ``mix_generator``), forward
-    in train mode, loss in fp32, backward, the gradient norm before the
-    clip, the clip, ``lr = lr_fn(epoch_exact)`` and the optimizer's update.
-    Returns ``loss``, ``grad_norm`` and ``top1_err``/``top5_err`` against the
-    integer labels as device tensors (nothing is read back), and ``lr``.
+    model's device), ``"labels"`` on the same device (integer, or multi-hot
+    float for multi-label data) and the fractional epoch ``"epoch_exact"``
+    (a float) that sets the LR. In order: preprocess, mixup (``cfg.MIXUP``,
+    draws from ``mix_generator``), forward in train mode, loss in fp32,
+    backward, the gradient norm before the clip, the clip, ``lr =
+    lr_fn(epoch_exact)`` and the optimizer's update. Returns ``loss``,
+    ``grad_norm`` and, for single-label data, ``top1_err``/``top5_err`` as
+    device tensors (nothing is read back), and ``lr``. Multi-label training
+    (``DATA.MULTI_LABEL`` or a ``bce``/``bce_logit`` loss) reports no top-k
+    (slowfast_tpu/engine/steps.py:69).
     """
-    if cfg.DETECTION.ENABLE or cfg.MASK.ENABLE or cfg.DATA.MULTI_LABEL:
-        raise NotImplementedError("only single-label classification training is ported")
+    if cfg.DETECTION.ENABLE or cfg.MASK.ENABLE:
+        raise NotImplementedError("only classification training is ported")
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
+    multi_label = cfg.DATA.MULTI_LABEL or cfg.MODEL.LOSS_FUNC in MULTI_LABEL_LOSSES
     lr_fn = make_epoch_lr_fn(cfg)
     mix = cfg.MIXUP
 
@@ -71,11 +75,13 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
         loss.backward()
         lr = lr_fn(batch["epoch_exact"])
         grad_norm = optimizer.step(lr)
-        with torch.no_grad():
-            k1, k5 = topks_correct(preds.float(), labels, (1, 5))
-            b = preds.shape[0]
-            return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr,
-                    "top1_err": (1.0 - k1 / b) * 100.0, "top5_err": (1.0 - k5 / b) * 100.0}
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
+        if not multi_label:
+            with torch.no_grad():
+                k1, k5 = topks_correct(preds.float(), labels, (1, 5))
+                b = preds.shape[0]
+                metrics.update(top1_err=(1.0 - k1 / b) * 100.0, top5_err=(1.0 - k5 / b) * 100.0)
+        return metrics
 
     return step
 

@@ -3,7 +3,8 @@ classification branch; reference tools/test_net.py).
 
 Each batch of uint8 clips goes through the eval step on the device; the
 per-clip predictions are ensembled per video by ``TestMeter``, which logs
-``test_final`` with ``top1_acc``/``top5_acc``.
+``test_final`` with ``top1_acc``/``top5_acc``, or with ``map`` for
+multi-label data (``DATA.MULTI_LABEL``).
 """
 
 import pickle
@@ -51,8 +52,8 @@ def test(cfg, device="cuda"):
 
 
 def test_one(cfg, device):
-    if cfg.DETECTION.ENABLE or cfg.DATA.MULTI_LABEL:
-        raise NotImplementedError("only single-label classification test is ported")
+    if cfg.DETECTION.ENABLE:
+        raise NotImplementedError("only classification test is ported")
     model = build_model(cfg, device)
     cu.load_test_checkpoint(cfg, model)
     eval_fn = make_eval_step(cfg, model)
@@ -66,6 +67,7 @@ def test_one(cfg, device):
         dataset.num_videos // num_clips,
         num_clips,
         cfg.MODEL.NUM_CLASSES,
+        multi_label=cfg.DATA.MULTI_LABEL,
         ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
         output_dir=cfg.OUTPUT_DIR,
     )

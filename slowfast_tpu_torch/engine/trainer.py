@@ -13,7 +13,6 @@ runs on the same cadence.
 import math
 import pprint
 
-import numpy as np
 import torch
 
 from slowfast_tpu_torch.data import construct_loader, shuffle_dataset
@@ -36,7 +35,6 @@ def _check_supported(cfg):
         "MULTIGRID": cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
         "DETECTION.ENABLE": cfg.DETECTION.ENABLE,
         "MASK.ENABLE": cfg.MASK.ENABLE,
-        "DATA.MULTI_LABEL": cfg.DATA.MULTI_LABEL,
         "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
         "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
     }
@@ -57,7 +55,8 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
             loss = float(m["loss"])
             if math.isnan(loss):  # reference misc.check_nan_losses
                 raise RuntimeError(f"ERROR: Got NaN losses at epoch {cur_epoch} iter {it}")
-            meter.update_stats(float(m["top1_err"]), float(m["top5_err"]), loss, m["lr"], bs)
+            top1, top5 = (float(m[k]) if k in m else None for k in ("top1_err", "top5_err"))
+            meter.update_stats(top1, top5, loss, m["lr"], bs)
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()
 
@@ -77,14 +76,18 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
     meter.reset()
 
 
-def eval_epoch(val_loader, eval_fn, meter, cur_epoch):
-    """One val epoch on the eval step; returns the ``val_epoch`` stats."""
+def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
+    """One val epoch on the eval step; returns the ``val_epoch`` stats (with
+    ``multi_label``, the mAP of the epoch's predictions)."""
     meter.iter_tic()
     for cur_iter, (inputs, labels, _, _, _) in enumerate(val_loader):
         preds = eval_fn({"inputs": inputs}).float().cpu()
-        k1, k5 = topks_correct(preds, torch.from_numpy(labels), (1, 5))
-        b = preds.shape[0]
-        meter.update_stats((1.0 - float(k1) / b) * 100.0, (1.0 - float(k5) / b) * 100.0, b)
+        if multi_label:
+            meter.update_predictions(preds.numpy(), labels)
+        else:
+            k1, k5 = topks_correct(preds, torch.from_numpy(labels), (1, 5))
+            b = preds.shape[0]
+            meter.update_stats((1.0 - float(k1) / b) * 100.0, (1.0 - float(k5) / b) * 100.0, b)
         meter.iter_toc()
         meter.log_iter_stats(cur_epoch, cur_iter)
         meter.iter_tic()
@@ -100,7 +103,6 @@ def train(cfg, device="cuda"):
     logging_utils.setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:")
     logger.info(pprint.pformat(cfg.to_dict()))
-    np.random.seed(cfg.RNG_SEED)
 
     model = build_model(cfg, device)
     optimizer = construct_optimizer(model, cfg)
@@ -134,7 +136,7 @@ def train(cfg, device="cuda"):
         if is_checkp:
             cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg)
         if is_eval:
-            eval_epoch(val_loader, eval_fn, val_meter, cur_epoch)
+            eval_epoch(val_loader, eval_fn, val_meter, cur_epoch, cfg.DATA.MULTI_LABEL)
     logger.info("training done")
     return model
 

@@ -17,11 +17,13 @@ from .resnet import ResBlock
 from .video_models import X3D, ResNet, SlowFast
 
 # The reference's pytorchvideo-backed names map to the native models
-# (slowfast_tpu/models/__init__.py:4-19); ResNet_nopool is the ResNet
-# without the temporal pool after res2.
+# (slowfast_tpu/models/__init__.py:4-19): CSN and R(2+1)D are the ResNet with
+# RESNET.TRANS_FUNC csn_transform / r2plus1d_transform (their YAMLs leave it
+# at bottleneck_transform); ResNet_nopool is the ResNet without the
+# temporal pool after res2.
 MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT,
                   "ResNet": ResNet, "PTVResNet": ResNet, "ResNet_nopool": ResNet,
-                  "X3D": X3D, "PTVX3D": X3D}
+                  "PTVCSN": ResNet, "PTVR2plus1D": ResNet, "X3D": X3D, "PTVX3D": X3D}
 
 
 def resolve_device(device):

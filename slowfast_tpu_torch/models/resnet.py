@@ -93,9 +93,67 @@ class X3DTransform(nn.Module):
         return self.c_bn(self.c(F.silu(x)))
 
 
+class CSNTransform(nn.Module):
+    """Channel-separated bottleneck (ir-CSN): 1x1x1 -> BN -> ReLU -> channelwise
+    3x3x3 (the block's stride) -> BN -> ReLU -> 1x1x1 -> BN
+    (slowfast_tpu/models/resnet.py:217-256; reference ptv_model_builder.py
+    PTVCSN). The temporal kernel is 3 whatever ``temp_kernel_size`` says."""
+
+    FINAL_CONV = "c"
+
+    def __init__(self, dim_in, dim_out, temp_kernel_size, stride, dim_inner,
+                 num_groups, norm, stride_1x1=False, dilation=1,
+                 zero_init_final_bn=False, block_idx=0):
+        super().__init__()
+        self.a = Conv3D(dim_in, dim_inner, (1, 1, 1))
+        self.a_bn = norm(dim_inner)
+        self.b = Conv3D(dim_inner, dim_inner, (3, 3, 3), (1, stride, stride),
+                        (1, dilation, dilation), groups=dim_inner,
+                        dilation=(1, dilation, dilation))
+        self.b_bn = norm(dim_inner)
+        self.c = Conv3D(dim_inner, dim_out, (1, 1, 1))
+        self.c_bn = norm(dim_out, zero_init_gamma=zero_init_final_bn)
+
+    def forward(self, x):
+        x = F.relu(self.a_bn(self.a(x)))
+        x = F.relu(self.b_bn(self.b(x)))
+        return self.c_bn(self.c(x))
+
+
+class R2Plus1DTransform(nn.Module):
+    """(2+1)D bottleneck: 1x1x1 -> BN -> ReLU -> spatial 1x3x3 (the block's
+    stride) -> BN -> ReLU -> temporal 3x1x1 -> BN -> ReLU -> 1x1x1 -> BN
+    (slowfast_tpu/models/resnet.py:259-309; reference ptv_model_builder.py
+    PTVR2plus1D)."""
+
+    FINAL_CONV = "c"
+
+    def __init__(self, dim_in, dim_out, temp_kernel_size, stride, dim_inner,
+                 num_groups, norm, stride_1x1=False, dilation=1,
+                 zero_init_final_bn=False, block_idx=0):
+        super().__init__()
+        self.a = Conv3D(dim_in, dim_inner, (1, 1, 1))
+        self.a_bn = norm(dim_inner)
+        self.b_spatial = Conv3D(dim_inner, dim_inner, (1, 3, 3), (1, stride, stride),
+                                (0, dilation, dilation), dilation=(1, dilation, dilation))
+        self.b_spatial_bn = norm(dim_inner)
+        self.b_temporal = Conv3D(dim_inner, dim_inner, (3, 1, 1), padding=(1, 0, 0))
+        self.b_temporal_bn = norm(dim_inner)
+        self.c = Conv3D(dim_inner, dim_out, (1, 1, 1))
+        self.c_bn = norm(dim_out, zero_init_gamma=zero_init_final_bn)
+
+    def forward(self, x):
+        x = F.relu(self.a_bn(self.a(x)))
+        x = F.relu(self.b_spatial_bn(self.b_spatial(x)))
+        x = F.relu(self.b_temporal_bn(self.b_temporal(x)))
+        return self.c_bn(self.c(x))
+
+
 TRANS_FUNCS = {"bottleneck_transform": BottleneckTransform,
                "basic_transform": BasicTransform,
-               "x3d_transform": X3DTransform}
+               "x3d_transform": X3DTransform,
+               "csn_transform": CSNTransform,
+               "r2plus1d_transform": R2Plus1DTransform}
 
 
 class ResBlock(nn.Module):

@@ -1,8 +1,11 @@
-"""Loss functions (counterpart of slowfast_tpu/solver/losses.py:20-40;
+"""Loss functions (counterpart of slowfast_tpu/solver/losses.py:20-56;
 reference slowfast/models/losses.py).
 
-Both take ``(logits, labels)`` and compute in fp32. Labels are integer class
-ids or soft distributions (mixup's targets).
+Each takes ``(predictions, labels)`` and computes in fp32. For the
+cross-entropies labels are integer class ids or soft distributions (mixup's
+targets); for ``bce`` (on probabilities), ``bce_logit`` (on logits) and
+``mse`` they are targets of the predictions' shape, such as multi-hot
+vectors.
 """
 
 import torch
@@ -37,7 +40,29 @@ def soft_cross_entropy(logits, labels, reduction="mean"):
     return _reduce(loss, reduction)
 
 
-_LOSSES = {"cross_entropy": cross_entropy, "soft_cross_entropy": soft_cross_entropy}
+def bce(probs, labels, reduction="mean"):
+    """Binary cross-entropy of probabilities clipped to [1e-7, 1 - 1e-7]."""
+    probs = probs.float().clamp(1e-7, 1 - 1e-7)
+    loss = -(labels * torch.log(probs) + (1.0 - labels) * torch.log(1.0 - probs))
+    return _reduce(loss, reduction)
+
+
+def bce_logit(logits, labels, reduction="mean"):
+    """Binary cross-entropy of logits, ``max(x, 0) - x·y + log1p(exp(-|x|))``."""
+    logits = logits.float()
+    loss = logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return _reduce(loss, reduction)
+
+
+def mse(preds, labels, reduction="mean"):
+    return _reduce(torch.square(preds.float() - labels), reduction)
+
+
+_LOSSES = {"cross_entropy": cross_entropy, "soft_cross_entropy": soft_cross_entropy,
+           "bce": bce, "bce_logit": bce_logit, "mse": mse}
+# Losses whose labels are targets of the predictions' shape: multi-label
+# training (slowfast_tpu/engine/steps.py:69).
+MULTI_LABEL_LOSSES = ("bce", "bce_logit")
 
 
 def get_loss_func(loss_name):

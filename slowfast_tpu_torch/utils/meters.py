@@ -1,11 +1,12 @@
-"""Meters (counterpart of slowfast_tpu/utils/meters.py:59-290, :292-395 and
-:415; reference slowfast/utils/meters.py).
+"""Meters (counterpart of slowfast_tpu/utils/meters.py:59-415; reference
+slowfast/utils/meters.py).
 
 Host-side bookkeeping on numbers the step already reduced: windowed train
 and val statistics, epoch summaries and the loss-explosion guard, logged
 as ``json_stats`` with the JAX meters' keys (``train_iter``,
 ``train_epoch``, ``val_iter``, ``val_epoch``); multi-view prediction
-ensembling into per-video scores and the final top-k accuracies.
+ensembling into per-video scores and the final top-k accuracies, or for
+multi-label data the mean average precision (``get_map``, numpy only).
 """
 
 import datetime
@@ -109,10 +110,11 @@ class TrainMeter:
         self.lr = lr
         self.loss_total += loss * mb_size
         self.num_samples += mb_size
-        self.mb_top1_err.add_value(top1_err)
-        self.mb_top5_err.add_value(top5_err)
-        self.num_top1_mis += top1_err * mb_size
-        self.num_top5_mis += top5_err * mb_size
+        if top1_err is not None:  # None for multi-label steps
+            self.mb_top1_err.add_value(top1_err)
+            self.mb_top5_err.add_value(top5_err)
+            self.num_top1_mis += top1_err * mb_size
+            self.num_top5_mis += top5_err * mb_size
         # Loss-explosion guard (reference meters.py:594-606).
         kill = self._cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR
         if kill > 0.0 and len(self.loss.deque) > 5:
@@ -137,9 +139,10 @@ class TrainMeter:
             "loss": self.loss.get_win_median(),
             "lr": self.lr,
             "gpu_mem": f"{gpu_mem_usage():.2f}G",
-            "top1_err": self.mb_top1_err.get_win_median(),
-            "top5_err": self.mb_top5_err.get_win_median(),
         }
+        if self.mb_top1_err.count > 0:
+            stats["top1_err"] = self.mb_top1_err.get_win_median()
+            stats["top5_err"] = self.mb_top5_err.get_win_median()
         log_json_stats(stats, self.output_dir)
 
     def log_epoch_stats(self, cur_epoch):
@@ -158,7 +161,9 @@ class TrainMeter:
 
 
 class ValMeter:
-    """Validation stats and the best errors so far (reference meters.py:679-822)."""
+    """Validation stats and the best errors so far, or for multi-label data
+    (``DATA.MULTI_LABEL``) the mAP of the epoch's predictions (reference
+    meters.py:679-822)."""
 
     def __init__(self, max_iter, cfg):
         self._cfg = cfg
@@ -178,12 +183,18 @@ class ValMeter:
         self.num_top1_mis = 0
         self.num_top5_mis = 0
         self.num_samples = 0
+        self.all_preds = []
+        self.all_labels = []
 
     def iter_tic(self):
         self.iter_timer.reset()
 
     def iter_toc(self):
         self.iter_timer.pause()
+
+    def update_predictions(self, preds, labels):
+        self.all_preds.append(preds)
+        self.all_labels.append(labels)
 
     def update_stats(self, top1_err, top5_err, mb_size):
         self.mb_top1_err.add_value(top1_err)
@@ -206,20 +217,22 @@ class ValMeter:
         log_json_stats(stats, self.output_dir)
 
     def log_epoch_stats(self, cur_epoch):
-        top1_err = self.num_top1_mis / max(self.num_samples, 1)
-        top5_err = self.num_top5_mis / max(self.num_samples, 1)
-        self.min_top1_err = min(self.min_top1_err, top1_err)
-        self.min_top5_err = min(self.min_top5_err, top5_err)
         stats = {
             "_type": "val_epoch",
             "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
             "time_diff": self.iter_timer.seconds(),
             "gpu_mem": f"{gpu_mem_usage():.2f}G",
-            "top1_err": top1_err,
-            "top5_err": top5_err,
-            "min_top1_err": self.min_top1_err,
-            "min_top5_err": self.min_top5_err,
         }
+        if self._cfg.DATA.MULTI_LABEL:
+            stats["map"] = get_map(np.concatenate(self.all_preds),
+                                   np.concatenate(self.all_labels))
+        else:
+            top1_err = self.num_top1_mis / max(self.num_samples, 1)
+            top5_err = self.num_top5_mis / max(self.num_samples, 1)
+            self.min_top1_err = min(self.min_top1_err, top1_err)
+            self.min_top5_err = min(self.min_top5_err, top5_err)
+            stats.update(top1_err=top1_err, top5_err=top5_err,
+                         min_top1_err=self.min_top1_err, min_top5_err=self.min_top5_err)
         log_json_stats(stats, self.output_dir)
         return stats
 
@@ -250,18 +263,23 @@ class TestMeter:
 
     Accumulates per-clip predictions into per-video scores keyed by
     clip_id // num_clips, with sum or max ensembling, then finalizes
-    top-1/top-5 accuracy.
+    top-1/top-5 accuracy, or the mAP with ``multi_label`` (multi-hot labels;
+    the scores start at -1e10, so ``max`` takes the views' maximum).
     """
 
-    def __init__(self, num_videos, num_clips, num_cls, ensemble_method="sum",
-                 output_dir=None):
+    def __init__(self, num_videos, num_clips, num_cls, multi_label=False,
+                 ensemble_method="sum", output_dir=None):
         if ensemble_method not in ("sum", "max"):
             raise ValueError(f"unknown ensemble method {ensemble_method!r}")
         self.iter_timer = Timer()
         self.num_clips = num_clips
+        self.multi_label = multi_label
         self.ensemble_method = ensemble_method
         self.video_preds = np.zeros((num_videos, num_cls), np.float64)
-        self.video_labels = np.zeros((num_videos,), np.int64)
+        if multi_label:
+            self.video_preds -= 1e10
+        self.video_labels = np.zeros((num_videos, num_cls) if multi_label else (num_videos,),
+                                     np.int64)
         self.clip_count = np.zeros((num_videos,), np.int64)
         self.stats = {}
         self.output_dir = output_dir
@@ -272,7 +290,8 @@ class TestMeter:
         clip_ids = np.asarray(clip_ids)
         for ind in range(preds.shape[0]):
             vid_id = int(clip_ids[ind]) // self.num_clips
-            if self.clip_count[vid_id] > 0 and self.video_labels[vid_id] != labels[ind]:
+            if self.clip_count[vid_id] > 0 and not np.array_equal(self.video_labels[vid_id],
+                                                                  labels[ind]):
                 raise ValueError(f"label consistency check failed for video {vid_id}")
             self.video_labels[vid_id] = labels[ind]
             if self.ensemble_method == "sum":
@@ -304,9 +323,12 @@ class TestMeter:
                 self.num_clips,
             )
         self.stats = {"_type": "test_final"}
-        correct = topks_correct_np(self.video_preds, self.video_labels, ks)
-        for k, c in zip(ks, correct):
-            self.stats[f"top{k}_acc"] = f"{c / self.video_preds.shape[0] * 100.0:.2f}"
+        if self.multi_label:
+            self.stats["map"] = get_map(self.video_preds, self.video_labels)
+        else:
+            correct = topks_correct_np(self.video_preds, self.video_labels, ks)
+            for k, c in zip(ks, correct):
+                self.stats[f"top{k}_acc"] = f"{c / self.video_preds.shape[0] * 100.0:.2f}"
         log_json_stats(self.stats, self.output_dir)
         return self.stats
 
@@ -317,3 +339,42 @@ def topks_correct_np(preds, labels, ks):
     idx = np.argsort(-preds, axis=1)[:, : max(ks)]
     correct = idx == labels[:, None]
     return [int(correct[:, :k].sum()) for k in ks]
+
+
+def get_map(preds, labels):
+    """Mean over classes of the average precision, classes with no nonzero
+    label dropped (reference meters.py:823-849), with the steps of the JAX
+    package's sklearn ``average_precision_score(average=None)``: per class,
+    the positives are the labels equal to 1; the scores sorted descending;
+    cumulative true and false positives (float64) at the last index of each
+    run of tied scores; precision and recall at those thresholds reversed
+    and closed with (1, 0); the step integral ``max(0, -sum(diff(recall) *
+    precision[:-1]))``. Returns -1.0 where sklearn raises: no sample or class
+    left, more than two label values or a fractional one, one class whose
+    two values do not include 1, a score that is not finite."""
+    logger.info("Getting mAP for %d examples", preds.shape[0])
+    keep = ~np.all(labels == 0, axis=0)
+    preds, labels = np.asarray(preds)[:, keep], np.asarray(labels)[:, keep]
+    values = np.unique(labels)
+    if (labels.size == 0 or len(values) > 2 or np.any(values != np.round(values))
+            or (labels.shape[1] == 1 and len(values) == 2 and 1 not in values)
+            or not np.isfinite(preds).all()):
+        logger.error("Average precision requires a sufficient number of samples; "
+                     "returning -1")
+        return -1.0
+    return float(np.mean([_average_precision(labels[:, c] == 1, preds[:, c])
+                          for c in range(labels.shape[1])]))
+
+
+def _average_precision(y_true, y_score):
+    order = np.argsort(y_score, kind="stable")[::-1]
+    y_score, y_true = y_score[order], y_true[order]
+    thresholds = np.r_[np.nonzero(np.diff(y_score))[0], y_true.size - 1]
+    tps = np.cumsum(y_true, dtype=np.float64)[thresholds]
+    fps = 1 + thresholds.astype(np.float64) - tps
+    ps = tps + fps
+    precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
+    recall = tps / tps[-1] if tps[-1] != 0 else np.ones_like(tps)
+    precision = np.r_[precision[::-1], 1.0]
+    recall = np.r_[recall[::-1], 0.0]
+    return max(0.0, float(-np.sum(np.diff(recall) * precision[:-1])))

@@ -1,5 +1,6 @@
 """The CNN classification family of the port (C2D, I3D with non-local
-blocks, Slow, ResNet_nopool, X3D) against the JAX package, on the CPU.
+blocks, Slow, ResNet_nopool, X3D, CSN and R(2+1)D) against the JAX
+package, on the CPU.
 
 Every parameter and BN statistic is overwritten with seeded random values
 (gamma and variance in [0.5, 1.5]), so no zero-init branch (final BNs, the
@@ -8,14 +9,24 @@ non-local ``bn``) hides a fault. Inputs are seeded numpy arrays.
 * Each new module alone in eval mode: ``Nonlocal`` (softmax and
   dot-product, with and without the key/value pool), ``X3DTransform`` with
   and without SE, ``SE``, the X3D stem, ``X3DHead`` with and without
-  ``BN_LIN5``, and ``BasicTransform``; fp32 within atol 1e-5 + rtol 1e-4
+  ``BN_LIN5``, ``BasicTransform``, ``CSNTransform`` and
+  ``R2Plus1DTransform``; fp32 within atol 1e-5 + rtol 1e-4
   (sums taken in another order), bf16 within 2e-2 of the output's max (the
   two frameworks round activations to bf16 at different places).
 * Whole narrow models (depth 18, 4 frames, 64² crops): the eval softmax in
   fp32 and bf16 (atol 1e-5 / 2e-2), the train-mode logits and every BN
   running statistic after one train-mode forward (fp32), and the fp32
   gradients of one train step against ``jax.grad`` for I3D-NLN and X3D
-  (each within 1e-3 of its max, all within 1e-4 relative L2).
+  (each within 1e-3 of its max, all within 1e-4 relative L2). For CSN and
+  R(2+1)D the same limits, with a flip decided by float64 as in
+  ``test_torch_slowfast_train.py``: on these inputs JAX's own fp32
+  gradients sit 5.1e-3 (CSN) and 3.4e-2 (R(2+1)D) of their max from the
+  port's float64 step, the port's fp32 ones 2.7e-5; with other inputs (4,
+  5) JAX's CSN gradients sit 8e-5 from it. A ReLU or max pool of JAX's fp32
+  forward took the other side of a near-tie there.
+  CSN and R(2+1)D are ``PTVCSN`` / ``PTVR2plus1D`` from their recipes with
+  ``RESNET.TRANS_FUNC`` set to their transform (the recipes leave it at
+  the bottleneck).
 * The weight bridge: the port's ``state_dict`` of each model goes through
   the JAX package's ``load_torch_checkpoint_dict`` back to the same
   variables, with nothing missing or unexpected.
@@ -70,6 +81,9 @@ MODELS = {
     "c2d_nopool": ("C2D_8x8_R50.yaml", ["MODEL.MODEL_NAME", "ResNet_nopool"]),
     "x3d": ("X3D_M.yaml", ["X3D.WIDTH_FACTOR", "0.5", "X3D.DEPTH_FACTOR", "0.5",
                            "X3D.DIM_C5", "32"]),
+    "csn": ("pytorchvideo/CSN_32x2_R101.yaml", ["RESNET.TRANS_FUNC", "csn_transform"]),
+    "r2plus1d": ("pytorchvideo/R2PLUS1D_16x4_R50.yaml",
+                 ["RESNET.TRANS_FUNC", "r2plus1d_transform"]),
 }
 
 
@@ -173,6 +187,18 @@ def test_basic_transform(dim_in, stride, tk, dtype):
     jm = jresnet.BasicTransform(norm=J_NORM, dtype=getattr(jnp, dtype), **args)
     tm = tresnet.BasicTransform(dim_in=dim_in, dim_inner=0, num_groups=1, norm=T_NORM, **args)
     assert_close(*run_both(jm, tm, x, 31, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transform", ["CSNTransform", "R2Plus1DTransform"])
+@pytest.mark.parametrize("dim_in,stride,dilation", [(16, 1, 1), (8, 2, 1), (16, 1, 2)])
+def test_csn_and_r2plus1d_transforms(transform, dim_in, stride, dilation, dtype):
+    x = _x((2, 4, 8, 8, dim_in), 32)
+    args = dict(dim_out=16, temp_kernel_size=1, stride=stride, dim_inner=12, num_groups=1,
+                dilation=dilation, zero_init_final_bn=True)
+    jm = getattr(jresnet, transform)(norm=J_NORM, dtype=getattr(jnp, dtype), **args)
+    tm = getattr(tresnet, transform)(dim_in=dim_in, norm=T_NORM, **args)
+    assert_close(*run_both(jm, tm, x, 33, dtype), dtype)
 
 
 def model_cfg(get, name, dtype="float32"):
@@ -321,7 +347,79 @@ def test_train_gradients_match_jax_grad(name):
     assert (diff / sq) ** 0.5 <= 1e-4
 
 
-@pytest.mark.parametrize("name", ["i3d_nln", "x3d", "c2d_nopool"])
+def port_grads(jm, xs, labels, dtype=torch.float32):
+    """The port's gradients of one fp32 (or float64) train-mode step."""
+    model = jm.port()
+    if dtype == torch.float64:
+        model = model.double()
+        model.dtype = dtype
+    model.train()
+    preds = model([torch.from_numpy(x).to(dtype) for x in xs])
+    loss = tlosses.get_loss_func("cross_entropy")(preds, torch.from_numpy(labels))
+    loss.backward()
+    return loss.item(), {n: p.grad.double() for n, p in model.named_parameters()}
+
+
+def grads_within(got, want, share_tol=1e-3, l2_tol=1e-4):
+    """Each gradient within ``share_tol`` of its max (zero ones within
+    rounding noise) and all within ``l2_tol`` relative L2; returns the
+    relative L2."""
+    gmax = max(w.abs().max().item() for w in want.values())
+    diff = sq = 0.0
+    for n, w in want.items():
+        assert got[n].abs().max() > 0, n
+        if w.abs().max() <= 1e-5 * gmax:
+            assert got[n].abs().max() <= 1e-5 * gmax, n
+            continue
+        share = ((got[n] - w).abs().max() / w.abs().max()).item()
+        assert share <= share_tol, (n, share)
+        diff += (got[n] - w).pow(2).sum().item()
+        sq += w.pow(2).sum().item()
+    rel = (diff / sq) ** 0.5
+    assert rel <= l2_tol, rel
+    return rel
+
+
+def rel_l2(a, b):
+    num = sum((a[n] - b[n]).pow(2).sum().item() for n in b)
+    return (num / sum(b[n].pow(2).sum().item() for n in b)) ** 0.5
+
+
+@pytest.mark.parametrize("name", ["csn", "r2plus1d"])
+def test_csn_and_r2plus1d_gradients_match_jax_grad(name):
+    """The port's fp32 gradients within the I3D limits of JAX's, unless
+    JAX's fp32 step flipped: then the port's fp32 step must be within those
+    limits of its float64 step, JAX's at least as far from that float64
+    step as from the port's (JAX's run is the one that moved), and within
+    5e-2 relative L2 of the port's, as a flip is held in
+    ``test_torch_slowfast_train.py``."""
+    jm = jax_model(name)
+    xs = jm.inputs(3)
+    labels = np.array([3, 7])
+
+    def loss_fn(params):
+        preds, _ = jm.model.apply({"params": params, "batch_stats": jm.variables["batch_stats"]},
+                                  [jnp.asarray(x) for x in xs], train=True,
+                                  mutable=["batch_stats"],
+                                  rngs={"dropout": jax.random.PRNGKey(0)})
+        return jlosses.get_loss_func("cross_entropy")(preds, jnp.asarray(labels))
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(jm.variables["params"])
+    want = {n: g.double() for n, g in
+            state_dict_from_jax({"params": jax.tree.map(np.asarray, grads)}).items()}
+    got_loss, got = port_grads(jm, xs, labels)
+    np.testing.assert_allclose(got_loss, float(loss), rtol=1e-5)
+    assert sorted(got) == sorted(want)
+    try:
+        grads_within(got, want)
+    except AssertionError:
+        _, got64 = port_grads(jm, xs, labels, torch.float64)
+        grads_within(got, got64)
+        assert rel_l2(want, got64) >= rel_l2(want, got) * 0.9
+        assert rel_l2(got, want) <= 5e-2
+
+
+@pytest.mark.parametrize("name", ["i3d_nln", "x3d", "c2d_nopool", "csn", "r2plus1d"])
 def test_state_dict_round_trips_through_the_jax_importer(name):
     jm = jax_model(name)
     model = jm.port()

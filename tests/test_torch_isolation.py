@@ -1,6 +1,10 @@
 """The port stands alone: nothing in ``slowfast_tpu_torch/`` or in
-``chip_smoke.py`` imports JAX, flax or the JAX package ``slowfast_tpu``
-(matched as a module name, so ``slowfast_tpu_torch`` itself is allowed)."""
+``chip_smoke.py`` imports JAX, flax, the JAX package ``slowfast_tpu``
+(matched as a module name, so ``slowfast_tpu_torch`` itself is allowed) or
+sklearn, which the card's host may lack. cv2 and PIL, which it may lack
+too, are imported only inside the functions that decode, resize or
+augment: every module of the port imports, and the eval step runs, with
+all three unimportable."""
 
 import ast
 import os
@@ -11,7 +15,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "slowfast_tpu")
+FORBIDDEN = ("jax", "flax", "slowfast_tpu", "sklearn")
 
 
 def _forbidden(module):
@@ -48,9 +52,12 @@ def test_no_jax_import_in_source(path):
 
 def test_port_runs_without_jax_loaded():
     """Import every module of the port, build the model on the CPU and run
-    an eval step; jax, flax and slowfast_tpu stay out of sys.modules."""
+    an eval step with cv2, PIL and sklearn unimportable; jax, flax and
+    slowfast_tpu stay out of sys.modules."""
     code = r"""
 import importlib, pkgutil, sys
+for m in ("cv2", "PIL", "sklearn"):
+    sys.modules[m] = None  # import raises ImportError
 import numpy as np, torch
 import slowfast_tpu_torch
 for m in pkgutil.walk_packages(slowfast_tpu_torch.__path__, "slowfast_tpu_torch."):

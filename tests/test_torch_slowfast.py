@@ -185,10 +185,10 @@ def test_run_net_cli_runs_the_test(tmp_path):
 
 def test_run_net_refuses_training(tmp_path):
     """``run_net`` refuses to train on what the port lacks, before any
-    step: the YAML's own ``kinetics`` dataset (only ``syntheticvideo`` is
-    ported) and LARS."""
-    with pytest.raises(NotImplementedError, match="dataset 'Kinetics' is not ported"):
-        run_net_main(["--device", "cpu", "--cfg", YAML, "--opts",
+    step: a dataset it has not ported (ImageNet waits for the 2D patch stem)
+    and LARS."""
+    with pytest.raises(NotImplementedError, match="dataset 'Imagenet' is not ported"):
+        run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", "TRAIN.DATASET", "imagenet",
                       "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="LARS is not ported"):
         run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", *NARROW,

@@ -231,7 +231,7 @@ def test_losses_match_jax():
             want = jlosses.get_loss_func(name)(jnp.asarray(logits), jnp.asarray(lab))
             np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
     with pytest.raises(NotImplementedError):
-        tlosses.get_loss_func("bce")
+        tlosses.get_loss_func("contrastive_loss")
 
 
 # --- mixup, drop path, dropout, GELU ---------------------------------------
