@@ -128,7 +128,33 @@ Phases, each printing one JSON line:
               fit (step p50, peak memory); X3D-M's with its channelwise
               convs on the channels_last_3d view and on a contiguous NCDHW
               copy.
- 16. kernels  one line per kernel with its launches on its path, error,
+ 16. roi_align_kernel  both ROIAlign kernels (csrc/roi_align.cu, forward
+              and deterministic backward) against the plain version and
+              autograd through it, on the temporal means that a full-width
+              SLOWFAST_32x2_R50_SHORT bf16 train forward at 16 clips hands its
+              RoI head (slow (16, 14, 14, 2048), fast (16, 14, 14, 256), 128
+              ROIs of the synthetic sampler, padded to 8 a clip) and on edge
+              cases (16 x 16 and 16 x 28 maps, aligned False, a binding grid
+              cap, boxes past the map, C 3 and 257) in fp32 and bf16: forward
+              within 1e-5 of max |out|, backward within 1e-5 (fp32) or 2^-8
+              (bf16) of max |grad|, both bit-equal over two launches; device
+              and plain times and the bounds on the main path.
+ 17. det_fp32  one SLOWFAST_32x2_R50_SHORT detection train step on 2
+              synthetic clips (boxes padded to 8), card vs CPU, fp32, TF32
+              off: the masked loss within 1e-5, the eval predictions per box
+              within 1e-4, the head's gradients within 1e-4 of their max, all
+              gradients within twice the CPU's own distance from float64; the
+              TF32 step must fail that limit.
+ 18. det_train_slice  run_net.main on SLOWFAST_32x2_R50_SHORT over an AVA
+              corpus of 455 x 256 JPEG frames (4 videos, keyframes 902-917)
+              written with cv2 into a temporary directory: 4 steps of 16 clips
+              in bf16, a val epoch with AVA mAP on the mini GT, the checkpoint
+              (reloaded: identical eval output), the test split on it with
+              mAP on the full GT; ROIAlign launched twice a forward batch and
+              twice a train step's backward; the train loader alone; one bf16
+              16-clip SLOW_4x16_R50_DETECTION step on bench.py:225's batch.
+              Needs cv2.
+ 19. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 Before the phases, one line per host library that the data path may use
 (cv2, PIL, sklearn): whether it imports, and its version.
@@ -247,7 +273,9 @@ def mvit_cfg(extra):
 def reset_launches():
     from slowfast_tpu_torch.ops import attention as ta
     from slowfast_tpu_torch.ops import preprocess as pp
+    from slowfast_tpu_torch.ops import roi_align as ra
 
+    ra.launches = ra.bwd_launches = 0
     pp.launches = ta.flash_launches = ta.exact_launches = ta.fused_launches = 0
     ta.flash_bwd_launches = ta.exact_bwd_launches = ta.fused_bwd_launches = 0
     ta.flash_tc_launches = ta.exact_tc_launches = ta.fused_tc_launches = 0
@@ -257,12 +285,14 @@ def reset_launches():
 def read_launches():
     from slowfast_tpu_torch.ops import attention as ta
     from slowfast_tpu_torch.ops import preprocess as pp
+    from slowfast_tpu_torch.ops import roi_align as ra
 
     # attention_exact{,_bwd}: the bf16 tensor-core pair (kernel table rows 2
     # and 3); attention_{flash,fused}: the bf16 tensor-core forwards of rows
     # 6 and 4, attention_{flash,fused}_bwd their backwards (rows 7 and 5);
     # *_fma*: the fp32 instances, the FMA kernels.
-    return {"preprocess_u8": pp.launches, "attention_flash": ta.flash_tc_launches,
+    return {"preprocess_u8": pp.launches, "roi_align": ra.launches,
+            "roi_align_bwd": ra.bwd_launches, "attention_flash": ta.flash_tc_launches,
             "attention_flash_fma": ta.flash_launches,
             "attention_exact": ta.exact_tc_launches,
             "attention_exact_fma": ta.exact_launches,
@@ -1517,9 +1547,10 @@ def structurally_zero(name, depth):
         name.startswith(last) and name[len(last):].startswith(("pool_q.", "rel_pos")))
 
 
-def train_one_step(cfg, model, clip, label, epoch_exact):
-    """One ``make_train_step`` step; returns (metrics, gradients before the
-    clip, parameters after the update), all on the CPU."""
+def train_one_step(cfg, model, clip, label, epoch_exact, extra=None):
+    """One ``make_train_step`` step (``extra``: more batch entries, such as a
+    detection batch's boxes and box mask); returns (metrics, gradients
+    before the clip, parameters after the update), all on the CPU."""
     from slowfast_tpu_torch.engine.steps import make_train_step
     from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 
@@ -1533,8 +1564,9 @@ def train_one_step(cfg, model, clip, label, epoch_exact):
 
     opt.step = recording_update
     dev = next(model.parameters()).device
-    m = make_train_step(cfg, model, opt)({"inputs": [clip.to(dev)], "labels": label.to(dev),
-                                           "epoch_exact": epoch_exact})
+    batch = {"inputs": [clip.to(dev)], "labels": label.to(dev), "epoch_exact": epoch_exact}
+    batch.update({k: v.to(dev) for k, v in (extra or {}).items()})
+    m = make_train_step(cfg, model, opt)(batch)
     metrics = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "lr": m["lr"]}
     params = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
     return metrics, grads, params
@@ -1741,10 +1773,11 @@ def running_buffers(model):
     return {n: b.detach().cpu().clone() for n, b in model.named_buffers() if "running_" in n}
 
 
-def float64_grads(cfg, state, clip, label):
+def float64_grads(cfg, state, clip, label, extra=None):
     """The train step's gradients with the model, its activations and its
-    sums in float64 on the CPU: the yardstick of fp32 rounding."""
-    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    sums in float64 on the CPU: the yardstick of fp32 rounding. ``extra``
+    holds a detection batch's ``boxes`` and ``box_mask``."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess, masked_detection_loss
     from slowfast_tpu_torch.models.build import build_model
     from slowfast_tpu_torch.solver.losses import get_loss_func
 
@@ -1754,7 +1787,12 @@ def float64_grads(cfg, state, clip, label):
     model.dtype = torch.float64
     model.train()
     inputs = [x.double() for x in maybe_device_preprocess(cfg, [clip])]
-    get_loss_func(cfg.MODEL.LOSS_FUNC)(model(inputs), label).backward()
+    loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
+    if extra is None:
+        loss_fun(model(inputs), label).backward()
+    else:
+        preds = model(inputs, extra["boxes"].double())
+        masked_detection_loss(loss_fun, preds, label.double(), extra["box_mask"]).backward()
     return {n: p.grad.clone() for n, p in model.named_parameters()}
 
 
@@ -2133,17 +2171,20 @@ def phase_data_slice(sf_train):
     return launches
 
 
-def temper_logits(model, clip, cfg, logit_std=2.0):
+def temper_logits(model, clip, cfg, logit_std=2.0, boxes=None):
     """Scale the projection so the eval logits of ``clip`` (the head's
-    activation switched off) have std ``logit_std``: with random weights at
-    full depth the softmax saturates, and the comparison would pass
-    whatever the error."""
+    activation switched off; a detection model's at ``boxes``) have std
+    ``logit_std``: with random weights at full depth the softmax or sigmoid
+    saturates, and the comparison would pass whatever the error."""
     from slowfast_tpu_torch.engine.steps import make_eval_step
 
     act = model.head.act_func
     model.head.act_func = "none"
+    batch = {"inputs": [torch.from_numpy(clip)]}
+    if boxes is not None:
+        batch["boxes"] = boxes
     try:
-        logits = make_eval_step(cfg, model)({"inputs": [torch.from_numpy(clip)]}).float()
+        logits = make_eval_step(cfg, model)(batch).float()
     finally:
         model.head.act_func = act
     proj = model.head.projection
@@ -2369,6 +2410,498 @@ def phase_breakdown():
           "loader_workers": loader.num_workers, "loader_batches": len(load_s)})
 
 
+DET_YAML = os.path.join(ROOT, "configs", "AVA", "SLOWFAST_32x2_R50_SHORT.yaml")
+SLOW_DET_YAML = os.path.join(ROOT, "configs", "AVA", "SLOW_4x16_R50_DETECTION.yaml")
+# ROIAlign kernel vs its plain version: the forward (and an fp32 backward)
+# sums the same terms in another order, as a share of the output's max;
+# a bf16 backward may round an element the other way (one bf16 rounding).
+ROI_TOL = 1e-5
+ROI_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+# det_train_slice's corpus: AVA's frames at short side 256, keyframes 902-917
+# of 4 videos (64 train keyframes: 4 steps of 16 clips).
+AVA_CORPUS = dict(num_videos=4, secs=range(902, 918), size=(455, 256), num_classes=80)
+
+
+def det_cfg(extra, yaml=DET_YAML, out_dir=OUT_DIR):
+    return slowfast_cfg(["NUM_GPUS", "1"] + list(extra), yaml, out_dir)
+
+
+def synthetic_det_batch(cfg, n, bucket=8):
+    """The first ``n`` consecutive synthetic detection items (the
+    ``Syntheticvideo`` sampler: 1-5 boxes with multi-hot labels) whose
+    largest box count pads to ``bucket``, collated:
+    ``(clips_u8, labels, boxes, box_mask)`` as CPU tensors."""
+    from slowfast_tpu_torch.data.kinetics import Syntheticvideo
+    from slowfast_tpu_torch.data.loader import _box_bucket, detection_collate
+
+    ds = Syntheticvideo(cfg, "train")
+    counts = [ds[i][4]["boxes"].shape[0] for i in range(n + 64)]
+    start = next(i for i in range(64) if _box_bucket(max(counts[i:i + n])) == bucket)
+    inputs, labels, _, _, meta = detection_collate([ds[start + i] for i in range(n)])
+    return (torch.from_numpy(inputs[0]), torch.from_numpy(labels),
+            torch.from_numpy(meta["boxes"]), torch.from_numpy(meta["box_mask"]))
+
+
+def roi_align_work(feats, rois, kw):
+    """The bytes (each input read once, the output written once) and the
+    operations of one ROIAlign forward and backward on these ROIs: a valid
+    sample costs 4 taps of a multiply and an add per channel, a bin one
+    division; the backward one multiply-add per channel for every (ROI,
+    bin, row, column) whose separable weight is nonzero."""
+    from slowfast_tpu_torch.ops import roi_align as ra
+
+    B, H, W, C = feats.shape
+    P = kw["output_size"]
+    rois = rois.cpu().float()
+    R = rois.shape[0]
+    _, (y1, bh, gh), (x1, bw, gw), S = ra._geometry(
+        rois, P, kw["spatial_scale"], kw["sampling_ratio"], kw["aligned"], 4)
+    counts = {}
+    for axis, (start, size, grid, n) in enumerate(((y1, bh, gh, H), (x1, bw, gw, W))):
+        pos, inside = ra._positions(start, size, grid, P, S)
+        valid = inside * ((pos >= -1.0) & (pos <= n)).float()  # (R, P, S)
+        pc = pos.clamp(0.0, n - 1.0)
+        hat = (1.0 - (pc[..., None] - torch.arange(n)).abs()).clamp(min=0.0)
+        support = ((hat * valid[..., None]).sum(2) > 0).float()  # (R, P, n)
+        counts[axis] = (valid.sum(2), support.sum(2))  # samples, rows per bin
+    samples = (counts[0][0][:, :, None] * counts[1][0][:, None, :]).sum().item()
+    taps = (counts[0][1].sum(1) * counts[1][1].sum(1)).sum().item()
+    f_bytes = feats.numel() * feats.element_size()
+    out_bytes = R * P * P * C * 4
+    fwd = {"bytes": f_bytes + rois.numel() * 4 + out_bytes,
+           "ops": (samples * 8 + R * P * P) * C}
+    bwd = {"bytes": out_bytes + rois.numel() * 4 + f_bytes, "ops": taps * 2 * C}
+    for w in (fwd, bwd):
+        w["bound_ms"] = max(w["bytes"] / HBM_BYTES_PER_S, w["ops"] / FP32_FLOP_PER_S) * 1e3
+        w["bound_by"] = ("bytes" if w["bytes"] / HBM_BYTES_PER_S >= w["ops"] / FP32_FLOP_PER_S
+                         else "operations")
+    return fwd, bwd
+
+
+def roi_align_case(feats, rois, kw, rois_per_batch, seed, timed=False):
+    """Both ROIAlign kernels against the plain version and autograd through
+    it on one input; both bit-equal over two launches."""
+    from slowfast_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = feats.detach().requires_grad_(True)
+    out = ra.roi_align(f, rois, rois_per_batch=rois_per_batch, **kw)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    (grad,) = torch.autograd.grad(out, f, g)
+    out2 = ra.roi_align(f, rois, rois_per_batch=rois_per_batch, **kw)
+    (grad2,) = torch.autograd.grad(out2, f, g)
+    plain = ra.roi_align_plain(f, rois, **kw)
+    (plain_grad,) = torch.autograd.grad(plain, f, g, retain_graph=timed)
+    check(out.dtype == plain.dtype == torch.float32 and grad.dtype == feats.dtype,
+          f"dtypes {out.dtype} {grad.dtype}")
+    fwd_err = (out - plain).abs().max().item()
+    bwd_err = (grad.float() - plain_grad.float()).abs().max().item()
+    row = {"shape": list(feats.shape), "rois": rois.shape[0], "dtype": str(feats.dtype)[6:],
+           "aligned": kw["aligned"], "rois_per_batch": rois_per_batch,
+           "fwd_err_share": fwd_err / plain.abs().max().item(),
+           "bwd_err_share": bwd_err / plain_grad.float().abs().max().item(),
+           "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+           "fwd_bit_equal": torch.equal(out, out2), "bwd_bit_equal": torch.equal(grad, grad2)}
+    check(row["fwd_err_share"] <= ROI_TOL, f"ROIAlign forward differs: {row}")
+    check(row["bwd_err_share"] <= ROI_BWD_TOL[feats.dtype], f"ROIAlign backward differs: {row}")
+    check(row["fwd_bit_equal"] and row["bwd_bit_equal"], f"ROIAlign relaunch differs: {row}")
+    if timed:
+        args = (kw["output_size"], kw["spatial_scale"], kw["sampling_ratio"], kw["aligned"], 4)
+        rois32 = rois.float().contiguous()
+        with torch.no_grad():
+            row["ms"] = device_ms(lambda: ra._launch_fwd(feats, rois32, *args))
+            row["plain_ms"] = device_ms(lambda: ra.roi_align_plain(feats, rois, **kw))
+            row["bwd_ms"] = device_ms(lambda: ra._launch_bwd(
+                g, rois32, feats.shape, feats.dtype, rois_per_batch, *args))
+        row["bwd_plain_ms"] = device_ms(
+            lambda: torch.autograd.grad(plain, f, g, retain_graph=True))
+        fwd, bwd = roi_align_work(feats, rois, kw)
+        row.update(fwd_bound=fwd, bwd_bound=bwd)
+    return row
+
+
+def roi_edge_cases():
+    """(name, feats (fp32, CPU), rois, kwargs): the maps and boxes off the
+    main path, each given to the kernels in fp32 and bf16, with ROIs in no
+    batch order (the backward's per-batch lists)."""
+    rs = np.random.RandomState(7)
+    kw = dict(output_size=7, spatial_scale=1.0 / 16, sampling_ratio=0, aligned=True)
+
+    def boxes(n, B, crop):
+        xy1 = rs.rand(n, 2) * (crop / 2)
+        b = np.concatenate([rs.randint(0, B, (n, 1)), xy1, xy1 + rs.rand(n, 2) * (crop / 2)
+                            + 2.0], axis=1)
+        return b.astype(np.float32)
+
+    cases = [
+        ("map_16x16", rs.randn(4, 16, 16, 2048), boxes(24, 4, 256), kw),
+        ("map_16x28", rs.randn(2, 16, 28, 256), boxes(12, 2, 448), kw),
+        ("unaligned", rs.randn(2, 14, 14, 64), boxes(12, 2, 224), dict(kw, aligned=False)),
+        ("cap_binds", rs.randn(2, 64, 64, 32),
+         np.array([[0, 0, 0, 1024, 1024], [1, 30, 50, 900, 1000], [0, 100, 0, 800, 700]],
+                  np.float32), kw),
+        ("past_the_map", rs.randn(2, 14, 14, 64),
+         np.array([[0, -60, -40, 100, 90], [1, 150, 170, 300, 320], [1, -200, 10, -20, 50],
+                   [0, 230, 230, 260, 250]], np.float32), kw),
+        ("c3", rs.randn(3, 14, 14, 3), boxes(10, 3, 224), kw),
+        ("c257", rs.randn(2, 14, 14, 257), boxes(10, 2, 224), kw),
+    ]
+    return [(n, torch.from_numpy(f.astype(np.float32)), torch.from_numpy(r), k)
+            for n, f, r, k in cases]
+
+
+def phase_roi_align_kernel():
+    """The ROIAlign kernels against their plain versions on the card: on the
+    temporal means that a full-width SLOWFAST_32x2_R50_SHORT bf16 train
+    forward at 16 clips hands its RoI head (slow (16, 14, 14, 2048), fast
+    (16, 14, 14, 256)) at the synthetic sampler's 128 ROIs (bucket 8, zero
+    rows included), with the device times, the plain times and the bounds;
+    and on the edge cases in fp32 and bf16."""
+    import gc
+
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models import heads
+    from slowfast_tpu_torch.models.build import build_model
+
+    cfg = det_cfg(["TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS)])
+    clips, _, boxes, _ = synthetic_det_batch(cfg, CNN_TRAIN_CLIPS)
+    model = build_model(cfg, device="cuda")
+    model.train()
+    seen, real = [], heads.roi_align
+
+    def recording(feats, rois, **kw):
+        seen.append((feats.detach().clone(), rois.detach().clone(), kw))
+        return real(feats, rois, **kw)
+
+    heads.roi_align = recording
+    try:
+        with torch.no_grad():
+            model(maybe_device_preprocess(cfg, [clips.cuda()]), boxes.cuda())
+    finally:
+        heads.roi_align = real
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    M = boxes.shape[1]
+    main = []
+    for p, (feats, rois, kw) in enumerate(seen):
+        kw = {k: v for k, v in kw.items() if k != "rois_per_batch"}
+        main.append(dict(roi_align_case(feats, rois, kw, M, p, timed=True),
+                         pathway=("slow", "fast")[p]))
+    check([r["shape"] for r in main] == [[CNN_TRAIN_CLIPS, 14, 14, 2048],
+                                         [CNN_TRAIN_CLIPS, 14, 14, 256]]
+          and all(r["rois"] == CNN_TRAIN_CLIPS * 8 for r in main), f"main path {main}")
+    edges = []
+    for i, (name, feats, rois, kw) in enumerate(roi_edge_cases()):
+        for dtype in (torch.float32, torch.bfloat16):
+            edges.append(dict(roi_align_case(feats.cuda().to(dtype), rois.cuda(), kw, 0,
+                                             100 + i), case=name))
+    rows = main + edges
+    per = {}
+    for part, key in (("fwd", "ms"), ("bwd", "bwd_ms")):
+        plain_key = "plain_ms" if part == "fwd" else "bwd_plain_ms"
+        bounds = [r[f"{part}_bound"] for r in main]
+        per[part] = {"ms": sum(r[key] for r in main), "plain_ms": sum(r[plain_key] for r in main),
+                     "bound_ms": sum(b["bound_ms"] for b in bounds),
+                     "bound_by": bounds[0]["bound_by"],
+                     "bytes": sum(b["bytes"] for b in bounds),
+                     "ops": sum(b["ops"] for b in bounds)}
+        per[part]["bound_share"] = per[part]["bound_ms"] / per[part]["ms"]
+    out = {"phase": "roi_align_kernel", "main_path": main,
+           "edge_cases": edges, "cases_checked": len(rows),
+           "bit_equal_relaunches": sum(r["fwd_bit_equal"] and r["bwd_bit_equal"] for r in rows),
+           "max_fwd_err_share": max(r["fwd_err_share"] for r in rows),
+           "max_bwd_err_share": {d: max([r["bwd_err_share"] for r in rows if r["dtype"] == d])
+                                 for d in ("float32", "bfloat16")},
+           "max_abs_err": {"fwd": max(r["fwd_max_abs_err"] for r in rows),
+                           "bwd": max(r["bwd_max_abs_err"] for r in rows)},
+           "per_forward": per, "bound_rate": "H100 SXM 3.35 TB/s, 67 TFLOP/s fp32"}
+    emit(out)
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_det_fp32():
+    """One train step of full-width SLOWFAST_32x2_R50_SHORT detection on 2
+    synthetic uint8 clips (boxes padded to 8), card vs CPU on the same
+    weights (every BN parameter and statistic random, the projection
+    tempered), fp32 with TF32 off, dropout off: the masked bce loss, the
+    eval predictions per box, the head's gradients and, by the float64
+    yardstick of sf_train_fp32, all gradients; the same card step with TF32
+    on must fail that limit."""
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+
+    cfg = det_cfg(["TPU.COMPUTE_DTYPE", "float32", "MODEL.DROPOUT_RATE", "0.0",
+                   "TRAIN.BATCH_SIZE", "2"])
+    clip, labels, boxes, mask = synthetic_det_batch(cfg, 2)
+    extra = {"boxes": boxes, "box_mask": mask}
+    cpu_model = build_model(cfg, device="cpu")
+    randomize_bn(cpu_model, 5)
+    temper_logits(cpu_model, clip.numpy(), cfg, boxes=boxes)
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    want_preds = make_eval_step(cfg, cpu_model)({"inputs": [clip], "boxes": boxes})
+    epoch_exact = 2.5  # mid-warmup: a nonzero LR
+    t0 = time.perf_counter()
+    want, want_grads, _ = train_one_step(cfg, cpu_model, clip, labels, epoch_exact, extra)
+    cpu_s = time.perf_counter() - t0
+    exact = float64_grads(cfg, state, clip, labels, extra)
+
+    def card_step(allow_tf32):
+        model = build_model(cfg, device="cuda")
+        model.load_state_dict(state, strict=True)
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        try:
+            reset_launches()
+            preds = make_eval_step(cfg, model)({"inputs": [clip.cuda()],
+                                                "boxes": boxes.cuda()}).cpu()
+            out = train_one_step(cfg, model, clip, labels, epoch_exact, extra)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        return (preds, *out, launches)
+
+    preds, got, grads, _, launches = card_step(False)
+    names = [n for n, p in cpu_model.named_parameters() if p.requires_grad]
+    missing = [n for n in names if n not in grads or grads[n].abs().max().item() == 0.0]
+    check(not missing, f"parameters with no or an all-zero gradient: {missing}")
+    head = max((grads[n] - want_grads[n]).abs().max().item() / want_grads[n].abs().max().item()
+               for n in names if n.startswith("head."))
+    card_vs_f64, cpu_vs_f64 = rel_l2(grads, exact, names), rel_l2(want_grads, exact, names)
+    loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+    pred_err = (preds - want_preds).abs().max().item()
+    c_preds, c_got, c_grads = card_step(True)[:3]
+    control = {"loss_rel_err": abs(c_got["loss"] - want["loss"]) / want["loss"],
+               "pred_max_abs_err": (c_preds - want_preds).abs().max().item(),
+               "card_vs_float64_grad_rel_l2": rel_l2(c_grads, exact, names)}
+    control["fails"] = [k for k, bad in (
+        ("loss", control["loss_rel_err"] > 1e-5), ("preds", control["pred_max_abs_err"] > 1e-4),
+        ("grads", control["card_vs_float64_grad_rel_l2"] > 2.0 * cpu_vs_f64)) if bad]
+    row = {"phase": "det_fp32", "clips": 2, "boxes_padded_to": boxes.shape[1],
+           "real_boxes": int(mask.sum().item()), "frames": cfg.DATA.NUM_FRAMES,
+           "crop": cfg.DATA.TRAIN_CROP_SIZE, "loss": got["loss"], "cpu_loss": want["loss"],
+           "loss_rel_err": loss_err, "pred_max_abs_err": pred_err,
+           "pred_range": [want_preds.min().item(), want_preds.max().item()],
+           "grad_rel_l2_err": rel_l2(grads, want_grads, names),
+           "card_vs_float64_grad_rel_l2": card_vs_f64, "cpu_vs_float64_grad_rel_l2": cpu_vs_f64,
+           "max_head_grad_err_share": head, "head_grad_tol_share": TRAIN_GRAD_TOL_TAIL,
+           "lr": got["lr"], "params_checked": len(names), "cpu_step_s": cpu_s,
+           "launches": launches, "tf32_control": control}
+    emit(row)
+    check(loss_err <= 1e-5, f"loss {got['loss']} vs CPU {want['loss']}")
+    check(pred_err <= 1e-4, f"eval predictions differ by {pred_err}")
+    check(head <= TRAIN_GRAD_TOL_TAIL, f"head gradients differ by {head} of their max")
+    check(card_vs_f64 <= 2.0 * cpu_vs_f64,
+          f"gradients {card_vs_f64} from float64 (L2), the CPU's fp32 {cpu_vs_f64}")
+    check("grads" in control["fails"], f"the gradient limit passes a TF32 step: {control}")
+    check(launches["roi_align"] == 4 and launches["roi_align_bwd"] == 2
+          and launches["preprocess_u8"] == 2, f"launches {launches}")
+    return row
+
+
+def phase_det_train_slice():
+    """``run_net.main`` on SLOWFAST_32x2_R50_SHORT over an AVA corpus of JPEG
+    frames that the phase writes with cv2 into a temporary directory: one
+    epoch of 4 steps of 16 clips (bf16, the recipe's SGD, warmup and
+    dropout), a val epoch scored by AVAMeter on the mini GT, the epoch-1
+    checkpoint, then the test split on it (short side 224, centre crop) on
+    the full GT; before it, the train loader alone. The ROIAlign kernels'
+    launches must be 2 a forward batch and 2 a train step's backward. Then
+    one bf16 16-clip SLOW_4x16_R50_DETECTION train step on bench.py:225's
+    batch."""
+    import gc
+    import shutil
+    import tempfile
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError("det_train_slice needs cv2 on this host") from e
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.data import construct_loader, synth_media
+    from slowfast_tpu_torch.engine import tester, trainer
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    out_dir = os.path.join(OUT_DIR, "det_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    root = tempfile.mkdtemp(prefix="ava_corpus_")
+    try:
+        t0 = time.perf_counter()
+        corpus = synth_media.make_ava_corpus(root, workers=os.cpu_count() or 1, **AVA_CORPUS)
+        corpus_s = time.perf_counter() - t0
+        opts = ["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS), "SOLVER.MAX_EPOCH",
+                "1", "DATA_LOADER.NUM_WORKERS", str(os.cpu_count() or 1), "OUTPUT_DIR",
+                out_dir, *corpus]
+        cfg = det_cfg(opts + ["TRAIN.ENABLE", "True"], out_dir=out_dir)
+
+        loader = construct_loader(cfg, "train", device="cuda")
+        loader.set_epoch(0)
+        load_ms = []
+        t0 = time.perf_counter()
+        for _ in loader:
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+
+        steps, models, evals = [], [], {"val": 0, "test": 0}
+        make_step = trainer.make_train_step
+        make_evals = {"val": trainer.make_eval_step, "test": tester.make_eval_step}
+
+        def recording_make_step(cfg, model, optimizer, generator):
+            models.append(model)
+            step = make_step(cfg, model, optimizer, generator)
+
+            def timed(batch):
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                              "clips": batch["labels"].shape[0],
+                              "real_boxes": int(batch["box_mask"].sum().item()),
+                              "boxes_padded_to": batch["boxes"].shape[1]})
+                return m
+
+            return timed
+
+        def counting(split):
+            def make(cfg, model):
+                fn = make_evals[split](cfg, model)
+
+                def counted(batch):
+                    evals[split] += 1
+                    return fn(batch)
+
+                return counted
+
+            return make
+
+        trainer.make_train_step = recording_make_step
+        trainer.make_eval_step, tester.make_eval_step = counting("val"), counting("test")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            run_net.main(["--cfg", DET_YAML, "--opts", *opts])
+        finally:
+            trainer.make_train_step = make_step
+            trainer.make_eval_step, tester.make_eval_step = make_evals["val"], make_evals["test"]
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+
+        with open(os.path.join(out_dir, "json_stats.log")) as f:
+            logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+        val = [s for s in logged if s.get("_type") == "val_epoch"]
+        test = [s for s in logged if s.get("mode") == "test" and "_type" not in s]
+        check(len(steps) == 4 and all(s["clips"] == CNN_TRAIN_CLIPS for s in steps),
+              f"steps {[s['clips'] for s in steps]}")
+        check(all(np.isfinite(s["loss"]) for s in steps), f"non-finite loss: {steps}")
+        check(len(val) == 1 and len(test) == 1 and np.isfinite(val[0]["map"])
+              and np.isfinite(test[0]["map"]) and test[0]["map"] > 0.0,
+              f"mAPs: val {val}, test {test}")
+        forward_batches = len(steps) + evals["val"] + evals["test"]
+        check(launches["roi_align"] == 2 * forward_batches
+              and launches["roi_align_bwd"] == 2 * len(steps),
+              f"ROIAlign launches {launches} for {len(steps)} steps and {evals} eval batches")
+        check(launches["preprocess_u8"] == 0 and only_launched(launches, (), 0),
+              f"the AVA path launched {launches}")
+
+        # The checkpoint reloads into a fresh model with an identical eval output.
+        path = cu.get_path_to_checkpoint(out_dir, 1)
+        saved = torch.load(path, map_location="cpu", weights_only=True)["model_state"]
+        fresh = build_model(cfg, device="cuda")
+        fresh.load_state_dict({k: v.cuda() for k, v in saved.items()}, strict=True)
+        batches = iter(construct_loader(cfg, "test", device="cuda"))
+        inputs, _, _, _, meta = next(batches)
+        batches.close()  # stops the loader's workers
+        batch = {"inputs": inputs, "boxes": meta["boxes"]}
+        a = make_eval_step(cfg, models[0])(batch)
+        b = make_eval_step(cfg, fresh)(batch)
+        check(torch.equal(a, b), f"reloaded checkpoint differs: {(a - b).abs().max().item()}")
+        ckpt_bytes = os.path.getsize(path)
+        os.remove(path)
+        del models[:], fresh, batch, inputs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = [s["ms"] for s in steps]
+    row = {"phase": "det_train_slice", "corpus": dict(AVA_CORPUS, secs=[902, 917],
+                                                    write_s=corpus_s),
+           "clips_per_step": CNN_TRAIN_CLIPS, "frames": cfg.DATA.NUM_FRAMES,
+           "crop": cfg.DATA.TRAIN_CROP_SIZE, "dtype": cfg.TPU.COMPUTE_DTYPE,
+           "dropout": cfg.MODEL.DROPOUT_RATE, "per_step": steps,
+           "step_p50_ms": statistics.median(step_ms),
+           "step_p50_ms_after_first": statistics.median(step_ms[1:]),
+           "loader_batch_ms": load_ms, "loader_batch_p50_ms": statistics.median(load_ms),
+           "max_memory_allocated": peak, "val_epoch": val[0], "test_map": test[0]["map"],
+           "eval_batches": evals, "reload_identical": True, "checkpoint_bytes": ckpt_bytes,
+           "train_wall_s": wall, "launches": launches,
+           "slow_4x16_bench_step": slow_det_bench_step()}
+    emit(row)
+    return row
+
+
+def slow_det_bench_step(steps=5):
+    """bf16 train steps of SLOW_4x16_R50_DETECTION at 16 clips on the batch of
+    bench.py:225 bench_ava_detection (boxes bucketed to 8, 1-8 real a clip,
+    multi-hot labels at 0.1): the p50 of the steps after the first, and the
+    peak memory."""
+    import gc
+
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    cfg = det_cfg(["TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS)], yaml=SLOW_DET_YAML)
+    B, M = CNN_TRAIN_CLIPS, 8
+    rs = np.random.RandomState(3)
+    xy1 = rs.rand(B, M, 2).astype(np.float32) * 100
+    wh = rs.rand(B, M, 2).astype(np.float32) * 100 + 4
+    n_real = rs.randint(1, M + 1, (B,))
+    batch = {
+        "boxes": torch.from_numpy(np.concatenate([xy1, xy1 + wh], axis=-1)).cuda(),
+        "box_mask": torch.from_numpy((np.arange(M)[None] < n_real[:, None]).astype(
+            np.float32)).cuda(),
+        "labels": torch.from_numpy((rs.rand(B, M, cfg.MODEL.NUM_CLASSES) < 0.1).astype(
+            np.float32)).cuda(),
+        "inputs": [torch.randint(0, 256, (B, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE,
+                                          cfg.DATA.TRAIN_CROP_SIZE, 3), dtype=torch.uint8,
+                                 device="cuda", generator=torch.Generator(
+                                     device="cuda").manual_seed(3))],
+        "epoch_exact": 0.5}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    step = make_train_step(cfg, model, construct_optimizer(model, cfg))
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    check(all(np.isfinite(losses)), f"SLOW_4x16 detection losses {losses}")
+    out = {"clips": B, "boxes_padded_to": M, "real_boxes": int(n_real.sum()),
+           "frames": cfg.DATA.NUM_FRAMES, "crop": cfg.DATA.TRAIN_CROP_SIZE,
+           "dtype": cfg.TPU.COMPUTE_DTYPE, "step_ms": ms, "step_p50_ms": statistics.median(ms[1:]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "losses": losses}
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2392,6 +2925,9 @@ def main():
     sf_train = phase_sf_train_slice()
     data_launches = phase_data_slice(sf_train)
     phase_cnn_family()
+    roi = phase_roi_align_kernel()
+    phase_det_fp32()
+    det = phase_det_train_slice()
     # The preprocess kernel's launches are those of the SlowFast train run
     # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches) and
     # of the one on decoded video (the same, with 2 val batches, and the
@@ -2458,6 +2994,19 @@ def main():
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": fused["bound_by"][part],
             "library_ms": tot["library_ms"],
+        })
+    # ROIAlign (a hand kernel beyond the TPU's: the JAX package's is plain
+    # XLA): per SLOWFAST_32x2_R50_SHORT train forward at 16 clips in bf16,
+    # summed over its two pathways; launches are det_train_slice's, two a
+    # forward batch and two a train step's backward.
+    for name, part in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
+        tot = roi["per_forward"][part]
+        lines.append({
+            "name": name, "route": "cuda", "source": "slowfast_tpu_torch/csrc/roi_align.cu",
+            "replaces": "slowfast_tpu/ops/roi_align.py:106", "launches": det["launches"][name],
+            "max_abs_err": roi["max_abs_err"][part], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": tot["bound_by"], "library_ms": None,
         })
     emit({"kernels": lines})
     print(info["nvidia_smi"], flush=True)

@@ -24,7 +24,10 @@ out at the crop's size as cropped; so does the port.
 ``Syntheticvideo`` clips are the same bytes as the JAX package's:
 ``np.random.RandomState(index)`` frames, labels seeded by ``index //
 num_clips`` so every view of a video has one label; an item with repeated
-augmentation is ``NUM_SAMPLE`` copies of the clip.
+augmentation is ``NUM_SAMPLE`` copies of the clip. Under
+``DETECTION.ENABLE`` an item is the AVA item's contract: 1-5 boxes with
+multi-hot labels, drawn from the same generator after the frames
+(slowfast_tpu/data/kinetics.py:566-579).
 """
 
 import os
@@ -42,8 +45,8 @@ logger = logging_utils.get_logger(__name__)
 def _check_uint8(cfg):
     if not cfg.TPU.UINT8_PIPELINE:
         raise NotImplementedError("the port's loader ships uint8 clips only")
-    if cfg.AUG.GEN_MASK_LOADER or cfg.DETECTION.ENABLE:
-        raise NotImplementedError("loader masks and detection boxes are not ported yet")
+    if cfg.AUG.GEN_MASK_LOADER:
+        raise NotImplementedError("loader masks are not ported yet")
 
 
 class Kinetics(utils.SeededDataset):
@@ -231,6 +234,15 @@ class Syntheticvideo:
             cfg.DATA.TEST_CROP_SIZE)
         rng = np.random.RandomState(index)
         frames = rng.randint(0, 255, (cfg.DATA.NUM_FRAMES, crop, crop, 3), np.uint8)
+        if cfg.DETECTION.ENABLE:
+            n = int(rng.randint(1, 6))
+            xy1 = rng.rand(n, 2) * (crop / 2)
+            wh = rng.rand(n, 2) * (crop / 2) + 2.0
+            boxes = np.concatenate([xy1, xy1 + wh], axis=1).astype(np.float32)
+            labels = (rng.rand(n, cfg.MODEL.NUM_CLASSES) < 0.2).astype(np.float32)
+            meta = {"boxes": boxes, "ori_boxes": boxes / crop,
+                    "metadata": [[index, 900 + index]] * n}
+            return [frames], labels, index, np.zeros((1,)), meta
         label_rng = np.random.RandomState(index // self._num_clips)
         label = int(label_rng.randint(0, cfg.MODEL.NUM_CLASSES))
         num_aug = cfg.AUG.NUM_SAMPLE if self.mode == "train" and cfg.AUG.ENABLE else 1

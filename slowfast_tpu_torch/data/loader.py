@@ -1,13 +1,16 @@
-"""Train, val and test loaders (counterpart of slowfast_tpu/data/loader.py:113-305).
+"""Train, val and test loaders (counterpart of slowfast_tpu/data/loader.py:29-305).
 
 Samples are made by a thread pool a few batches ahead (numpy's generators
-release the GIL while they fill an array), stacked into uint8 NTHWC
-batches, and sent to the device from pinned memory with a non-blocking
-copy. Labels and clip ids stay on the host. The train split is shuffled
-per epoch with ``np.random.RandomState(RNG_SEED + epoch).permutation`` and
-drops its last partial batch, as the JAX ``ShardedLoader`` does; val and
-test keep their order and their last batch. ``set_epoch`` also tells the
-dataset the epoch, from which each sample seeds its generators.
+release the GIL while they fill an array), stacked into NTHWC batches
+(uint8 clips, or the float pathways of the AVA dataset), and sent to the
+device from pinned memory with a non-blocking copy, with the padded boxes
+and box mask of a detection batch (``detection_collate``). Labels, clip ids
+and the ragged ``ori_boxes`` and ``metadata`` stay on the host. The train
+split is shuffled per epoch with ``np.random.RandomState(RNG_SEED +
+epoch).permutation`` and drops its last partial batch, as the JAX
+``ShardedLoader`` does; val and test keep their order and their last batch.
+``set_epoch`` also tells the dataset the epoch, from which each sample
+seeds its generators.
 """
 
 import os
@@ -17,6 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .ava_dataset import Ava
 from .charades import Charades
 from .kinetics import Kinetics, Syntheticvideo
 from .ssv2 import Ssv2
@@ -25,8 +29,13 @@ from .ssv2 import Ssv2
 # (slowfast_tpu/data/kinetics.py:612, charades.py:147, ssv2.py:151).
 DATASET_REGISTRY = {"Syntheticvideo": Syntheticvideo, "Kinetics": Kinetics,
                     "Ptvkinetics": Kinetics, "Charades": Charades, "Ptvcharades": Charades,
-                    "Ssv2": Ssv2, "Ptvssv2": Ssv2}
+                    "Ssv2": Ssv2, "Ptvssv2": Ssv2, "Ava": Ava}
 PREFETCH = 2  # batches in the making beyond the one being consumed
+# Per-clip box counts are padded up to one of these (multiples of the last
+# beyond it), so a detection step sees a few shapes only.
+_BOX_BUCKETS = (4, 8, 16, 32)
+# Entries of a batch's meta that go to the device with the inputs.
+DEVICE_META = ("boxes", "box_mask")
 
 
 def build_dataset(dataset_name, cfg, split):
@@ -47,6 +56,51 @@ def collate(samples):
     index = np.asarray([s[2] for s in samples], np.int64)
     times = np.stack([np.asarray(s[3]) for s in samples])
     return inputs, labels, index, times, {}
+
+
+def _box_bucket(n):
+    """The smallest bucket of ``_BOX_BUCKETS`` that holds ``n`` boxes."""
+    for b in _BOX_BUCKETS:
+        if n <= b:
+            return b
+    return int(-(-n // _BOX_BUCKETS[-1]) * _BOX_BUCKETS[-1])
+
+
+def detection_collate(samples):
+    """Detection batches (slowfast_tpu/data/loader.py:46-83): each clip's
+    boxes and multi-hot labels padded to the bucket of the batch's largest
+    box count, with a validity mask. Returns ``(inputs, (B, M, K) labels,
+    clip ids, times, meta)``, meta holding ``boxes`` ``(B, M, 4)``,
+    ``box_mask`` ``(B, M)`` and, one row per real box in the clips' order,
+    ``ori_boxes`` ``(N, 5)`` (the clip's index first) and ``metadata``
+    ``(N, 2)``."""
+    num_pathways = len(samples[0][0])
+    inputs = []
+    for p in range(num_pathways):
+        x = np.stack([s[0][p] for s in samples])
+        inputs.append(x if x.dtype == np.uint8 else x.astype(np.float32))
+    labels = [np.atleast_2d(np.asarray(s[1], np.float32)) for s in samples]
+    index = np.asarray([s[2] for s in samples], np.int64)
+    times = np.stack([np.asarray(s[3]) for s in samples])
+    metas = [s[4] for s in samples]
+    B = len(samples)
+    M = _box_bucket(max(m["boxes"].shape[0] for m in metas))
+    boxes = np.zeros((B, M, 4), np.float32)
+    box_mask = np.zeros((B, M), np.float32)
+    padded = np.zeros((B, M, labels[0].shape[1]), np.float32)
+    ori_boxes, metadata = [], []
+    for i, meta in enumerate(metas):
+        n = meta["boxes"].shape[0]
+        boxes[i, :n] = meta["boxes"]
+        box_mask[i, :n] = 1.0
+        padded[i, :n] = labels[i][:n]
+        for j in range(n):
+            ori_boxes.append([i] + list(meta["ori_boxes"][j]))
+            metadata.append(meta["metadata"][j] if "metadata" in meta else [0, 0])
+    meta = {"boxes": boxes, "box_mask": box_mask,
+            "ori_boxes": np.asarray(ori_boxes, np.float32),
+            "metadata": np.asarray(metadata, np.float32)}
+    return inputs, padded, index, times, meta
 
 
 def multiple_samples_collate(samples):
@@ -111,6 +165,8 @@ class Loader:
                     return
                 inputs, labels, index, times, meta = self.collate_fn(
                     [f.result() for f in window.popleft()])
+                meta = {k: self._to_device(v) if k in DEVICE_META else v
+                        for k, v in meta.items()}
                 yield [self._to_device(x) for x in inputs], labels, index, times, meta
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -128,10 +184,14 @@ def construct_loader(cfg, split, device="cuda"):
     if train and cfg.MULTIGRID.SHORT_CYCLE:
         raise NotImplementedError("multigrid short cycles are not ported yet")
     dataset = build_dataset(dataset_name, cfg, split)
-    repeated = train and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1
+    if cfg.DETECTION.ENABLE:
+        collate_fn = detection_collate
+    elif train and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1:
+        collate_fn = multiple_samples_collate
+    else:
+        collate_fn = collate
     return Loader(dataset, batch_size, device, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
-                  shuffle=train, drop_last=train, seed=cfg.RNG_SEED,
-                  collate_fn=multiple_samples_collate if repeated else collate)
+                  shuffle=train, drop_last=train, seed=cfg.RNG_SEED, collate_fn=collate_fn)
 
 
 def shuffle_dataset(loader, cur_epoch):

@@ -1,6 +1,6 @@
 """Spatial and color transforms of host (T, H, W, C) clips (counterpart of
-slowfast_tpu/data/transform.py:14-273, the classification subset; reference
-slowfast/datasets/transform.py).
+slowfast_tpu/data/transform.py:14-273, the classification subset with the
+box-aware crops of detection; reference slowfast/datasets/transform.py).
 
 Resizes are cv2's, as in the JAX package, so the same uint8 clip and the
 same draws give the same bytes. Every random draw comes from a generator
@@ -30,44 +30,65 @@ def sample_jitter_size(min_size, max_size, rng, inverse_uniform_sampling=False):
     return int(round(rng.uniform(min_size, max_size)))
 
 
+def _with(frames, boxes):
+    return frames if boxes is None else (frames, boxes)
+
+
 def random_short_side_scale_jitter(frames, min_size, max_size, np_rng,
-                                   inverse_uniform_sampling=False):
+                                   inverse_uniform_sampling=False, boxes=None):
     """Scale the short side to a size drawn in [min_size, max_size] (reference
-    transform.py:48-98); the long side keeps the aspect, rounded down."""
+    transform.py:48-98); the long side keeps the aspect, rounded down. With
+    ``boxes`` (N, 4) returns ``(frames, boxes)``, the boxes scaled by the
+    long side's factor."""
     if inverse_uniform_sampling:
         size = int(round(1.0 / np_rng.uniform(1.0 / max_size, 1.0 / min_size)))
     else:
         size = int(round(np_rng.uniform(min_size, max_size)))
     h, w = frames.shape[1], frames.shape[2]
     if (w <= h and w == size) or (h <= w and h == size):
-        return frames
+        return _with(frames, boxes)
     if w < h:
         new_w, new_h = size, int(math.floor(h / w * size))
+        factor = float(new_h) / h
     else:
         new_w, new_h = int(math.floor(w / h * size)), size
-    return np.stack([_interp(f, (new_w, new_h)) for f in frames])
+        factor = float(new_w) / w
+    out = np.stack([_interp(f, (new_w, new_h)) for f in frames])
+    return _with(out, None if boxes is None else boxes * factor)
 
 
-def random_crop(frames, size, np_rng):
-    """A ``size`` square at a random offset (reference transform.py:120-149)."""
+def random_crop(frames, size, np_rng, boxes=None):
+    """A ``size`` square at a random offset (reference transform.py:120-149);
+    with ``boxes``, also the boxes moved by the offset."""
     h, w = frames.shape[1], frames.shape[2]
     if h == size and w == size:
-        return frames
+        return _with(frames, boxes)
     y = int(np_rng.randint(0, h - size)) if h > size else 0
     x = int(np_rng.randint(0, w - size)) if w > size else 0
-    return frames[:, y:y + size, x:x + size]
+    out = frames[:, y:y + size, x:x + size]
+    return _with(out, None if boxes is None else crop_boxes(boxes, x, y))
 
 
-def horizontal_flip(prob, frames, np_rng):
-    """Flip along W with probability ``prob`` (reference transform.py:152-184)."""
+def horizontal_flip(prob, frames, np_rng, boxes=None):
+    """Flip along W with probability ``prob`` (reference transform.py:152-184);
+    a flipped box's x becomes ``width - x - 1``."""
     if np_rng.uniform() < prob:
+        if boxes is not None:
+            flipped = boxes.copy()
+            flipped[:, [0, 2]] = frames.shape[2] - boxes[:, [2, 0]] - 1
+            boxes = flipped
         frames = frames[:, :, ::-1]
-    return frames
+    return _with(frames, boxes)
 
 
 def uniform_crop(frames, size, spatial_idx):
     """The left/top (0), centre (1) or right/bottom (2) ``size`` square along
     the long side (reference transform.py:187-243)."""
+    y, x = _uniform_offset(frames, size, spatial_idx)
+    return frames[:, y:y + size, x:x + size]
+
+
+def _uniform_offset(frames, size, spatial_idx):
     if spatial_idx not in (0, 1, 2):
         raise ValueError(f"spatial_idx {spatial_idx} is not 0, 1 or 2")
     h, w = frames.shape[1], frames.shape[2]
@@ -82,7 +103,29 @@ def uniform_crop(frames, size, spatial_idx):
         x = 0
     elif spatial_idx == 2:
         x = w - size
-    return frames[:, y:y + size, x:x + size]
+    return y, x
+
+
+def uniform_crop_with_boxes(frames, size, spatial_idx, boxes):
+    """``uniform_crop`` and the boxes moved by its offset."""
+    y, x = _uniform_offset(frames, size, spatial_idx)
+    return frames[:, y:y + size, x:x + size], crop_boxes(boxes, x, y)
+
+
+def crop_boxes(boxes, x_offset, y_offset):
+    """Boxes moved by a crop's offset (reference transform.py:101-117)."""
+    boxes = boxes.copy()
+    boxes[:, [0, 2]] -= x_offset
+    boxes[:, [1, 3]] -= y_offset
+    return boxes
+
+
+def clip_boxes_to_image(boxes, height, width):
+    """Boxes clipped to ``[0, width - 1] x [0, height - 1]``."""
+    boxes = boxes.copy()
+    boxes[:, [0, 2]] = np.clip(boxes[:, [0, 2]], 0, width - 1)
+    boxes[:, [1, 3]] = np.clip(boxes[:, [1, 3]], 0, height - 1)
+    return boxes
 
 
 def _sample_resized_crop(height, width, scale, ratio, rng):

@@ -1,10 +1,10 @@
 """Dataset helpers (counterpart of slowfast_tpu/data/utils.py:12-144; reference
 slowfast/datasets/utils.py).
 
-The port's loader ships uint8 clips; the normalize and the pathway split run
-on the card in the preprocess kernel, so this module has no
-``tensor_normalize`` or ``pack_pathway_output``. ``sample_rngs`` makes the
-generators each sample draws from.
+The port's loader ships uint8 clips, which the preprocess kernel normalizes
+and splits into pathways on the card; the AVA dataset ships float clips,
+normalized on the host and split by ``pack_pathway_output``.
+``sample_rngs`` makes the generators each sample draws from.
 """
 
 import random
@@ -60,6 +60,23 @@ def get_sequence(center_idx, half_len, sample_rate, num_frames):
     utils.py:55-75)."""
     seq = list(range(center_idx - half_len, center_idx + half_len, sample_rate))
     return [min(max(s, 0), num_frames - 1) for s in seq]
+
+
+def pack_pathway_output(cfg, frames):
+    """A (T, H, W, C) float clip as the model's pathway list (reference
+    utils.py:78-111): channels reversed under ``DATA.REVERSE_INPUT_CHANNEL``;
+    SlowFast's slow pathway takes the frames ``linspace(0, T - 1, T //
+    alpha)`` truncated to integers."""
+    if cfg.DATA.REVERSE_INPUT_CHANNEL:
+        frames = frames[..., ::-1]
+    if cfg.MODEL.ARCH in cfg.MODEL.SINGLE_PATHWAY_ARCH:
+        return [frames]
+    if cfg.MODEL.ARCH in cfg.MODEL.MULTI_PATHWAY_ARCH:
+        idx = np.linspace(0, frames.shape[0] - 1,
+                          frames.shape[0] // cfg.SLOWFAST.ALPHA).astype(np.int64)
+        return [frames[idx], frames]
+    raise NotImplementedError(f"Model arch {cfg.MODEL.ARCH} is not in "
+                              f"{cfg.MODEL.SINGLE_PATHWAY_ARCH + cfg.MODEL.MULTI_PATHWAY_ARCH}")
 
 
 def spatial_sampling(frames, rng, np_rng, spatial_idx=-1, min_scale=256, max_scale=320,

@@ -5,7 +5,8 @@ channel reverse per ``DATA.REVERSE_INPUT_CHANNEL``, slow-pathway index),
 then through the model in the configured compute dtype with fp32
 parameters. The train step adds mixup, the fp32 loss, the backward, the
 global-norm clip and the optimizer's update; the eval step runs under
-``torch.inference_mode()``.
+``torch.inference_mode()``. Under ``DETECTION.ENABLE`` both also take the
+padded boxes, and the loss is masked to the real boxes.
 """
 
 import torch
@@ -36,6 +37,25 @@ def maybe_device_preprocess(cfg, inputs):
     )
 
 
+def masked_detection_loss(loss_fun, preds, labels, box_mask):
+    """The detection loss over the real boxes only
+    (slowfast_tpu/engine/steps.py:99-116): ``preds`` ``(B*M, K)``, ``labels``
+    ``(B, M, K)`` targets (or ``(B, M)`` class ids), ``box_mask`` ``(B, M)``.
+    A per-(box, class) loss (``bce``) is summed and divided by
+    ``max(mask.sum() * K, 1)``; a per-box loss (cross-entropy) by
+    ``max(mask.sum(), 1)``."""
+    mask = box_mask.reshape(-1).float()
+    per_elem = loss_fun(preds, labels.reshape(preds.shape[0], *labels.shape[2:]),
+                        reduction="none")
+    if per_elem.dim() == 2:
+        per_elem = per_elem * mask[:, None]
+        denom = torch.clamp(mask.sum() * preds.shape[-1], min=1.0)
+    else:
+        per_elem = per_elem * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    return per_elem.sum() / denom
+
+
 def make_train_step(cfg, model, optimizer, mix_generator=None):
     """``batch -> metrics`` for one training iteration.
 
@@ -49,10 +69,14 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
     ``grad_norm`` and, for single-label data, ``top1_err``/``top5_err`` as
     device tensors (nothing is read back), and ``lr``. Multi-label training
     (``DATA.MULTI_LABEL`` or a ``bce``/``bce_logit`` loss) reports no top-k
-    (slowfast_tpu/engine/steps.py:69).
+    (slowfast_tpu/engine/steps.py:69). Detection batches also hold
+    ``"boxes"`` ``(B, M, 4)`` and ``"box_mask"`` ``(B, M)`` on the device, with
+    ``(B, M, K)`` labels; the loss is ``masked_detection_loss`` and no top-k
+    is reported.
     """
-    if cfg.DETECTION.ENABLE or cfg.MASK.ENABLE:
-        raise NotImplementedError("only classification training is ported")
+    if cfg.MASK.ENABLE:
+        raise NotImplementedError("masked (MaskFeat/MAE) training is not ported yet")
+    detection = cfg.DETECTION.ENABLE
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
     multi_label = cfg.DATA.MULTI_LABEL or cfg.MODEL.LOSS_FUNC in MULTI_LABEL_LOSSES
     lr_fn = make_epoch_lr_fn(cfg)
@@ -70,13 +94,17 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
                 switch_prob=mix.SWITCH_PROB, label_smoothing=mix.LABEL_SMOOTH_VALUE)
         for p in model.parameters():
             p.grad = None
-        preds = model(inputs)
-        loss = loss_fun(preds, loss_labels)
+        if detection:
+            preds = model(inputs, batch["boxes"])
+            loss = masked_detection_loss(loss_fun, preds, loss_labels, batch["box_mask"])
+        else:
+            preds = model(inputs)
+            loss = loss_fun(preds, loss_labels)
         loss.backward()
         lr = lr_fn(batch["epoch_exact"])
         grad_norm = optimizer.step(lr)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
-        if not multi_label:
+        if not multi_label and not detection:
             with torch.no_grad():
                 k1, k5 = topks_correct(preds.float(), labels, (1, 5))
                 b = preds.shape[0]
@@ -90,15 +118,16 @@ def make_eval_step(cfg, model):
     """``batch -> preds`` for the eval/test loop; puts ``model`` in eval mode.
 
     ``batch["inputs"]`` is ``[clips_u8]`` or a list of float pathways, on
-    the model's device.
+    the model's device; under ``DETECTION.ENABLE`` ``batch["boxes"]`` holds
+    the padded boxes there too, and the predictions are one row per box.
     """
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError("detection eval is not ported yet")
+    detection = cfg.DETECTION.ENABLE
     model.eval()
 
     def step(batch):
         model.eval()  # a train step in between puts it back in train mode
         with torch.inference_mode():
-            return model(maybe_device_preprocess(cfg, batch["inputs"]))
+            inputs = maybe_device_preprocess(cfg, batch["inputs"])
+            return model(inputs, batch["boxes"]) if detection else model(inputs)
 
     return step

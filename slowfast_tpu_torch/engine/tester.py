@@ -1,10 +1,12 @@
 """Multi-view test driver (counterpart of slowfast_tpu/engine/tester.py:52-145,
-classification branch; reference tools/test_net.py).
+classification and detection; reference tools/test_net.py).
 
 Each batch of uint8 clips goes through the eval step on the device; the
 per-clip predictions are ensembled per video by ``TestMeter``, which logs
 ``test_final`` with ``top1_acc``/``top5_acc``, or with ``map`` for
-multi-label data (``DATA.MULTI_LABEL``).
+multi-label data (``DATA.MULTI_LABEL``). Detection (``DETECTION.ENABLE``)
+scores the predictions of every real box with ``AVAMeter`` and returns
+``{"map": ...}``.
 """
 
 import pickle
@@ -12,10 +14,11 @@ import pprint
 
 from slowfast_tpu_torch.data import construct_loader
 from slowfast_tpu_torch.engine.steps import make_eval_step
+from slowfast_tpu_torch.engine.trainer import detection_preds
 from slowfast_tpu_torch.models.build import build_model, resolve_device
 from slowfast_tpu_torch.utils import checkpoint as cu
 from slowfast_tpu_torch.utils import logging as logging_utils
-from slowfast_tpu_torch.utils.meters import TestMeter
+from slowfast_tpu_torch.utils.meters import AVAMeter, TestMeter
 
 logger = logging_utils.get_logger(__name__)
 
@@ -51,13 +54,28 @@ def test(cfg, device="cuda"):
     return results
 
 
+def perform_detection_test(test_loader, eval_fn, meter):
+    """The AVA test (slowfast_tpu/engine/tester.py:98-120): every real box's
+    predictions into ``meter``; returns the mAP."""
+    meter.iter_tic()
+    for cur_iter, (inputs, _, _, _, meta) in enumerate(test_loader):
+        preds = detection_preds(eval_fn, inputs, meta)
+        meter.iter_toc()
+        meter.update_stats(preds, meta["ori_boxes"], meta["metadata"])
+        meter.log_iter_stats(None, cur_iter)
+        meter.iter_tic()
+    return meter.finalize_metrics()
+
+
 def test_one(cfg, device):
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError("only classification test is ported")
     model = build_model(cfg, device)
     cu.load_test_checkpoint(cfg, model)
     eval_fn = make_eval_step(cfg, model)
     test_loader = construct_loader(cfg, "test", device)
+    if cfg.DETECTION.ENABLE:
+        meter = AVAMeter(len(test_loader), cfg, mode="test")
+        meter.set_video_idx_to_name(getattr(test_loader.dataset, "_video_idx_to_name", None))
+        return {"map": perform_detection_test(test_loader, eval_fn, meter)}
 
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     dataset = test_loader.dataset

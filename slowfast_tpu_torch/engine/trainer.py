@@ -1,5 +1,5 @@
 """Training loop (counterpart of slowfast_tpu/engine/trainer.py:48-196 and
-:298-479, the classification branch; reference tools/train_net.py).
+:298-479, classification and detection; reference tools/train_net.py).
 
 Each epoch shuffles the train loader, runs the train step on every batch,
 then, on the checkpoint or eval cadence, recomputes the BN statistics
@@ -7,7 +7,9 @@ then, on the checkpoint or eval cadence, recomputes the BN statistics
 runs a val epoch on the eval cadence. The step's metrics stay on the device
 and are read back only every ``LOG_PERIOD`` iterations and at the epoch's
 end, so the host does not wait for the card on every step; the NaN guard
-runs on the same cadence.
+runs on the same cadence. Detection (``DETECTION.ENABLE``) trains on the
+padded boxes and logs through ``AVAMeter``, whose val epoch scores the
+predictions of the real boxes by AVA mAP.
 """
 
 import math
@@ -22,7 +24,7 @@ from slowfast_tpu_torch.models.build import build_model, resolve_device
 from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 from slowfast_tpu_torch.utils import checkpoint as cu
 from slowfast_tpu_torch.utils import logging as logging_utils
-from slowfast_tpu_torch.utils.meters import EpochTimer, TrainMeter, ValMeter
+from slowfast_tpu_torch.utils.meters import AVAMeter, EpochTimer, TrainMeter, ValMeter
 from slowfast_tpu_torch.utils.metrics import topks_correct
 
 logger = logging_utils.get_logger(__name__)
@@ -33,7 +35,6 @@ def _check_supported(cfg):
         "MODEL.MODEL_NAME ContrastiveModel (SSL)": cfg.MODEL.MODEL_NAME == "ContrastiveModel",
         "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
         "MULTIGRID": cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
-        "DETECTION.ENABLE": cfg.DETECTION.ENABLE,
         "MASK.ENABLE": cfg.MASK.ENABLE,
         "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
         "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
@@ -55,17 +56,23 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
             loss = float(m["loss"])
             if math.isnan(loss):  # reference misc.check_nan_losses
                 raise RuntimeError(f"ERROR: Got NaN losses at epoch {cur_epoch} iter {it}")
-            top1, top5 = (float(m[k]) if k in m else None for k in ("top1_err", "top5_err"))
-            meter.update_stats(top1, top5, loss, m["lr"], bs)
+            if isinstance(meter, AVAMeter):
+                meter.update_stats(None, None, None, loss, m["lr"])
+            else:
+                top1, top5 = (float(m[k]) if k in m else None for k in ("top1_err", "top5_err"))
+                meter.update_stats(top1, top5, loss, m["lr"], bs)
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()
 
     meter.iter_tic()
-    for cur_iter, (inputs, labels, _, _, _) in enumerate(train_loader):
+    for cur_iter, (inputs, labels, _, _, meta) in enumerate(train_loader):
         meter.data_toc()
         labels = torch.from_numpy(labels).to(device, non_blocking=True)
-        m = step_fn({"inputs": inputs, "labels": labels,
-                     "epoch_exact": cur_epoch + cur_iter / data_size})
+        batch = {"inputs": inputs, "labels": labels,
+                 "epoch_exact": cur_epoch + cur_iter / data_size}
+        if cfg.DETECTION.ENABLE:
+            batch.update(boxes=meta["boxes"], box_mask=meta["box_mask"])
+        m = step_fn(batch)
         pending.append((cur_iter, m, labels.shape[0]))
         meter.iter_toc()
         if (cur_iter + 1) % log_period == 0:
@@ -76,11 +83,26 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
     meter.reset()
 
 
+def detection_preds(eval_fn, inputs, meta):
+    """The eval step's predictions of the real boxes of a detection batch,
+    in the order of its ``ori_boxes`` and ``metadata`` rows."""
+    preds = eval_fn({"inputs": inputs, "boxes": meta["boxes"]}).float().cpu().numpy()
+    return preds[meta["box_mask"].reshape(-1).cpu().numpy() > 0]
+
+
 def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
     """One val epoch on the eval step; returns the ``val_epoch`` stats (with
-    ``multi_label``, the mAP of the epoch's predictions)."""
+    ``multi_label``, the mAP of the epoch's predictions; with an
+    ``AVAMeter``, the AVA mAP of its detections)."""
     meter.iter_tic()
-    for cur_iter, (inputs, labels, _, _, _) in enumerate(val_loader):
+    for cur_iter, (inputs, labels, _, _, meta) in enumerate(val_loader):
+        if isinstance(meter, AVAMeter):
+            meter.update_stats(detection_preds(eval_fn, inputs, meta), meta["ori_boxes"],
+                               meta["metadata"])
+            meter.iter_toc()
+            meter.log_iter_stats(cur_epoch, cur_iter)
+            meter.iter_tic()
+            continue
         preds = eval_fn({"inputs": inputs}).float().cpu()
         if multi_label:
             meter.update_predictions(preds.numpy(), labels)
@@ -113,8 +135,13 @@ def train(cfg, device="cuda"):
     step_fn = make_train_step(cfg, model, optimizer,
                               torch.Generator().manual_seed(cfg.RNG_SEED))
     eval_fn = make_eval_step(cfg, model)
-    train_meter = TrainMeter(len(train_loader), cfg)
-    val_meter = ValMeter(len(val_loader), cfg)
+    if cfg.DETECTION.ENABLE:
+        train_meter = AVAMeter(len(train_loader), cfg, mode="train")
+        val_meter = AVAMeter(len(val_loader), cfg, mode="val")
+        val_meter.set_video_idx_to_name(getattr(val_loader.dataset, "_video_idx_to_name", None))
+    else:
+        train_meter = TrainMeter(len(train_loader), cfg)
+        val_meter = ValMeter(len(val_loader), cfg)
     epoch_timer = EpochTimer()
 
     logger.info("Start epoch: %d", start_epoch + 1)

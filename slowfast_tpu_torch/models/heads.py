@@ -1,15 +1,19 @@
-"""Classification heads (counterpart of slowfast_tpu/models/heads.py:29-146
-and :262; reference head_helper.py:198-563).
+"""Classification heads and the RoI head of detection (counterpart of
+slowfast_tpu/models/heads.py:29-290; reference head_helper.py:20-563).
 
 Training returns raw logits, with dropout drawn from the model's generator.
 Eval applies the activation; the ResNet and X3D heads apply it per position
 and then, for fully-convolutional inference on crops larger than the
-training crop, average over the remaining T/H/W positions.
+training crop, average over the remaining T/H/W positions. The RoI head
+applies its activation in training too, as the reference does for
+detection.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from slowfast_tpu_torch.ops.roi_align import roi_align
 
 from .common import Conv3D, avg_pool3d, linear
 
@@ -130,3 +134,52 @@ class TransformerBasicHead(nn.Module):
             x = dropout(x, self.dropout_rate, self.generator)
         x = linear(x, self.projection, self.dtype)
         return x if self.training else _activate(x, self.act_func)
+
+
+class ResNetRoIHead(nn.Module):
+    """Per pathway: the temporal mean, ROIAlign (``1 / scale_factor``,
+    adaptive sampling, ``aligned``) and the spatial max over the bins; then
+    concat -> dropout (training only) -> ``detach_final_fc`` -> the
+    projection in the compute dtype (the trunk's) -> the activation, in
+    training and eval (slowfast_tpu/models/heads.py:148).
+
+    ``bboxes`` is ``(B, M, 4)`` padded ``[x1, y1, x2, y2]`` per clip (each
+    row gets its clip's index; padded rows are zero boxes that the loss and
+    the meter mask out), or the ragged ``(R, 5)`` ``[batch_index, x1, y1,
+    x2, y2]``. Returns ``(B * M, num_classes)`` (resp. ``(R,
+    num_classes)``)."""
+
+    def __init__(self, dim_in, num_classes, resolution, scale_factor, dropout_rate=0.0,
+                 act_func="softmax", aligned=True, detach_final_fc=False):
+        super().__init__()
+        _check_act(act_func)
+        self.resolution = resolution
+        self.scale_factor = scale_factor
+        self.dropout_rate = dropout_rate
+        self.act_func = act_func
+        self.aligned = aligned
+        self.detach_final_fc = detach_final_fc
+        self.projection = nn.Linear(sum(dim_in), num_classes)
+        self.generator = None  # the model's, set by models.build.build_model
+
+    def forward(self, xs, bboxes):
+        if bboxes.dim() == 3:
+            B, M = bboxes.shape[:2]
+            bidx = torch.arange(B, dtype=bboxes.dtype, device=bboxes.device)
+            rois = torch.cat([bidx.view(B, 1, 1).expand(B, M, 1), bboxes], dim=-1)
+            rois, per_batch = rois.reshape(B * M, 5), M
+        else:
+            rois, per_batch = bboxes, 0
+        pooled = []
+        for p, x in enumerate(xs):
+            out = roi_align(x.mean(dim=1), rois, output_size=self.resolution[p][0],
+                            spatial_scale=1.0 / self.scale_factor[p], sampling_ratio=0,
+                            aligned=self.aligned, rois_per_batch=per_batch)
+            # amax splits the gradient of a tie evenly, as jnp.max's VJP does.
+            pooled.append(torch.amax(out, dim=(1, 2)))
+        x = torch.cat(pooled, dim=-1)
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, self.generator)
+        if self.detach_final_fc:
+            x = x.detach()
+        return _activate(linear(x, self.projection, xs[0].dtype), self.act_func)

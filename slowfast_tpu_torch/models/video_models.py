@@ -3,8 +3,11 @@ slowfast_tpu/models/video_models.py; reference video_model_builder.py:36-802).
 
 Each model takes a list of NTHWC pathway tensors and returns logits (train)
 or activated, position-averaged predictions (eval), per the head contract.
-The T-folded fuse, remat and ``TPU.TRUNCATE_AT`` machinery of the JAX
-package are TPU workarounds and are not ported; nor is the detection head.
+Under ``DETECTION.ENABLE`` SlowFast and ResNet end in the RoI head instead
+and also take the boxes: ``forward(xs, bboxes)`` returns one activated row
+per box (slowfast_tpu/models/video_models.py:313, :433). The T-folded fuse,
+remat and ``TPU.TRUNCATE_AT`` machinery of the JAX package are TPU
+workarounds and are not ported.
 """
 
 import math
@@ -15,7 +18,7 @@ from torch import nn
 
 from .batchnorm import norm_builder
 from .common import Conv3D, max_pool3d, round_width
-from .heads import ResNetBasicHead, X3DHead
+from .heads import ResNetBasicHead, ResNetRoIHead, X3DHead
 from .resnet import ResStage
 from .stem import VideoModelStem
 
@@ -61,11 +64,30 @@ def _per_pathway(value):
     return list(value) * 2 if len(value) == 1 else list(value)
 
 
-def _check_classification(cfg):
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError("the detection head is not ported yet")
+def _check_heads(cfg, detection=True):
+    if cfg.DETECTION.ENABLE and not detection:
+        raise NotImplementedError(f"{cfg.MODEL.MODEL_NAME} has no detection head")
     if cfg.CONTRASTIVE.NUM_MLP_LAYERS > 1:
         raise NotImplementedError("the MLP projection head is not ported yet")
+
+
+def _roi_head(cfg, dim_in):
+    """The RoI head of ``DETECTION.ENABLE``, one entry per pathway."""
+    n = len(dim_in)
+    return ResNetRoIHead(
+        dim_in=dim_in, num_classes=cfg.MODEL.NUM_CLASSES,
+        resolution=[[cfg.DETECTION.ROI_XFORM_RESOLUTION] * 2] * n,
+        scale_factor=[cfg.DETECTION.SPATIAL_SCALE_FACTOR] * n,
+        dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
+        aligned=cfg.DETECTION.ALIGNED, detach_final_fc=cfg.MODEL.DETACH_FINAL_FC)
+
+
+def _apply_head(head, xs, bboxes):
+    if isinstance(head, ResNetRoIHead):
+        if bboxes is None:
+            raise ValueError("the detection head needs the boxes")
+        return head(xs, bboxes)
+    return head(xs)
 
 
 def _nonlocal_args(cfg, i, per_pathway=list):
@@ -97,7 +119,7 @@ class SlowFast(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        _check_classification(cfg)
+        _check_heads(cfg)
         self.dtype = compute_dtype(cfg)
         norm = norm_builder(cfg)
         self.pool1 = POOL1[cfg.MODEL.ARCH]
@@ -150,6 +172,9 @@ class SlowFast(nn.Module):
             if i < 3:
                 self.add_module(f"s{i + 2}_fuse", FuseFastToSlow(outs[i] // beta_inv, **fuse))
 
+        if cfg.DETECTION.ENABLE:
+            self.head = _roi_head(cfg, [w * 32, w * 32 // beta_inv])
+            return
         p0, p1 = self.pool1
         t, crop, alpha = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.SLOWFAST.ALPHA
         pool = None if (cfg.MULTIGRID.SHORT_CYCLE
@@ -165,7 +190,7 @@ class SlowFast(nn.Module):
             act_func=cfg.MODEL.HEAD_ACT,
         )
 
-    def forward(self, xs):
+    def forward(self, xs, bboxes=None):
         xs = [x.to(self.dtype) for x in xs]
         xs = self.s1_fuse(self.s1(xs))
         xs = self.s2_fuse(self.s2(xs))
@@ -174,7 +199,7 @@ class SlowFast(nn.Module):
               for x, k in zip(xs, self.pool1)]
         xs = self.s3_fuse(self.s3(xs))
         xs = self.s4_fuse(self.s4(xs))
-        return self.head(self.s5(xs))
+        return _apply_head(self.head, self.s5(xs), bboxes)
 
 
 class ResNet(nn.Module):
@@ -184,7 +209,7 @@ class ResNet(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        _check_classification(cfg)
+        _check_heads(cfg)
         self.dtype = compute_dtype(cfg)
         norm = norm_builder(cfg)
         pool1 = [1, 1, 1] if cfg.MODEL.MODEL_NAME == "ResNet_nopool" else POOL1[cfg.MODEL.ARCH][0]
@@ -218,6 +243,9 @@ class ResNet(nn.Module):
                 drop_connect_rate=cfg.MODEL.DROPCONNECT_RATE,
             ))
 
+        if cfg.DETECTION.ENABLE:
+            self.head = _roi_head(cfg, [w * 32])
+            return
         t, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
         pool = None if (cfg.MULTIGRID.SHORT_CYCLE
                         or cfg.MODEL.MODEL_NAME == "ContrastiveModel") else [
@@ -226,11 +254,11 @@ class ResNet(nn.Module):
             dim_in=[w * 32], num_classes=cfg.MODEL.NUM_CLASSES, pool_size=pool,
             dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT)
 
-    def forward(self, xs):
+    def forward(self, xs, bboxes=None):
         xs = self.s2(self.s1([x.to(self.dtype) for x in xs]))
         if any(k > 1 for k in self.pool1):
             xs = [max_pool3d(xs[0], self.pool1, self.pool1)]
-        return self.head(self.s5(self.s4(self.s3(xs))))
+        return _apply_head(self.head, self.s5(self.s4(self.s3(xs))), bboxes)
 
 
 class X3D(nn.Module):
@@ -241,7 +269,7 @@ class X3D(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        _check_classification(cfg)
+        _check_heads(cfg, detection=False)
         self.dtype = compute_dtype(cfg)
         norm = norm_builder(cfg)
         tk = TEMPORAL_KERNEL_BASIS[cfg.MODEL.ARCH]

@@ -9,7 +9,9 @@ registered model.
 forward with its dropout, backward, the clip and the recipe's optimizer) on
 ``TRAIN.BATCH_SIZE`` clips (times ``AUG.NUM_SAMPLE`` under ``AUG.ENABLE``)
 of ``TRAIN_CROP_SIZE``; without it, the eval step on ``TEST.BATCH_SIZE``
-clips of ``TEST_CROP_SIZE``.
+clips of ``TEST_CROP_SIZE``. A detection config (``DETECTION.ENABLE``)
+profiles on the synthetic detection items of that many clips: 1-5 boxes a
+clip, padded to their bucket, with multi-hot labels.
 
 Prints one JSON line: the median step time on the host clock (each step
 ends in a synchronize), the kernel time per step, the device's idle share
@@ -38,6 +40,7 @@ CATEGORIES = [
     ("attention_bwd", r"attention_bwd|exact_bwd|flash_bwd|fused_bwd|sum_slices"),
     ("attention_core", r"pooled_attention|exact_fwd|flash_fwd|pack_tiles"),
     ("preprocess", r"preprocess_u8"),
+    ("roi_align", r"roi_align"),
     ("conv", r"conv|cudnn|implicit|depthwise|winograd|fft|dgrad|wgrad|xmma_fprop"),
     ("gemm", r"gemm|gemv|cutlass|nvjet|xmma|sm90_|sm80_|ampere|magma"),
     ("layer_norm", r"layer_norm|LayerNorm"),
@@ -90,6 +93,16 @@ def profile_eval(cfg, steps=3, top=12, train=False):
              "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (batch_size,), device="cuda",
                                      generator=gen),
              "epoch_exact": 0.0}
+    if cfg.DETECTION.ENABLE:
+        from slowfast_tpu_torch.data.kinetics import Syntheticvideo
+        from slowfast_tpu_torch.data.loader import detection_collate
+
+        data = Syntheticvideo(cfg, "train" if train else "test")
+        inputs, labels, _, _, meta = detection_collate([data[i] for i in range(batch_size)])
+        batch.update(inputs=[torch.from_numpy(inputs[0]).cuda()],
+                     labels=torch.from_numpy(labels).cuda(),
+                     boxes=torch.from_numpy(meta["boxes"]).cuda(),
+                     box_mask=torch.from_numpy(meta["box_mask"]).cuda())
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(batch)

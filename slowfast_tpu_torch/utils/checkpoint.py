@@ -84,15 +84,20 @@ def state_dict_from_jax(variables):
 
 
 def load_test_checkpoint(cfg, model):
-    """Load TEST.CHECKPOINT_FILE_PATH (else TRAIN.CHECKPOINT_FILE_PATH) into
-    ``model``: a torch file holding ``{"model_state": state_dict}``, the
-    reference ``.pyth`` format, which loads with no name mapping."""
-    path = cfg.TEST.CHECKPOINT_FILE_PATH or cfg.TRAIN.CHECKPOINT_FILE_PATH
+    """Load TEST.CHECKPOINT_FILE_PATH, else the last checkpoint in
+    ``OUTPUT_DIR``, else TRAIN.CHECKPOINT_FILE_PATH into ``model``
+    (slowfast_tpu/utils/checkpoint.py:640): a torch file holding
+    ``{"model_state": state_dict}``, the reference ``.pyth`` format, which
+    loads with no name mapping."""
+    if cfg.TEST.CHECKPOINT_FILE_PATH:
+        path, ckpt_type = cfg.TEST.CHECKPOINT_FILE_PATH, cfg.TEST.CHECKPOINT_TYPE
+    elif has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
+        path, ckpt_type = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK), "pytorch"
+    else:
+        path, ckpt_type = cfg.TRAIN.CHECKPOINT_FILE_PATH, cfg.TRAIN.CHECKPOINT_TYPE
     if not path:
         logger.info("Testing with random initialization. Only for debugging.")
         return model
-    ckpt_type = cfg.TEST.CHECKPOINT_TYPE if cfg.TEST.CHECKPOINT_FILE_PATH else (
-        cfg.TRAIN.CHECKPOINT_TYPE)
     if ckpt_type != "pytorch":
         raise NotImplementedError(f"{ckpt_type} checkpoints are not ported yet")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)

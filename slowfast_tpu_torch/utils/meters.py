@@ -6,16 +6,20 @@ and val statistics, epoch summaries and the loss-explosion guard, logged
 as ``json_stats`` with the JAX meters' keys (``train_iter``,
 ``train_epoch``, ``val_iter``, ``val_epoch``); multi-view prediction
 ensembling into per-video scores and the final top-k accuracies, or for
-multi-label data the mean average precision (``get_map``, numpy only).
+multi-label data the mean average precision (``get_map``, numpy only); and
+``AVAMeter``, which gathers the detections of an AVA epoch and scores them
+with ``ava_eval`` (mAP at IoU 0.5).
 """
 
 import datetime
+import os
 import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from . import ava_eval
 from .logging import get_logger, log_json_stats
 
 logger = get_logger(__name__)
@@ -256,6 +260,117 @@ class EpochTimer:
 
     def avg_epoch_time(self):
         return float(np.mean(self.epoch_times))
+
+
+def gather_ragged_across_hosts(x):
+    """Every process's rows of a ragged array (AVA's detections), in process
+    order (slowfast_tpu/utils/meters.py:21): with one process, ``x``."""
+    return x
+
+
+class AVAMeter:
+    """Detection meter (slowfast_tpu/utils/meters.py:443; reference
+    meters.py:46-238): in train the loss and LR per iteration; in val and
+    test every real box's predictions, original box and ``[video_idx,
+    sec]``, scored at the epoch's end against the GT of ``AVA.ANNOTATION_DIR``
+    (val: the seconds divisible by 4, unless ``AVA.FULL_TEST_ON_VAL``; test:
+    all of it). Without a label map there is nothing to score: the mAP is 0."""
+
+    def __init__(self, overall_iters, cfg, mode):
+        self.cfg = cfg
+        self.mode = mode
+        self.overall_iters = overall_iters
+        self.lr = None
+        self.loss = ScalarMeter(cfg.LOG_PERIOD)
+        self.iter_timer = Timer()
+        self.all_preds, self.all_ori_boxes, self.all_metadata = [], [], []
+        self.excluded_keys = self.categories = self.class_whitelist = None
+        self.video_idx_to_name = None
+        self.groundtruth = None
+        self.full_map = 0.0
+        self.output_dir = cfg.OUTPUT_DIR
+        if mode != "train":
+            self._load_eval_assets()
+
+    def _load_eval_assets(self):
+        ava = self.cfg.AVA
+        label_map = os.path.join(ava.ANNOTATION_DIR, ava.LABEL_MAP_FILE)
+        exclusions = os.path.join(ava.ANNOTATION_DIR, ava.EXCLUSION_FILE)
+        gt_file = os.path.join(ava.ANNOTATION_DIR, ava.GROUNDTRUTH_FILE)
+        if not os.path.exists(label_map):
+            return
+        self.categories, self.class_whitelist = ava_eval.read_label_map(label_map)
+        self.excluded_keys = (ava_eval.read_exclusions(exclusions)
+                              if os.path.exists(exclusions) else set())
+        if os.path.exists(gt_file):
+            full = ava_eval.read_csv(gt_file, self.class_whitelist)
+            full_gt = self.mode == "test" or (self.mode == "val" and ava.FULL_TEST_ON_VAL)
+            self.groundtruth = full if full_gt else ava_eval.get_ava_mini_groundtruth(full)
+
+    def set_video_idx_to_name(self, names):
+        self.video_idx_to_name = names
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+
+    def data_toc(self):
+        pass  # the train loop's timer call; this meter times iterations only
+
+    def reset(self):
+        self.loss.reset()
+        self.all_preds, self.all_ori_boxes, self.all_metadata = [], [], []
+
+    def update_stats(self, preds, ori_boxes, metadata, loss=None, lr=None):
+        if self.mode in ("val", "test"):
+            self.all_preds.append(np.asarray(preds))
+            self.all_ori_boxes.append(np.asarray(ori_boxes))
+            self.all_metadata.append(np.asarray(metadata))
+        if loss is not None:
+            self.loss.add_value(loss)
+        if lr is not None:
+            self.lr = lr
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        stats = {"_type": f"{self.mode}_iter",
+                 "cur_epoch": cur_epoch + 1 if cur_epoch is not None else None,
+                 "cur_iter": cur_iter + 1, "time_diff": self.iter_timer.seconds(),
+                 "mode": self.mode}
+        if self.mode == "train":
+            stats.update(loss=self.loss.get_win_median(), lr=self.lr)
+        log_json_stats(stats, self.output_dir)
+
+    def finalize_metrics(self, log=True):
+        preds, boxes, meta = (gather_ragged_across_hosts(np.concatenate(x, axis=0)) for x in
+                              (self.all_preds, self.all_ori_boxes, self.all_metadata))
+        if self.groundtruth is None:
+            logger.info("AVA groundtruth unavailable; skipping mAP (collected %d boxes)",
+                        preds.shape[0])
+            self.full_map = 0.0
+            return self.full_map
+        self.full_map = ava_eval.evaluate_ava(
+            preds, boxes, meta, self.excluded_keys or set(),
+            self.class_whitelist or set(range(1, preds.shape[1] + 1)), self.categories or [],
+            groundtruth=self.groundtruth, video_idx_to_name=self.video_idx_to_name)
+        if log:
+            log_json_stats({"mode": self.mode, "map": self.full_map}, self.output_dir)
+        return self.full_map
+
+    def log_epoch_stats(self, cur_epoch):
+        if self.mode in ("val", "test"):
+            self.finalize_metrics(log=False)
+            stats = {"_type": f"{self.mode}_epoch", "cur_epoch": cur_epoch + 1,
+                     "mode": self.mode, "map": self.full_map}
+        else:
+            stats = {"_type": "train_epoch", "cur_epoch": cur_epoch + 1, "mode": self.mode,
+                     "loss": self.loss.get_win_median() if self.loss.deque else None,
+                     "lr": self.lr}
+        log_json_stats(stats, self.output_dir)
+        return stats
 
 
 class TestMeter:
