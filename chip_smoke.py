@@ -154,7 +154,37 @@ Phases, each printing one JSON line:
               twice a train step's backward; the train loader alone; one bf16
               16-clip SLOW_4x16_R50_DETECTION step on bench.py:225's batch.
               Needs cv2.
- 19. kernels  one line per kernel with its launches on its path, error,
+ 19. mvitv1_train_slice  run_net.main training MViTv1-B 16x4
+              (MVIT_B_16x4_CONV.yaml: separable pos-embeds, dq = dv = 96) at
+              full width and depth in bf16 on synthetic video: 4 steps of 16
+              clips with the recipe's AdamW, mixup/cutmix, RandAugment,
+              random erasing and clipping, a val epoch and the checkpoint,
+              then the 10 x 1 test of 2 videos on it; every call of the
+              constant-shift kernels (rows 6 and 7) held against flash_plain
+              / flash_bwd_plain on its own inputs, one clip at a time
+              (FlashShadow); the step alone, unheld (p50, peak memory); rows
+              6 and 7 at each of its block shapes against their plain
+              versions, their bounds and SDPA.
+ 20. mvitv1_fp32  one fp32 train step of MViTv1-B on 2 clips, card (TF32
+              off) vs CPU: the loss within 1e-5, the gradients within 1e-3
+              relative L2.
+ 21. vit_train_slice  run_net.main training the ViT-B fine-tune
+              (k400_VIT_B_16x4_FT.yaml: 12 blocks, 768 channels, 12 heads,
+              1,569 tokens, no pooling, mean pooling) in bf16 with layer
+              decay 0.65: 4 steps of 8 clips and a val epoch, every flash
+              call held; the step alone; rows 6 and 7 at its shape
+              (Nq = Nk = 1,569, dq = dv = 64).
+ 22. mvit_l_fit  MViTv2-L 40x3 (MVITv2_L_40x3_test.yaml, 48 blocks, 40
+              frames at 312², ACT_CHECKPOINT) at full width and depth in
+              bf16: 3 held train steps at 4 clips, 3 more unheld (step ms,
+              peak memory), steps at 1 clip without checkpointing, the 5 x 3
+              test of one video (held); at depth 4 with L's widths the
+              checkpointed and the plain step from one state: equal losses,
+              gradients within twice the run-to-run distance.
+ 23. mvit_det  MViTv2-S with DETECTION.ENABLE at full width: one held bf16
+              train step on 16 synthetic clips (boxes padded to 8) and its
+              ROIAlign launches.
+ 24. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 Before the phases, one line per host library that the data path may use
 (cv2, PIL, sklearn): whether it imports, and its version.
@@ -162,10 +192,12 @@ The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without printing that line.
 """
 
+import contextlib
 import json
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -331,10 +363,10 @@ FLASH_BWD_PATH = {"bfloat16": "wgmma (tensor cores): csrc/pooled_attention_flash
 
 
 def only_launched(launches, keys, n):
-    """Every attention kernel in ``keys`` launched ``n`` times, every other
-    attention kernel never."""
-    return all(count == (n if key in keys else 0) for key, count in launches.items()
-               if key.startswith("attention_"))
+    """Every attention kernel in ``keys`` launched ``n`` times (any number of
+    times if ``n`` is None), every other attention kernel never."""
+    return all((key in keys and n is None) or count == (n if key in keys else 0)
+               for key, count in launches.items() if key.startswith("attention_"))
 
 
 def phase_device():
@@ -2902,6 +2934,560 @@ def slow_det_bench_step(steps=5):
     return out
 
 
+# --- The rest of the MViT family: MViTv1-B, the ViT-B fine-tune, MViTv2-L
+# with activation checkpointing, MViT detection --------------------------------
+
+MVITV1_YAML = os.path.join(ROOT, "configs", "Kinetics", "MVIT_B_16x4_CONV.yaml")
+VIT_YAML = os.path.join(ROOT, "configs", "masked_ssl", "k400_VIT_B_16x4_FT.yaml")
+MVIT_L_YAML = os.path.join(ROOT, "configs", "Kinetics", "MVITv2_L_40x3_test.yaml")
+VIT_TRAIN_CLIPS = 8  # the ViT-B FT recipe's TRAIN.BATCH_SIZE
+# MViTv2-L's train step: 4 clips fit on the card with ACT_CHECKPOINT.
+MVIT_L_TRAIN_CLIPS = 4
+# The K400 MViTv2-L recipe is a test recipe and has no solver; its train
+# steps take the SSv2 MViTv2-L recipe's (configs/SSv2/MVITv2_L_40x3.yaml).
+MVIT_L_SOLVER = ["SOLVER.OPTIMIZING_METHOD", "sgd", "SOLVER.BASE_LR", "0.00125",
+                 "SOLVER.CLIP_GRAD_L2NORM", "2.0", "SOLVER.WEIGHT_DECAY", "1e-4",
+                 "SOLVER.WARMUP_EPOCHS", "3.0", "SOLVER.WARMUP_START_LR", "1e-6",
+                 "SOLVER.COSINE_AFTER_WARMUP", "True", "SOLVER.COSINE_END_LR", "1e-6",
+                 "SOLVER.MAX_EPOCH", "40"]
+# MViTv2-L's widths at depth 4: its first stage transition only.
+MVIT_L_DEPTH4 = ["MVIT.DEPTH", "4", "MVIT.DIM_MUL", "[[2, 2.0]]", "MVIT.HEAD_MUL", "[[2, 2.0]]",
+                 "MVIT.POOL_Q_STRIDE", "[[0, 1, 1, 1], [1, 1, 1, 1], [2, 1, 2, 2], [3, 1, 1, 1]]"]
+
+
+@contextlib.contextmanager
+def removed_after(path):
+    """Removes the directory ``path`` when the block ends, however it ends:
+    a run's weights and optimizer state are too large to keep among its
+    files."""
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def family_cfg(yaml, extra, sub):
+    return slowfast_cfg(["NUM_GPUS", "1"] + list(extra), yaml, os.path.join(OUT_DIR, sub))
+
+
+def per_clip(fn, *tensors):
+    """``fn`` (a plain attention function) one clip at a time: it is the
+    same function per batch element, and a clip's (nh, Nq, Nk) matrices fit
+    where the whole batch's would not (MViTv2-L's first blocks at 4 clips:
+    1.95e9 logits)."""
+    for b in range(tensors[0].shape[0]):
+        yield b, fn(*(t[b:b + 1] for t in tensors))
+
+
+class FlashShadow:
+    """Inside ``with``, every call of the constant-shift core (kernel rows 6
+    and 7) is also held against ``flash_plain`` and, in its backward,
+    ``flash_bwd_plain`` on the inputs and output gradient that the model
+    gave it (as mvit_train_fused's flash_shadow), one clip at a time: the
+    output within ATTN_TOL of max |v| and each of dq, dk, dv within
+    ATTN_BWD_TOL of its max. A checkpointed block calls the forward again
+    in its recompute; that call is held too."""
+
+    def __init__(self):
+        self.stats = dict(fwd_calls=0, bwd_calls=0, fwd_err_share=0.0, bwd_err_share=0.0)
+
+    def __enter__(self):
+        from slowfast_tpu_torch.ops import attention as ta
+
+        self.ta, self.kernel_core = ta, ta.flash_pooled_attention
+        ta.flash_pooled_attention = self.core
+        return self
+
+    def __exit__(self, *exc):
+        self.ta.flash_pooled_attention = self.kernel_core
+
+    def core(self, qh, kh, vh):
+        stats, ta = self.stats, self.ta
+        out = self.kernel_core(qh, kh, vh)
+        q, k, v = (t.detach() for t in (qh, kh, vh))
+        vmax = v.float().abs().max().item()
+        with torch.no_grad():
+            for b, want in per_clip(ta.flash_plain, q, k, v):
+                err = (out[b:b + 1].detach().float() - want.float()).abs().max().item()
+                stats["fwd_err_share"] = max(stats["fwd_err_share"], err / vmax)
+        stats["fwd_calls"] += 1
+
+        def check_bwd(grad_inputs, grad_outputs):
+            stats["bwd_calls"] += 1
+            do = grad_outputs[0].contiguous()
+            with torch.no_grad():
+                want = [list(g) for _, g in per_clip(ta.flash_bwd_plain, q, k, v, do)]
+                for g, w in zip(grad_inputs, zip(*want)):
+                    w = torch.cat(w)
+                    err = (g.float() - w.float()).abs().max().item()
+                    stats["bwd_err_share"] = max(
+                        stats["bwd_err_share"], err / max(w.float().abs().max().item(), 1e-30))
+
+        if out.requires_grad:
+            out.grad_fn.register_hook(check_bwd)
+        return out
+
+    def check(self, what, fwd_calls, bwd_calls, dtype=torch.bfloat16):
+        s = self.stats
+        check(s["fwd_calls"] == fwd_calls and s["bwd_calls"] == bwd_calls
+              and s["fwd_err_share"] <= ATTN_TOL[dtype]
+              and s["bwd_err_share"] <= ATTN_BWD_TOL[dtype],
+              f"{what}: the flash kernels against their plain versions: {s}, expected "
+              f"{fwd_calls} forward and {bwd_calls} backward calls")
+        return s
+
+
+def drive_train(yaml, opts, out_dir):
+    """``run_net.main`` training ``yaml`` with ``opts`` into ``out_dir`` on
+    the card, every call of the flash kernels held by a ``FlashShadow``,
+    every kernel count set to 0 just before and read just after. Returns
+    the steps (clips, loss, grad norm, LR), the logged stats, the launches,
+    the shadow's stats, the peak memory and the wall time."""
+    import gc
+    import shutil
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.engine import trainer
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, make_step = [], trainer.make_train_step
+
+    def recording_make_step(cfg, model, optimizer, generator):
+        step = make_step(cfg, model, optimizer, generator)
+
+        def recorded(batch):
+            m = step(batch)
+            steps.append({"clips": batch["labels"].shape[0], "loss": m["loss"].item(),
+                          "grad_norm": m["grad_norm"].item(), "lr": m["lr"]})
+            return m
+
+        return recorded
+
+    argv = ["--cfg", yaml, "--opts", "NUM_GPUS", "1", "TRAIN.DATASET", "syntheticvideo",
+            "SOLVER.MAX_EPOCH", "1", "TEST.ENABLE", "False", "OUTPUT_DIR", out_dir] + list(opts)
+    trainer.make_train_step = recording_make_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with FlashShadow() as shadow:
+            run_net.main(argv)
+    finally:
+        trainer.make_train_step = make_step
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
+          f"non-finite loss: {steps}")
+    types = [s["_type"] for s in logged]
+    check("train_epoch" in types and "val_epoch" in types, f"logged {types}")
+    return dict(steps=steps, logged=logged, launches=launches, shadow=shadow,
+                max_memory_allocated=torch.cuda.max_memory_allocated(), wall_s=wall)
+
+
+def uint8_train_batch(cfg, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    size = (n, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE, 3)
+    return {"inputs": [torch.randint(0, 256, size, dtype=torch.uint8, device="cuda",
+                                     generator=gen)],
+            "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (n,), device="cuda",
+                                    generator=gen),
+            "epoch_exact": 0.5}
+
+
+def timed_train_steps(cfg, batch, n):
+    """``n`` bf16 train steps of a fresh model built from ``cfg`` on one batch
+    already on the card, with no shadow (the measurement of the step):
+    each step's host ms to a synchronize, the p50 of the steps after the
+    first, and the peak memory."""
+    import gc
+
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda")
+    step = make_train_step(cfg, model, construct_optimizer(model, cfg),
+                           torch.Generator().manual_seed(cfg.RNG_SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    out = {"clips": batch["labels"].shape[0], "steps_ms": ms,
+           "step_p50_ms": statistics.median(ms[1:]), "losses": losses,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def capture_attention(cfg, n, seed):
+    """The (q, k, v) that each block of one bf16 train-mode forward of the
+    model built from ``cfg`` hands its constant-shift core, on ``n`` seeded
+    clips."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.ops import attention as ta
+
+    model = build_model(cfg, device="cuda")
+    model.train()
+    clips = uint8_train_batch(cfg, n, seed)["inputs"][0]
+    captured, core = [], ta.flash_pooled_attention
+
+    def recording_core(q, k, v):
+        captured.append((q.clone(), k.clone(), v.clone()))
+        return core(q, k, v)
+
+    ta.flash_pooled_attention = recording_core
+    try:
+        with torch.no_grad():
+            model(maybe_device_preprocess(cfg, [clips]))
+    finally:
+        ta.flash_pooled_attention = core
+    check(len(captured) == cfg.MVIT.DEPTH, f"captured {len(captured)} attention calls")
+    del model
+    return captured
+
+
+def attention_shape_times(phase, captured):
+    """At each distinct block shape of ``captured``: the constant-shift
+    forward (row 6) and backward (row 7) kernels on the card beside their
+    plain versions (device ms, max abs error), their bounds, SDPA's times
+    and backends (forward and ``autograd.grad``), and the depth the forward
+    pads q·kᵀ to. One line per shape; returns the totals over the blocks
+    (per forward and per backward)."""
+    from slowfast_tpu_torch.ops import attention as ta
+
+    totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                         library_fast_ms=0.0) for part in ("fwd", "bwd")}
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums
+    try:
+        for blocks in group_blocks(captured):
+            q, k, v = captured[blocks[0]]
+            do = grad_out(q, v, 11)
+            fwd = lambda: ta.flash_pooled_attention(q, k, v)  # noqa: E731
+            bwd = lambda: ta._launch_bwd(q, k, v, do, exact=False)  # noqa: E731
+            err_f = (fwd().float() - ta.flash_plain(q, k, v).float()).abs().max().item()
+            err_b = max((g.float() - w.float()).abs().max().item()
+                        for g, w in zip(bwd(), ta.flash_bwd_plain(q, k, v, do)))
+            parts = {
+                "fwd": dict(ms=device_ms(fwd), plain_ms=device_ms(lambda: ta.flash_plain(q, k, v)),
+                            **attention_bound(q, k, v), **sdpa_yardsticks(q, k, v),
+                            max_abs_err=err_f),
+                "bwd": dict(ms=device_ms(bwd),
+                            plain_ms=device_ms(lambda: ta.flash_bwd_plain(q, k, v, do)),
+                            **attention_bwd_bound(q, k, v), **sdpa_yardsticks(q, k, v, do),
+                            max_abs_err=err_b)}
+            for part, row in parts.items():
+                row["roofline_share"] = row["bound_ms"] / row["ms"]
+                max_err[part] = max(max_err[part], row["max_abs_err"])
+                for key in totals[part]:
+                    totals[part][key] += len(blocks) * row[key]
+            emit({"phase": phase, "blocks": blocks, "B": q.shape[0], "Nq": q.shape[1],
+                  "Nk": k.shape[1], "nh": q.shape[2], "dq": q.shape[3], "dv": v.shape[3],
+                  "fwd_qk_depth": min(d for d in ta._FWD_QK_DEPTHS if d >= q.shape[3]),
+                  "dtype": str(q.dtype), **parts})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"per_forward": totals["fwd"], "per_backward": totals["bwd"], "max_abs_err": max_err}
+
+
+def phase_mvitv1_train_slice():
+    """``run_net.main`` training MViTv1-B 16x4 (``MVIT_B_16x4_CONV.yaml``) at
+    full width and depth in bf16: the recipe's AdamW, mixup/cutmix,
+    RandAugment, random erasing and clipping, 4 steps of 16 clips, a val
+    epoch, the checkpoint; then the recipe's 10 x 1 test of 2 synthetic
+    videos on that checkpoint; every flash call held. Also the step alone
+    (unheld) and the attention kernels at its shapes."""
+    cfg = family_cfg(MVITV1_YAML, [], "mvitv1")
+    depth = cfg.MVIT.DEPTH
+    out_dir = os.path.join(OUT_DIR, "mvitv1")
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_train(MVITV1_YAML, ["DATA.SYNTHETIC_SIZE", "32", "TRAIN.BATCH_SIZE", "8"],
+                          out_dir)
+        launches, steps = run["launches"], run["steps"]
+        check(len(steps) == 4 and all(s["clips"] == TRAIN_CLIPS for s in steps),
+              f"steps {[s['clips'] for s in steps]}")
+        check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+              and launches["attention_flash"] == depth * (4 + 4)
+              and launches["attention_flash_bwd"] == depth * 4
+              and launches["preprocess_u8"] == 4 + 4, f"train launches {launches}")
+        shadow = run["shadow"].check("mvitv1 train", depth * (4 + 4), depth * 4)
+        ckpt = os.path.join(out_dir, "checkpoints", "checkpoint_epoch_00001.pyth")
+        check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
+
+        # The test loads the epoch-1 checkpoint, the last in OUTPUT_DIR.
+        with FlashShadow() as test_shadow:
+            test_row, test_launches = drive_test(
+                "mvitv1_test", lambda extra: family_cfg(MVITV1_YAML, extra, "mvitv1"), out_dir, 2)
+    check(only_launched(test_launches, ("attention_flash",), depth * test_row["batches"]),
+          f"test launches {test_launches}")
+    test_shadow.check("mvitv1 test", depth * test_row["batches"], 0)
+
+    timing = timed_train_steps(family_cfg(MVITV1_YAML, ["TRAIN.BATCH_SIZE", "8"], "mvitv1"),
+                               uint8_train_batch(cfg, TRAIN_CLIPS, 21), 5)
+    attn = attention_shape_times("mvitv1_attn", capture_attention(cfg, TRAIN_CLIPS, 22))
+    total = {k: launches[k] + test_launches[k] for k in launches}
+    emit({"phase": "mvitv1_train_slice", "steps": len(steps), "clips_per_step": TRAIN_CLIPS,
+          "per_step": steps, "val_epoch": [s for s in run["logged"]
+                                           if s["_type"] == "val_epoch"][-1],
+          "train_wall_s": run["wall_s"], "run_max_memory_allocated": run["max_memory_allocated"],
+          "step_p50_ms": timing["step_p50_ms"], "steps_ms": timing["steps_ms"],
+          "max_memory_allocated": timing["max_memory_allocated"],
+          "train_clips_per_s": TRAIN_CLIPS / timing["step_p50_ms"] * 1e3,
+          "flash_shadow_checks": shadow, "test_flash_shadow_checks": test_shadow.stats,
+          "test": test_row, "attention": attn, "launches": total})
+    return {"launches": total, "attention": attn}
+
+
+def phase_mvitv1_fp32():
+    """One train step of full-width MViTv1-B on 2 clips, card vs CPU on the
+    same weights, fp32 with TF32 off (phase_mvit_train_fp32's limits: the
+    loss within 1e-5, all gradients within 1e-3 relative L2, the
+    structurally zero ones excepted); the card's flash calls held."""
+    from slowfast_tpu_torch.models.build import build_model
+
+    base = ["TPU.COMPUTE_DTYPE", "float32", "AUG.NUM_SAMPLE", "1", "MIXUP.ENABLE", "False",
+            "MVIT.DROPPATH_RATE", "0.0", "MODEL.DROPOUT_RATE", "0.0"]
+    cfg = family_cfg(MVITV1_YAML, base, "mvitv1")
+    depth = cfg.MVIT.DEPTH
+    cpu_model = build_model(cfg, device="cpu")
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    clip = torch.from_numpy(np.random.RandomState(23).randint(
+        0, 255, (2, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE, 3)
+    ).astype(np.uint8))
+    label = torch.tensor([17, 301])
+    t0 = time.perf_counter()
+    want, want_grads, _ = train_one_step(cfg, cpu_model, clip, label, 15.0)
+    cpu_s = time.perf_counter() - t0
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_launches()
+        with FlashShadow() as shadow:
+            got, grads, _ = train_one_step(cfg, model, clip, label, 15.0)
+            torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    missing = [n for n, p in model.named_parameters() if p.requires_grad and (
+        n not in grads or (grads[n].abs().max().item() == 0.0
+                           and not structurally_zero(n, depth)))]
+    check(not missing, f"parameters with no or an all-zero gradient: {missing}")
+    names = [n for n in grads if not structurally_zero(n, depth)]
+    shares = {n: (grads[n] - want_grads[n]).abs().max().item()
+              / want_grads[n].abs().max().item() for n in names}
+    l2_err = rel_l2(grads, want_grads, names)
+    loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+    emit({"phase": "mvitv1_fp32", "clips": 2, "loss": got["loss"], "cpu_loss": want["loss"],
+          "loss_rel_err": loss_err, "grad_rel_l2_err": l2_err, "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+          "worst_grad_err_shares": sorted(shares.items(), key=lambda kv: -kv[1])[:6],
+          "median_grad_err_share": statistics.median(shares.values()),
+          "params_checked": len(names), "cpu_step_s": cpu_s,
+          "flash_shadow_checks": shadow.stats, "launches": launches})
+    check(loss_err <= 1e-5, f"loss {got['loss']} vs CPU {want['loss']}")
+    check(l2_err <= TRAIN_GRAD_L2_TOL, f"gradients differ by {l2_err} (L2)")
+    check(only_launched(launches, FP32_CORE_KEYS["flash"], depth), f"launches {launches}")
+    shadow.check("mvitv1 fp32", depth, depth, torch.float32)
+
+
+def phase_vit_train_slice():
+    """``run_net.main`` training the ViT-B fine-tune (``k400_VIT_B_16x4_FT
+    .yaml``: 12 blocks of 768 channels and 12 heads over 1,568 patches and
+    the cls token, no pooling, mean pooling) at full width and depth in
+    bf16 with the recipe's AdamW and layer decay 0.65: 4 steps of 8 clips
+    and a val epoch, every flash call held; the step alone (unheld); the
+    attention kernels at its shape (Nq = Nk = 1,569, dq = dv = 64)."""
+    cfg = family_cfg(VIT_YAML, [], "vit")
+    depth = cfg.MVIT.DEPTH
+    check(cfg.SOLVER.LAYER_DECAY == 0.65, f"layer decay {cfg.SOLVER.LAYER_DECAY}")
+    per_video = VIT_TRAIN_CLIPS // cfg.AUG.NUM_SAMPLE
+    out_dir = os.path.join(OUT_DIR, "vit")
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_train(VIT_YAML, ["DATA.SYNTHETIC_SIZE", str(4 * per_video),
+                                     "TRAIN.BATCH_SIZE", str(per_video)], out_dir)
+    launches, steps = run["launches"], run["steps"]
+    check(len(steps) == 4 and all(s["clips"] == VIT_TRAIN_CLIPS for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    # 4 train and 4 val batches (the val loader batches TRAIN.BATCH_SIZE videos).
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+          and launches["attention_flash"] == depth * (4 + 4)
+          and launches["attention_flash_bwd"] == depth * 4
+          and launches["preprocess_u8"] == 4 + 4, f"launches {launches}")
+    shadow = run["shadow"].check("vit train", depth * (4 + 4), depth * 4)
+    timing = timed_train_steps(family_cfg(VIT_YAML, ["TRAIN.BATCH_SIZE", str(per_video)], "vit"),
+                               uint8_train_batch(cfg, VIT_TRAIN_CLIPS, 24), 5)
+    attn = attention_shape_times("vit_attn", capture_attention(cfg, VIT_TRAIN_CLIPS, 25))
+    emit({"phase": "vit_train_slice", "steps": len(steps), "clips_per_step": VIT_TRAIN_CLIPS,
+          "layer_decay": cfg.SOLVER.LAYER_DECAY, "per_step": steps,
+          "val_epoch": [s for s in run["logged"] if s["_type"] == "val_epoch"][-1],
+          "train_wall_s": run["wall_s"],
+          "run_max_memory_allocated": run["max_memory_allocated"],
+          "step_p50_ms": timing["step_p50_ms"], "steps_ms": timing["steps_ms"],
+          "max_memory_allocated": timing["max_memory_allocated"],
+          "train_clips_per_s": VIT_TRAIN_CLIPS / timing["step_p50_ms"] * 1e3,
+          "flash_shadow_checks": shadow, "attention": attn, "launches": launches})
+    return {"launches": launches, "attention": attn}
+
+
+def phase_mvit_l_fit():
+    """MViTv2-L 40x3 (``MVITv2_L_40x3_test.yaml``: 48 blocks, 144 -> 1152
+    channels, 40 frames at 312², ``ACT_CHECKPOINT`` on) at full width and
+    depth in bf16: 3 train steps at 4 clips with every flash call held, 3
+    more unheld on the same model (step ms, peak memory), steps at 1 clip
+    without checkpointing for comparison, and the 5 x 3 test of one
+    synthetic video. At depth 4 with L's widths, the checkpointed and the
+    plain step from the same state: equal losses, gradients within twice
+    the distance of two plain steps."""
+    import gc
+
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    extra = ["TPU.COMPUTE_DTYPE", "bfloat16"] + MVIT_L_SOLVER
+    cfg = family_cfg(MVIT_L_YAML, extra, "mvit_l")
+    depth = cfg.MVIT.DEPTH
+    check(cfg.MODEL.ACT_CHECKPOINT and depth == 48, "MViTv2-L recipe")
+    batch = uint8_train_batch(cfg, MVIT_L_TRAIN_CLIPS, 26)
+    model = build_model(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, model, construct_optimizer(model, cfg),
+                           torch.Generator().manual_seed(cfg.RNG_SEED))
+    losses = []
+    reset_launches()
+    with FlashShadow() as shadow:
+        for _ in range(3):
+            losses.append(step(batch)["loss"].item())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(all(np.isfinite(losses)), f"MViTv2-L losses {losses}")
+    # Each checkpointed block's forward runs again in the backward's recompute.
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+          and launches["attention_flash"] == 2 * depth * 3
+          and launches["attention_flash_bwd"] == depth * 3
+          and launches["preprocess_u8"] == 3, f"launches {launches}")
+    shadow.check("mvit_l train", 2 * depth * 3, depth * 3)
+    # The same step alone, unheld, on the same model: its time and memory.
+    torch.cuda.reset_peak_memory_stats()
+    steps_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(step(batch)["loss"].item())
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"MViTv2-L losses {losses}")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_clip = {"inputs": [batch["inputs"][0][:1]], "labels": batch["labels"][:1],
+                "epoch_exact": batch["epoch_exact"]}
+    plain_1 = timed_train_steps(family_cfg(MVIT_L_YAML, extra + ["MODEL.ACT_CHECKPOINT", "False"],
+                                           "mvit_l"), one_clip, 3)
+
+    with FlashShadow() as test_shadow:
+        test_row, test_launches = drive_test(
+            "mvit_l_test", lambda e: family_cfg(MVIT_L_YAML, e, "mvit_l"),
+            os.path.join(OUT_DIR, "mvit_l"), 1)
+    check(only_launched(test_launches, ("attention_flash",), depth * test_row["batches"]),
+          f"test launches {test_launches}")
+    test_shadow.check("mvit_l test", depth * test_row["batches"], 0)
+
+    # Depth 4 at L's widths: checkpointed vs plain from one state.
+    cfg4 = family_cfg(MVIT_L_YAML, extra + MVIT_L_DEPTH4, "mvit_l")
+    cfg4_plain = family_cfg(MVIT_L_YAML, extra + MVIT_L_DEPTH4
+                            + ["MODEL.ACT_CHECKPOINT", "False"], "mvit_l")
+    state = {k: v.cpu() for k, v in build_model(cfg4, device="cuda").state_dict().items()}
+    runs, grads = {}, {}
+    with FlashShadow() as d4_shadow:
+        for name, c in (("plain", cfg4_plain), ("plain_again", cfg4_plain), ("checkpointed", cfg4)):
+            runs[name], grads[name] = train_step_run(c, state, batch)
+    check(runs["checkpointed"]["loss"] == runs["plain"]["loss"]
+          and np.isfinite(runs["plain"]["loss"]),
+          f"depth 4: losses {[r['loss'] for r in runs.values()]}")
+    floor = rel_l2(grads["plain_again"], grads["plain"], grads["plain"])
+    ckpt_l2 = rel_l2(grads["checkpointed"], grads["plain"], grads["plain"])
+    check(ckpt_l2 <= 2 * floor + 1e-6,
+          f"depth 4: checkpointed gradients {ckpt_l2} from plain, run-to-run {floor}")
+    d4 = d4_shadow.check("mvit_l depth 4", sum(r["launches"]["attention_flash"]
+                                              for r in runs.values()), 3 * 4)
+    emit({"phase": "mvit_l_fit", "params": n_params, "clips_per_step": MVIT_L_TRAIN_CLIPS,
+          "frames": cfg.DATA.NUM_FRAMES, "crop": cfg.DATA.TRAIN_CROP_SIZE,
+          "act_checkpoint": True, "losses": losses, "step_p50_ms": statistics.median(steps_ms),
+          "steps_ms": steps_ms, "max_memory_allocated": peak,
+          "train_clips_per_s": MVIT_L_TRAIN_CLIPS / statistics.median(steps_ms) * 1e3,
+          "one_clip_no_checkpoint": plain_1,
+          "flash_shadow_checks": shadow.stats, "test": test_row,
+          "test_flash_shadow_checks": test_shadow.stats,
+          "depth4": {"losses": {k: r["loss"] for k, r in runs.items()},
+                     "checkpointed_vs_plain_grad_rel_l2": ckpt_l2,
+                     "plain_again_vs_plain_grad_rel_l2": floor,
+                     "peak_memory": {k: r["max_memory_allocated"] for k, r in runs.items()},
+                     "flash_shadow_checks": d4},
+          "launches": launches})
+    total = {k: launches[k] + test_launches[k] for k in launches}
+    return {"launches": total}
+
+
+def phase_mvit_det():
+    """MViTv2-S 16x4 with ``DETECTION.ENABLE`` at full width (AVA's head: 80
+    classes, sigmoid, ``bce``; the 7 x 7 map at 1/32): one bf16 train step
+    on ``synthetic_det_batch`` (16 clips, boxes padded to 8), every flash
+    call held, and the ROIAlign launches."""
+    from slowfast_tpu_torch.engine.steps import make_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    cfg = mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16", "DETECTION.ENABLE", "True",
+                    "DETECTION.SPATIAL_SCALE_FACTOR", "32", "MODEL.NUM_CLASSES", "80",
+                    "MODEL.HEAD_ACT", "sigmoid", "MODEL.LOSS_FUNC", "bce",
+                    "MIXUP.ENABLE", "False"])
+    depth = cfg.MVIT.DEPTH
+    clips, labels, boxes, mask = synthetic_det_batch(cfg, CNN_TRAIN_CLIPS)
+    batch = {"inputs": [clips.cuda()], "labels": labels.cuda(), "boxes": boxes.cuda(),
+             "box_mask": mask.cuda(), "epoch_exact": 0.5}
+    model = build_model(cfg, device="cuda")
+    step = make_train_step(cfg, model, construct_optimizer(model, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with FlashShadow() as shadow:
+        m = step(batch)
+        loss = m["loss"].item()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    check(np.isfinite(loss), f"detection loss {loss}")
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), depth)
+          and launches["roi_align"] == 1 and launches["roi_align_bwd"] == 1
+          and launches["preprocess_u8"] == 1, f"launches {launches}")
+    emit({"phase": "mvit_det", "clips": CNN_TRAIN_CLIPS, "boxes_padded_to": boxes.shape[1],
+          "real_boxes": int(mask.sum().item()), "loss": loss, "held_step_ms": ms,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "flash_shadow_checks": shadow.check("mvit_det", depth, depth),
+          "roi_align_launches": {k: launches[k] for k in ("roi_align", "roi_align_bwd")},
+          "launches": launches})
+    del model, step
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2928,6 +3514,11 @@ def main():
     roi = phase_roi_align_kernel()
     phase_det_fp32()
     det = phase_det_train_slice()
+    family = {"mvitv1": phase_mvitv1_train_slice()}
+    phase_mvitv1_fp32()
+    family["vit"] = phase_vit_train_slice()
+    family["mvit_l"] = phase_mvit_l_fit()
+    family["mvit_det"] = phase_mvit_det()
     # The preprocess kernel's launches are those of the SlowFast train run
     # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches) and
     # of the one on decoded video (the same, with 2 val batches, and the
@@ -2945,11 +3536,15 @@ def main():
     }]
     # Attention: per MViTv2-S forward at B=8 in bf16 (both on the tensor
     # cores), summed over its 16 blocks. The constant-shift core's launches
-    # are the MViT test's; the exact core runs on the model path only under
-    # TPU.PALLAS_ATTENTION, so its launches are those of phase
-    # mvit_train_fused's bf16 exact step.
+    # are the MViTv2-S test's and the new MViT family paths' (MViTv1-B,
+    # ViT-B, MViTv2-L, MViT detection); the exact core runs on the model
+    # path only under TPU.PALLAS_ATTENTION, so its launches are those of
+    # phase mvit_train_fused's bf16 exact step.
+    family_fwd = sum(f["launches"]["attention_flash"] for f in family.values())
+    family_bwd = sum(f["launches"]["attention_flash_bwd"] for f in family.values())
     for core, source, replaces, n in (
-            ("flash", "pooled_attention_flash.cu", ":375", mvit_launches["attention_flash"]),
+            ("flash", "pooled_attention_flash.cu", ":375",
+             mvit_launches["attention_flash"] + family_fwd),
             ("exact", "pooled_attention_exact.cu", ":39",
              train_runs["exact"]["attention_exact"])):
         tot = attn["per_forward"][core]
@@ -2963,11 +3558,12 @@ def main():
         })
     # Attention backwards: per MViTv2-S train step at 16 clips in bf16 (on
     # the tensor cores), summed over its 16 blocks. The constant-shift
-    # backward's launches are the train slice's; the exact one's those of
-    # phase mvit_train_fused's bf16 exact step.
+    # backward's launches are the MViTv2-S train slice's and the new MViT
+    # family paths'; the exact one's those of phase mvit_train_fused's bf16
+    # exact step.
     for core, source, replaces, n in (
             ("flash", "pooled_attention_flash_bwd.cu", ":392",
-             train_launches["attention_flash_bwd"]),
+             train_launches["attention_flash_bwd"] + family_bwd),
             ("exact", "pooled_attention_exact_bwd.cu", ":58",
              train_runs["exact"]["attention_exact_bwd"])):
         tot = attn_bwd["per_backward"][core]
@@ -2998,12 +3594,14 @@ def main():
     # ROIAlign (a hand kernel beyond the TPU's: the JAX package's is plain
     # XLA): per SLOWFAST_32x2_R50_SHORT train forward at 16 clips in bf16,
     # summed over its two pathways; launches are det_train_slice's, two a
-    # forward batch and two a train step's backward.
+    # forward batch and two a train step's backward, and mvit_det's one and
+    # one.
     for name, part in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
         tot = roi["per_forward"][part]
         lines.append({
             "name": name, "route": "cuda", "source": "slowfast_tpu_torch/csrc/roi_align.cu",
-            "replaces": "slowfast_tpu/ops/roi_align.py:106", "launches": det["launches"][name],
+            "replaces": "slowfast_tpu/ops/roi_align.py:106",
+            "launches": det["launches"][name] + family["mvit_det"]["launches"][name],
             "max_abs_err": roi["max_abs_err"][part], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": None,

@@ -56,15 +56,22 @@ def init_weights(model, cfg, generator):
 
 def init_mvit_weights(model, cfg, generator):
     """MViT's init (slowfast_tpu/models/attention.py:31-34, mvit.py, stem.py,
-    heads.py): Linear and conv weights, rel-pos tables and the cls token
-    trunc_normal(0.02); Linear and LayerNorm biases 0.02, LayerNorm scales 1;
-    the patch-stem conv bias 0; the head trunc_normal(0.02 * HEAD_INIT_SCALE)
-    with a zero bias. Rel-pos tables are 0 under REL_POS_ZERO_INIT; layer
-    scales keep their constant."""
+    heads.py): Linear and conv weights (``qkv`` or ``q``/``k``/``v``, the
+    shared or unshared pool kernels), rel-pos tables, the cls token and the
+    absolute pos-embeds trunc_normal(0.02); Linear and LayerNorm biases
+    0.02 (``norm_stem`` too), LayerNorm scales 1; the patch-stem conv bias
+    0; the head trunc_normal(0.02 * HEAD_INIT_SCALE) with a zero bias, or,
+    under detection, the RoI head's N(0, FC_INIT_STD) with a zero bias.
+    Rel-pos tables are 0 under REL_POS_ZERO_INIT; layer scales keep their
+    constant."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name == "head.projection.weight":
-            trunc_normal_(p, 0.02 * cfg.MVIT.HEAD_INIT_SCALE, generator)
+            if cfg.DETECTION.ENABLE:
+                with torch.no_grad():
+                    p.normal_(0.0, cfg.MODEL.FC_INIT_STD, generator=generator)
+            else:
+                trunc_normal_(p, 0.02 * cfg.MVIT.HEAD_INIT_SCALE, generator)
         elif name in ("head.projection.bias", "patch_embed.proj.bias"):
             nn.init.zeros_(p)
         elif leaf.startswith("rel_pos") and cfg.MVIT.REL_POS_ZERO_INIT:
@@ -73,7 +80,7 @@ def init_mvit_weights(model, cfg, generator):
             nn.init.ones_(p)
         elif leaf == "bias":
             nn.init.constant_(p, 0.02)
-        elif leaf == "weight" or leaf.startswith("rel_pos") or leaf == "cls_token":
+        elif leaf == "weight" or leaf.startswith(("rel_pos", "cls_token", "pos_embed")):
             trunc_normal_(p, 0.02, generator)
 
 

@@ -9,6 +9,7 @@ copy appears between layers.
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -76,18 +77,72 @@ def gelu_exact(x):
     return _GeluExact.apply(x)
 
 
-class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 in the compute dtype (reference
-    slowfast/models/common.py:7-34). Dropout is identity in eval."""
+def dropout(x, rate, generator):
+    """flax ``nn.Dropout`` in training: each element kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask drawn from
+    ``generator``."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, in_features, hidden_features, out_features, dtype=torch.float32):
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout in the compute dtype
+    (slowfast_tpu/models/common.py:214-246, reference
+    slowfast/models/common.py:7-34). The dropouts draw from ``generator``
+    (the model's, set by ``models.build.build_model``) in training and are
+    identity in eval and at rate 0."""
+
+    def __init__(self, in_features, hidden_features, out_features, drop_rate=0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
+        self.generator = None
+
+    def _drop(self, x):
+        if self.training and self.drop_rate > 0.0:
+            return dropout(x, self.drop_rate, self.generator)
+        return x
 
     def forward(self, x):
-        return linear(gelu_exact(linear(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+        x = self._drop(gelu_exact(linear(x, self.fc1, self.dtype)))
+        return self._drop(linear(x, self.fc2, self.dtype))
+
+
+def _linear_resize_weights(n_in, n_out):
+    """``(n_in, n_out)`` weights of ``jax.image.resize(method="linear")``
+    along one axis (jax/_src/image/scale.py ``compute_weight_mat``, with
+    antialiasing, in fp32 as JAX computes them): a triangle kernel at
+    half-pixel centres, widened by ``n_in / n_out`` when the axis shrinks,
+    each column normalized to sum 1."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize_linear(x, shape):
+    """``x`` resized to ``shape`` as ``jax.image.resize(x, shape, "linear")``
+    (or ``"trilinear"``) does: axis by axis, each axis whose size changes
+    contracted with its weight matrix (``_linear_resize_weights``).
+
+    JAX antialiases when an axis shrinks (the kernel widens to cover every
+    input sample); PySlowFast's ``F.interpolate`` does not. The port follows
+    JAX, the package it is held to (ROADMAP Queue 3)."""
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            w = torch.from_numpy(_linear_resize_weights(n_in, n_out)).to(x.device, x.dtype)
+            x = torch.movedim(torch.tensordot(x, w, dims=([axis], [0])), -1, axis)
+    return x
 
 
 def msra_fill_(weight, generator=None):
@@ -169,10 +224,16 @@ def avg_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
 
     Sums in fp32 and rounds once to the input dtype, which is what ATen's
     CUDA kernel does for bf16 and what its CPU kernel, which has no bf16
-    version, then does too.
+    version, then does too. The padding is explicit zeros: ATen refuses an
+    input axis shorter than the kernel even when the padding covers it (an
+    MViT avg-mode pool of 3 over 2 frames), and zeros counted in the window
+    are what its ``count_include_pad`` computes.
     """
-    y = F.avg_pool3d(to_ncthw(x).to(sum_dtype(x.dtype)), tuple(kernel), tuple(stride or kernel),
-                     tuple(padding))
+    y = to_ncthw(x).to(sum_dtype(x.dtype))
+    if any(padding):
+        pt, ph, pw = padding
+        y = F.pad(y, (pw, pw, ph, ph, pt, pt))
+    y = F.avg_pool3d(y, tuple(kernel), tuple(stride or kernel))
     return to_nthwc(y).to(x.dtype)
 
 

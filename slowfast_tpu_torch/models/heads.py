@@ -15,21 +15,12 @@ from torch import nn
 
 from slowfast_tpu_torch.ops.roi_align import roi_align
 
-from .common import Conv3D, avg_pool3d, linear
+from .common import Conv3D, avg_pool3d, dropout, linear
 
 
 def _check_act(act_func):
     if act_func not in ("softmax", "sigmoid", "none"):
         raise NotImplementedError(f"{act_func} is not supported as an activation function.")
-
-
-def dropout(x, rate, generator):
-    """flax ``nn.Dropout`` in training: each element kept with probability
-    ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask drawn from
-    ``generator``."""
-    keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _activate(x, act_func):
@@ -116,15 +107,17 @@ class X3DHead(nn.Module):
 
 
 class TransformerBasicHead(nn.Module):
-    """Dropout (identity in eval) -> linear in the compute dtype -> (eval)
+    """Dropout (identity in eval) -> ``detach_final_fc`` (the gradient stops
+    at the projection's input) -> linear in the compute dtype -> (eval)
     activation, on ``(B, C)`` features (slowfast_tpu/models/heads.py:262)."""
 
     def __init__(self, dim_in, num_classes, dropout_rate=0.0, act_func="softmax",
-                 dtype=torch.float32):
+                 detach_final_fc=False, dtype=torch.float32):
         super().__init__()
         _check_act(act_func)
         self.dropout_rate = dropout_rate
         self.act_func = act_func
+        self.detach_final_fc = detach_final_fc
         self.dtype = dtype
         self.projection = nn.Linear(dim_in, num_classes)
         self.generator = None  # the model's, set by models.build.build_model
@@ -132,6 +125,8 @@ class TransformerBasicHead(nn.Module):
     def forward(self, x):
         if self.training and self.dropout_rate > 0.0:
             x = dropout(x, self.dropout_rate, self.generator)
+        if self.detach_final_fc:
+            x = x.detach()
         x = linear(x, self.projection, self.dtype)
         return x if self.training else _activate(x, self.act_func)
 

@@ -1,20 +1,26 @@
-"""MViT v2 on (B, N, C) tokens (counterpart of slowfast_tpu/models/mvit.py;
-reference video_model_builder.py:805-1244).
+"""MViT v1/v2 and ViT on (B, N, C) tokens (counterpart of
+slowfast_tpu/models/mvit.py:143-457; reference
+video_model_builder.py:805-1244).
 
-Ported for the MViTv2-S recipe (``configs/Kinetics/MVITv2_S_16x4.yaml``):
-the 3D patch stem, a cls token, decomposed rel-pos, residual pooling and
-the adaptive KV-stride schedule, then the final norm, the cls row and the
-transformer head. Options that recipe does not use raise
+The 3D patch stem, the optional cls token, absolute pos-embeds (joint or
+separable, trilinearly resized when the input grid differs from the
+training one) or fixed sin-cos ones, the stem dropout and norm, the
+MultiScaleBlocks (pooled attention in every mode, decomposed rel-pos,
+residual pooling, the adaptive KV-stride schedule), optionally each run
+under ``torch.utils.checkpoint`` (``MODEL.ACT_CHECKPOINT``), then the final
+norm with the cls row or the mean of the tokens, and the transformer head,
+or the RoI head of detection. Rev-MViT and the 2D patch stem raise
 ``NotImplementedError``.
 """
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import MultiScaleBlock
-from .common import layer_norm, round_width
-from .heads import TransformerBasicHead
+from .common import dropout, layer_norm, resize_linear, round_width
+from .heads import ResNetRoIHead, TransformerBasicHead
 from .stem import PatchEmbed
 from .video_models import compute_dtype
 
@@ -78,34 +84,59 @@ def mvit_block_schedule(cfg):
     return blocks
 
 
+def get_3d_sincos_pos_embed(embed_dim, grid_size, t_size, cls_token=False):
+    """Fixed 3D sin-cos positional embedding (slowfast_tpu/models/mvit.py:116,
+    reference models/utils.py:55-100): ``(t_size * grid_size**2 [+ 1],
+    embed_dim)`` fp32, the temporal quarter first. As in the reference, the
+    first spatial half encodes the W position and the second the H one
+    ("w goes first"; its emb_h/emb_w names are swapped)."""
+    assert embed_dim % 4 == 0
+    embed_dim_spatial = embed_dim // 4 * 3
+    embed_dim_temporal = embed_dim // 4
+
+    def get_1d(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0).reshape([2, 1, grid_size, grid_size])
+    pos_embed_spatial = np.concatenate([get_1d(embed_dim_spatial // 2, grid[0]),
+                                        get_1d(embed_dim_spatial // 2, grid[1])], axis=1)
+    pos_embed_temporal = get_1d(embed_dim_temporal, np.arange(t_size, dtype=np.float32))
+    pos_embed_temporal = np.repeat(pos_embed_temporal[:, None, :], grid_size ** 2, axis=1)
+    pos_embed_spatial = np.tile(pos_embed_spatial[None, :, :], (t_size, 1, 1))
+    pos_embed = np.concatenate([pos_embed_temporal, pos_embed_spatial], axis=-1)
+    pos_embed = pos_embed.reshape(-1, embed_dim)
+    if cls_token:
+        pos_embed = np.concatenate([np.zeros([1, embed_dim]), pos_embed], axis=0)
+    return pos_embed.astype(np.float32)
+
+
 def _check_supported(cfg):
     m = cfg.MVIT
     unported = {
-        "MVIT.USE_ABS_POS / SEP_POS_EMBED (absolute pos-embeds, MViTv1)":
-            m.USE_ABS_POS or m.SEP_POS_EMBED,
-        "MVIT.USE_FIXED_SINCOS_POS": m.USE_FIXED_SINCOS_POS,
-        "MVIT.NORM_STEM": m.NORM_STEM,
-        "MVIT.POOL_FIRST": m.POOL_FIRST,
-        "MVIT.SEPARATE_QKV": m.SEPARATE_QKV,
-        "MVIT.USE_MEAN_POOLING": m.USE_MEAN_POOLING,
-        "MVIT.CLS_EMBED_ON False": not m.CLS_EMBED_ON,
-        "MVIT.PATCH_2D": m.PATCH_2D,
-        f"MVIT.MODE {m.MODE!r}": m.MODE != "conv",
-        f"MVIT.NORM {m.NORM!r}": m.NORM != "layernorm",
+        "MVIT.PATCH_2D (the 2D patch stem)": m.PATCH_2D,
         "MVIT.REV (Rev-MViT)": m.REV.ENABLE,
-        "DETECTION.ENABLE (the RoI head)": cfg.DETECTION.ENABLE,
-        "MODEL.ACT_CHECKPOINT (remat)": cfg.MODEL.ACT_CHECKPOINT,
     }
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"MViT with {name} is not ported yet")
+    if m.NORM != "layernorm":
+        # The reference raises on any other norm too.
+        raise NotImplementedError(f"MViT supports MVIT.NORM 'layernorm' only, not {m.NORM!r}")
 
 
 class MViT(nn.Module):
-    """Patch stem -> cls token -> MultiScaleBlocks -> norm -> cls row -> head.
+    """Patch stem -> (cls token) -> pos-embeds -> (dropout, norm) ->
+    MultiScaleBlocks -> norm -> cls row or token mean -> head; or, under
+    ``DETECTION.ENABLE``, norm -> token grid -> RoI head.
 
-    Takes ``[clips (B, T, H, W, C)]`` and returns logits (train) or
-    activated predictions (eval).
+    Takes ``[clips (B, T, H, W, C)]`` (and under detection the boxes) and
+    returns logits (train) or activated predictions (eval; detection's RoI
+    head activates in both).
     """
 
     def __init__(self, cfg):
@@ -114,13 +145,42 @@ class MViT(nn.Module):
         self.dtype = compute_dtype(cfg)
         m = cfg.MVIT
         ps = list(m.PATCH_STRIDE)
-        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], m.EMBED_DIM,
+        dim = m.EMBED_DIM
+        self.cls_on = m.CLS_EMBED_ON
+        self.use_mean_pooling = m.USE_MEAN_POOLING
+        self.detection = cfg.DETECTION.ENABLE
+        self.act_checkpoint = cfg.MODEL.ACT_CHECKPOINT
+        self.dropout_rate = m.DROPOUT_RATE
+        self.generator = None  # the model's, set by models.build.build_model
+        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], dim,
                                       m.PATCH_KERNEL, ps, m.PATCH_PADDING)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, m.EMBED_DIM))
+        # The training grid (slowfast_tpu/models/mvit.py:184-188).
+        self.patch_dims = [cfg.DATA.NUM_FRAMES // ps[0], cfg.DATA.TRAIN_CROP_SIZE // ps[1],
+                           cfg.DATA.TRAIN_CROP_SIZE // ps[2]]
+        T0, H0, W0 = self.patch_dims
+        s = int(self.cls_on)
+        if self.cls_on:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.register_buffer("sincos", torch.from_numpy(get_3d_sincos_pos_embed(
+            dim, H0, T0, cls_token=self.cls_on))[None] if m.USE_FIXED_SINCOS_POS else None,
+            persistent=False)
+        # SEP_POS_EMBED is read only under USE_ABS_POS (JAX :237-238).
+        self.sep_pos_embed = m.USE_ABS_POS and m.SEP_POS_EMBED
+        self.joint_pos_embed = m.USE_ABS_POS and not m.SEP_POS_EMBED
+        if self.sep_pos_embed:
+            self.pos_embed_spatial = nn.Parameter(torch.zeros(1, H0 * W0, dim))
+            self.pos_embed_temporal = nn.Parameter(torch.zeros(1, T0, dim))
+            if self.cls_on:
+                self.pos_embed_class = nn.Parameter(torch.zeros(1, 1, dim))
+        elif self.joint_pos_embed:
+            # Under USE_FIXED_SINCOS_POS the parameter stays for checkpoint
+            # compatibility, but the fixed table is used (JAX :258-261).
+            self.pos_embed = nn.Parameter(torch.zeros(1, T0 * H0 * W0 + s, dim))
+        self.norm_stem = nn.LayerNorm(dim, eps=1e-6) if m.NORM_STEM else None
+
         # Static pooled-size bookkeeping (slowfast_tpu/models/mvit.py:377-385):
         # kernel s+1 or odd, pad k//2 gives (size - 1) // stride + 1.
-        input_size = [cfg.DATA.NUM_FRAMES // ps[0], cfg.DATA.TRAIN_CROP_SIZE // ps[1],
-                      cfg.DATA.TRAIN_CROP_SIZE // ps[2]]
+        input_size = list(self.patch_dims)
         schedule = mvit_block_schedule(cfg)
         dpr = np.linspace(0, m.DROPPATH_RATE, m.DEPTH)
         self.blocks = nn.ModuleList()
@@ -128,25 +188,122 @@ class MViT(nn.Module):
             self.blocks.append(MultiScaleBlock(
                 dim=blk["dim"], dim_out=blk["dim_out"], num_heads=blk["num_heads"],
                 input_size=tuple(input_size), mlp_ratio=m.MLP_RATIO, qkv_bias=m.QKV_BIAS,
-                droppath_rate=float(dpr[i]), layer_scale_init_value=m.LAYER_SCALE_INIT_VALUE,
+                drop_rate=m.DROPOUT_RATE, droppath_rate=float(dpr[i]),
+                layer_scale_init_value=m.LAYER_SCALE_INIT_VALUE,
                 kernel_q=blk["kernel_q"], kernel_kv=blk["kernel_kv"],
                 stride_q=blk["stride_q"], stride_kv=blk["stride_kv"], mode=m.MODE,
-                has_cls_embed=True, rel_pos_spatial=m.REL_POS_SPATIAL,
-                rel_pos_temporal=m.REL_POS_TEMPORAL, residual_pooling=m.RESIDUAL_POOLING,
-                dim_mul_in_att=m.DIM_MUL_IN_ATT,
-                exact_softmax=bool(cfg.TPU.PALLAS_ATTENTION), dtype=self.dtype))
+                has_cls_embed=self.cls_on, pool_first=m.POOL_FIRST,
+                rel_pos_spatial=m.REL_POS_SPATIAL, rel_pos_temporal=m.REL_POS_TEMPORAL,
+                residual_pooling=m.RESIDUAL_POOLING, dim_mul_in_att=m.DIM_MUL_IN_ATT,
+                separate_qkv=m.SEPARATE_QKV, exact_softmax=bool(cfg.TPU.PALLAS_ATTENTION),
+                dtype=self.dtype))
             if blk["stride_q"]:
                 input_size = [(s - 1) // st + 1 for s, st in zip(input_size, blk["stride_q"])]
         final_dim = schedule[-1]["dim_out"]
         self.norm = nn.LayerNorm(final_dim, eps=1e-6)
-        self.head = TransformerBasicHead(final_dim, cfg.MODEL.NUM_CLASSES,
-                                         dropout_rate=cfg.MODEL.DROPOUT_RATE,
-                                         act_func=cfg.MODEL.HEAD_ACT, dtype=self.dtype)
+        if self.detection:
+            self.head = ResNetRoIHead(
+                dim_in=[final_dim], num_classes=cfg.MODEL.NUM_CLASSES,
+                resolution=[[cfg.DETECTION.ROI_XFORM_RESOLUTION] * 2],
+                scale_factor=[cfg.DETECTION.SPATIAL_SCALE_FACTOR],
+                dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
+                aligned=cfg.DETECTION.ALIGNED)
+        else:
+            self.head = TransformerBasicHead(
+                final_dim, cfg.MODEL.NUM_CLASSES, dropout_rate=cfg.MODEL.DROPOUT_RATE,
+                act_func=cfg.MODEL.HEAD_ACT, detach_final_fc=cfg.MODEL.DETACH_FINAL_FC,
+                dtype=self.dtype)
 
-    def forward(self, xs):
+    def _abs_pos(self, thw):
+        """The absolute pos-embed table ``(1, N [+ 1], C)`` in fp32 for the
+        token grid ``thw``, or None."""
+        s = int(self.cls_on)
+        if self.sep_pos_embed:
+            T0, H0, W0 = self.patch_dims
+            pos = (self.pos_embed_spatial.repeat(1, T0, 1)
+                   + self.pos_embed_temporal.repeat_interleave(H0 * W0, dim=1))
+            if self.cls_on:
+                pos = torch.cat([self.pos_embed_class, pos], dim=1)
+        elif self.joint_pos_embed:
+            pos = self.sincos if self.sincos is not None else self.pos_embed
+        else:
+            return None
+        return self._maybe_interp_pos(pos, thw, s)
+
+    def _maybe_interp_pos(self, pos, thw, s):
+        """The table trilinearly resized from the training grid to ``thw``
+        when they differ (JAX :436-457, reference :1118-1141), on
+        ``resize_linear``: antialiased where an axis shrinks, as JAX is."""
+        if int(np.prod(thw)) == int(np.prod(self.patch_dims)):
+            return pos
+        grid = pos[:, s:].reshape(1, *self.patch_dims, -1)
+        grid = resize_linear(grid, (1, *thw, grid.shape[-1])).reshape(1, -1, grid.shape[-1])
+        return torch.cat([pos[:, :s], grid], dim=1) if s else grid
+
+    def _run_block(self, blk, x, thw):
+        """``blk`` under ``torch.utils.checkpoint`` (non-reentrant). The
+        checkpoint restores the global RNG states for the recompute, not
+        the model's generator, from which drop path and dropout draw: the
+        generator's state is kept before the first run, set again for the
+        recompute and put back after it, so the recompute draws the first
+        run's masks and leaves the generator where the forward left it."""
+        gen = self.generator if self.training else None
+        start = gen.get_state() if gen is not None else None
+        runs = []
+
+        def run(x):
+            if not runs or start is None:
+                runs.append(1)
+                return blk(x, thw)
+            after = gen.get_state()
+            gen.set_state(start)
+            try:
+                return blk(x, thw)
+            finally:
+                gen.set_state(after)
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def forward(self, xs, bboxes=None):
         x, thw = self.patch_embed(xs[0].to(self.dtype))
-        cls_tokens = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls_tokens, x], dim=1)
+        B = x.shape[0]
+        s = int(self.cls_on)
+        if self.sincos is not None:
+            x = x + self.sincos[:, s:].to(x.dtype)
+        if self.cls_on:
+            cls_tokens = self.cls_token.to(x.dtype).expand(B, -1, -1)
+            if self.sincos is not None:
+                cls_tokens = cls_tokens + self.sincos[:, :s].to(x.dtype)
+            x = torch.cat([cls_tokens, x], dim=1)
+        pos = self._abs_pos(thw)
+        if pos is not None:
+            # Under USE_FIXED_SINCOS_POS with a joint pos_embed, the fixed
+            # table is added a second time here, as in the JAX package.
+            x = x + pos.to(x.dtype)
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, self.generator)
+        if self.norm_stem is not None:
+            x = layer_norm(x, self.norm_stem)  # fp32, as flax's LayerNorm gives
         for blk in self.blocks:
-            x, thw = blk(x, thw)
-        return self.head(layer_norm(x, self.norm)[:, 0])
+            if self.act_checkpoint and torch.is_grad_enabled():
+                x, thw = self._run_block(blk, x, thw)
+            else:
+                x, thw = blk(x, thw)
+
+        if self.detection:
+            if bboxes is None:
+                raise ValueError("the detection head needs the boxes")
+            # The RoI head reads this map directly: the norm gives the
+            # compute dtype (JAX :395-397).
+            x = layer_norm(x, self.norm).to(self.dtype)
+            x = x[:, s:].reshape(B, *thw, x.shape[-1])
+            return self.head([x], bboxes)
+        if self.use_mean_pooling:
+            # jnp.mean: sums in fp32, rounds once to the input dtype.
+            x = x[:, s:].mean(dim=1, dtype=torch.float32).to(x.dtype)
+            x = layer_norm(x, self.norm)
+        elif self.cls_on:
+            x = layer_norm(x, self.norm)[:, 0]
+        else:
+            x = layer_norm(x, self.norm).mean(dim=1)
+        return self.head(x)

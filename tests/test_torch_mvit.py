@@ -139,11 +139,14 @@ def test_transformer_head(act):
     ("conv", 3, (3, 3, 3), (1, 2, 2), True),
     ("conv", 2, (3, 3, 3), (1, 4, 4), False),
     ("max", 1, (1, 3, 3), (1, 2, 2), True),
+    # flax's avg_pool counts the padding: the border windows of T = 3.
+    ("avg", 1, (3, 3, 3), (1, 2, 2), True),
+    ("conv_unshared", 1, (3, 3, 3), (1, 2, 2), False),
 ])
 def test_pool_tokens_flat(mode, heads, kernel, stride, has_cls):
     d, thw = 4, (3, 7, 5)
     x = _x((2, int(np.prod(thw)) + int(has_cls), heads * d), 6)
-    w = _x(kernel + (1, d), 7) if mode == "conv" else None
+    w = _x(kernel + (1, d), 7) if mode.startswith("conv") else None
     want, want_thw = jattn.pool_tokens_flat(
         jnp.asarray(x), thw, kernel, stride, mode, has_cls,
         pool_w=None if w is None else jnp.asarray(w), heads=heads)
@@ -177,12 +180,12 @@ def test_augment_qk_relpos(q_shape, k_shape, has_cls):
 @pytest.mark.parametrize("rows", [5, 13, 27])
 def test_rel_pos_table_grows_as_jax_resizes(rows):
     """Odd grids grow a table (5 -> 7 rows in the narrow model's last
-    stage); shrinking, where jax.image.resize antialiases, raises."""
+    stage); a smaller test input shrinks one, where jax.image.resize
+    antialiases, and the port does as JAX does."""
     table = _x((rows, 6), 15)
-    want = jattn._resize_rel_pos(jnp.asarray(table), 2 * rows - 1)
-    assert_close(tattn._resize_rel_pos(torch.from_numpy(table), 2 * rows - 1), want)
-    with pytest.raises(NotImplementedError):
-        tattn._resize_rel_pos(torch.from_numpy(table), rows - 2)
+    for d in (2 * rows - 1, rows - 2):
+        want = jattn._resize_rel_pos(jnp.asarray(table), d)
+        assert_close(tattn._resize_rel_pos(torch.from_numpy(table), d), want)
 
 
 ATTN_KW = dict(dim=16, dim_out=32, input_size=(2, 8, 8), num_heads=2, qkv_bias=True,
@@ -345,9 +348,7 @@ def test_tester_matches_jax_test_meter(jax_side, tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    ["MVIT.USE_ABS_POS", "True"], ["MVIT.USE_MEAN_POOLING", "True"],
-    ["MVIT.CLS_EMBED_ON", "False"], ["MVIT.REV.ENABLE", "True"],
-    ["MVIT.MODE", "max"], ["MVIT.POOL_FIRST", "True"],
+    ["MVIT.REV.ENABLE", "True"], ["MVIT.PATCH_2D", "True"], ["MVIT.NORM", "batchnorm"],
 ])
 def test_unported_options_raise(opt):
     with pytest.raises(NotImplementedError):
