@@ -184,7 +184,26 @@ Phases, each printing one JSON line:
  23. mvit_det  MViTv2-S with DETECTION.ENABLE at full width: one held bf16
               train step on 16 synthetic clips (boxes padded to 8) and its
               ROIAlign launches.
- 24. kernels  one line per kernel with its launches on its path, error,
+ 24. maskfeat_train_slice  run_net.main pretraining MaskFeat
+              (k400_MVITv2_S_16x4_MaskFeat_PT.yaml: MViTv2-S, loader masks
+              of window [8, 7, 7] at ratio 0.4, HOG targets) at full width
+              and depth in bf16 with the recipe's AdamW, clip 0.02 and
+              cosine warmup: 4 steps of 32 clips decoded from a corpus of
+              mp4s (Kinetics, cv2), the checkpoint (reloaded: identical
+              weights), no val epoch; every flash call held; the step alone,
+              unheld (p50, peak memory), and HOG's share of it.
+ 25. mae_train_slice  the same for MAE (k400_VIT_B_16x4_MAE_PT.yaml: ViT-B
+              on the 10% visible tokens, a 4-block 512-wide decoder, AdamW
+              betas 0.9/0.95, loss-explosion kill 2.0) at 64 clips a step;
+              rows 6 and 7 at the encoder's and the decoder's shapes against
+              their plain versions (one clip at a time at the decoder's
+              size), their bounds and SDPA.
+ 26. masked_fp32  one fp32 train step of each masked recipe on 2 clips,
+              card (TF32 off) vs CPU on the same weights, clips and masks:
+              the loss within 1e-5, the gradients within 1e-3 relative L2;
+              HOG on the card against the CPU within 1e-5 (a bin flip only
+              on a float64 bin edge, counted).
+ 27. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 Before the phases, one line per host library that the data path may use
 (cv2, PIL, sklearn): whether it imports, and its version.
@@ -2979,6 +2998,23 @@ def per_clip(fn, *tensors):
         yield b, fn(*(t[b:b + 1] for t in tensors))
 
 
+# Above this many logits (B nh Nq Nk) the plain attention versions run one
+# clip at a time: MAE's decoder at 64 clips has 1.26e9, whose fp32
+# intermediates would take tens of GB.
+PLAIN_WHOLE_LOGITS = 2 ** 29
+
+
+def plain_call(fn, q, k, *rest):
+    """``fn`` (a plain attention function) on the whole batch, or clip by
+    clip past ``PLAIN_WHOLE_LOGITS``, its outputs joined along the batch."""
+    if attention_sizes(q, k, q)[0] <= PLAIN_WHOLE_LOGITS:
+        return fn(q, k, *rest)
+    outs = [out for _, out in per_clip(fn, q, k, *rest)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 class FlashShadow:
     """Inside ``with``, every call of the constant-shift core (kernel rows 6
     and 7) is also held against ``flash_plain`` and, in its backward,
@@ -3037,12 +3073,13 @@ class FlashShadow:
         return s
 
 
-def drive_train(yaml, opts, out_dir):
+def drive_train(yaml, opts, out_dir, expect_val=True):
     """``run_net.main`` training ``yaml`` with ``opts`` into ``out_dir`` on
     the card, every call of the flash kernels held by a ``FlashShadow``,
-    every kernel count set to 0 just before and read just after. Returns
-    the steps (clips, loss, grad norm, LR), the logged stats, the launches,
-    the shadow's stats, the peak memory and the wall time."""
+    every kernel count set to 0 just before and read just after; a val
+    epoch must run when ``expect_val``, else none. Returns the steps
+    (clips, loss, grad norm, LR), the logged stats, the launches, the
+    shadow's stats, the peak memory, the wall time and the trained model."""
     import gc
     import shutil
 
@@ -3050,9 +3087,10 @@ def drive_train(yaml, opts, out_dir):
     from slowfast_tpu_torch.engine import trainer
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    steps, make_step = [], trainer.make_train_step
+    steps, models, make_step = [], [], trainer.make_train_step
 
     def recording_make_step(cfg, model, optimizer, generator):
+        models.append(model)
         step = make_step(cfg, model, optimizer, generator)
 
         def recorded(batch):
@@ -3083,9 +3121,10 @@ def drive_train(yaml, opts, out_dir):
     check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
           f"non-finite loss: {steps}")
     types = [s["_type"] for s in logged]
-    check("train_epoch" in types and "val_epoch" in types, f"logged {types}")
+    check("train_epoch" in types and ("val_epoch" in types) == expect_val, f"logged {types}")
     return dict(steps=steps, logged=logged, launches=launches, shadow=shadow,
-                max_memory_allocated=torch.cuda.max_memory_allocated(), wall_s=wall)
+                max_memory_allocated=torch.cuda.max_memory_allocated(), wall_s=wall,
+                model=models[-1])
 
 
 def uint8_train_batch(cfg, n, seed):
@@ -3133,10 +3172,10 @@ def timed_train_steps(cfg, batch, n):
     return out
 
 
-def capture_attention(cfg, n, seed):
+def capture_attention(cfg, n, seed, calls=None):
     """The (q, k, v) that each block of one bf16 train-mode forward of the
     model built from ``cfg`` hands its constant-shift core, on ``n`` seeded
-    clips."""
+    clips (``calls`` of them, ``MVIT.DEPTH`` by default)."""
     from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
     from slowfast_tpu_torch.models.build import build_model
     from slowfast_tpu_torch.ops import attention as ta
@@ -3156,7 +3195,7 @@ def capture_attention(cfg, n, seed):
             model(maybe_device_preprocess(cfg, [clips]))
     finally:
         ta.flash_pooled_attention = core
-    check(len(captured) == cfg.MVIT.DEPTH, f"captured {len(captured)} attention calls")
+    check(len(captured) == (calls or cfg.MVIT.DEPTH), f"captured {len(captured)} attention calls")
     del model
     return captured
 
@@ -3181,15 +3220,16 @@ def attention_shape_times(phase, captured):
             do = grad_out(q, v, 11)
             fwd = lambda: ta.flash_pooled_attention(q, k, v)  # noqa: E731
             bwd = lambda: ta._launch_bwd(q, k, v, do, exact=False)  # noqa: E731
-            err_f = (fwd().float() - ta.flash_plain(q, k, v).float()).abs().max().item()
+            plain_fwd = lambda: plain_call(ta.flash_plain, q, k, v)  # noqa: E731
+            plain_bwd = lambda: plain_call(ta.flash_bwd_plain, q, k, v, do)  # noqa: E731
+            err_f = (fwd().float() - plain_fwd().float()).abs().max().item()
             err_b = max((g.float() - w.float()).abs().max().item()
-                        for g, w in zip(bwd(), ta.flash_bwd_plain(q, k, v, do)))
+                        for g, w in zip(bwd(), plain_bwd()))
             parts = {
-                "fwd": dict(ms=device_ms(fwd), plain_ms=device_ms(lambda: ta.flash_plain(q, k, v)),
+                "fwd": dict(ms=device_ms(fwd), plain_ms=device_ms(plain_fwd),
                             **attention_bound(q, k, v), **sdpa_yardsticks(q, k, v),
                             max_abs_err=err_f),
-                "bwd": dict(ms=device_ms(bwd),
-                            plain_ms=device_ms(lambda: ta.flash_bwd_plain(q, k, v, do)),
+                "bwd": dict(ms=device_ms(bwd), plain_ms=device_ms(plain_bwd),
                             **attention_bwd_bound(q, k, v), **sdpa_yardsticks(q, k, v, do),
                             max_abs_err=err_b)}
             for part, row in parts.items():
@@ -3198,6 +3238,7 @@ def attention_shape_times(phase, captured):
                 for key in totals[part]:
                     totals[part][key] += len(blocks) * row[key]
             emit({"phase": phase, "blocks": blocks, "B": q.shape[0], "Nq": q.shape[1],
+                  "plain_per_clip": attention_sizes(q, k, v)[0] > PLAIN_WHOLE_LOGITS,
                   "Nk": k.shape[1], "nh": q.shape[2], "dq": q.shape[3], "dv": v.shape[3],
                   "fwd_qk_depth": min(d for d in ta._FWD_QK_DEPTHS if d >= q.shape[3]),
                   "dtype": str(q.dtype), **parts})
@@ -3488,6 +3529,306 @@ def phase_mvit_det():
     return {"launches": launches}
 
 
+MASKFEAT_YAML = os.path.join(ROOT, "configs", "masked_ssl", "k400_MVITv2_S_16x4_MaskFeat_PT.yaml")
+MAE_YAML = os.path.join(ROOT, "configs", "masked_ssl", "k400_VIT_B_16x4_MAE_PT.yaml")
+# The recipes' TRAIN.BATCH_SIZE: MaskFeat's 32 is its global batch; MAE's
+# 64 clips are its 8 cards x 8, here on one card.
+MASKFEAT_TRAIN_CLIPS = 32
+MAE_TRAIN_CLIPS = 64
+MASKED_VIDEOS = 128
+HOG_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def masked_corpus():
+    """``MASKED_VIDEOS`` mp4s of 340 x 256 at 30 fps, 100 frames each (the
+    recipes' 16 frames at rate 4 span 64), written with cv2 into a
+    temporary directory that is removed after; yields (directory, write
+    seconds)."""
+    import tempfile
+
+    from slowfast_tpu_torch.data import synth_media
+
+    root = tempfile.mkdtemp(prefix="masked_corpus_")
+    try:
+        t0 = time.perf_counter()
+        synth_media.make_video_corpus(root, {"videos": MASKED_VIDEOS}, frames=100,
+                                      size=(340, 256), fps=30, workers=os.cpu_count() or 1)
+        yield root, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def kinetics_split(corpus, name, n_train):
+    """A data directory ``name`` in the corpus whose ``train.csv`` lists
+    ``n_train`` clips of the corpus (each video as often as needed) and
+    ``val.csv`` two; returns the run's data options."""
+    videos = open(os.path.join(corpus, "videos.csv")).read().splitlines()
+    data_dir = os.path.join(corpus, name)
+    os.makedirs(data_dir, exist_ok=True)
+    for split, n in (("train", n_train), ("val", 2)):
+        with open(os.path.join(data_dir, f"{split}.csv"), "w") as f:
+            f.writelines(videos[i % len(videos)] + "\n" for i in range(n))
+    return ["TRAIN.DATASET", "kinetics", "DATA.PATH_TO_DATA_DIR", data_dir]
+
+
+def reload_identical(model, cfg, out_dir):
+    """The epoch-1 checkpoint of ``out_dir`` loads into a fresh model with
+    weights equal to ``model``'s; returns the checkpoint's bytes."""
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    path = cu.get_path_to_checkpoint(out_dir, 1, cfg.TASK)
+    check(os.path.exists(path), f"no checkpoint at {path}")
+    fresh = build_model(cfg, device="cuda")
+    fresh.load_state_dict(torch.load(path, map_location="cuda", weights_only=True)["model_state"],
+                          strict=True)
+    want = model.state_dict()
+    for name, t in fresh.state_dict().items():
+        check(torch.equal(t, want[name]), f"reloaded checkpoint differs at {name}")
+    del fresh
+    return os.path.getsize(path)
+
+
+def loader_masks(cfg, n, epoch=0):
+    """``n`` loader masks as the Kinetics items draw them, on the card."""
+    from slowfast_tpu_torch.data.kinetics import gen_mask
+    from slowfast_tpu_torch.data.utils import sample_rngs
+
+    return torch.from_numpy(np.stack([gen_mask(cfg, *sample_rngs(cfg.RNG_SEED, epoch, i))
+                                      for i in range(n)])).cuda()
+
+
+def masked_blocks(cfg):
+    """Attention calls of one masked forward: the trunk's blocks and the
+    decoder's."""
+    n_xf = cfg.MASK.DECODER_DEPTH if cfg.MASK.HEAD_TYPE.endswith("xformer") else 0
+    return max(cfg.MASK.PRETRAIN_DEPTH) + 1 + n_xf * len(cfg.MASK.PRETRAIN_DEPTH)
+
+
+def masked_train_run(name, yaml, clips, corpus):
+    """``run_net.main`` pretraining ``yaml`` for one epoch of 4 steps of
+    ``clips`` decoded clips, every flash call held, then the checkpoint
+    reloaded; returns (cfg, blocks, run, checkpoint bytes)."""
+    cfg = family_cfg(yaml, [], name)
+    blocks = masked_blocks(cfg)
+    check(cfg.TRAIN.BATCH_SIZE == clips and not cfg.MIXUP.ENABLE, f"{name} recipe")
+    out_dir = os.path.join(OUT_DIR, name)
+    opts = kinetics_split(corpus, name, 4 * clips)
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_train(yaml, opts, out_dir, expect_val=False)
+        ckpt_bytes = reload_identical(run["model"], cfg, out_dir)
+    launches, steps = run["launches"], run["steps"]
+    check(len(steps) == 4 and all(s["clips"] == clips for s in steps),
+          f"{name} steps {[s['clips'] for s in steps]}")
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+          and launches["attention_flash"] == blocks * 4
+          and launches["attention_flash_bwd"] == blocks * 4
+          and launches["preprocess_u8"] == 4, f"{name} launches {launches}")
+    run["shadow"].check(f"{name} train", blocks * 4, blocks * 4)
+    del run["model"]
+    return cfg, blocks, run, ckpt_bytes
+
+
+def masked_row(name, cfg, run, ckpt_bytes, timing, **extra):
+    steps = run["steps"]
+    return {"phase": name, "steps": len(steps), "clips_per_step": steps[0]["clips"],
+            "per_step": steps, "train_wall_s": run["wall_s"],
+            "run_max_memory_allocated": run["max_memory_allocated"],
+            "logged_types": sorted({s["_type"] for s in run["logged"]}),
+            "checkpoint_bytes": ckpt_bytes, "reload_identical": True,
+            "step_p50_ms": timing["step_p50_ms"], "steps_ms": timing["steps_ms"],
+            "max_memory_allocated": timing["max_memory_allocated"],
+            "train_clips_per_s": timing["clips"] / timing["step_p50_ms"] * 1e3,
+            "flash_shadow_checks": run["shadow"].stats, **extra,
+            "launches": run["launches"]}
+
+
+def phase_maskfeat_train_slice(corpus):
+    """MaskFeat pretraining on MViTv2-S at the recipe's 32 clips; also the
+    step alone and HOG's time a step."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models.masked import MaskMViT
+    from slowfast_tpu_torch.models.mvit import feature_geometry, mvit_block_schedule
+
+    name, n = "maskfeat_train_slice", MASKFEAT_TRAIN_CLIPS
+    cfg, blocks, run, ckpt_bytes = masked_train_run("maskfeat", MASKFEAT_YAML, n, corpus)
+    check(cfg.MASK.PRED_HOG and cfg.AUG.GEN_MASK_LOADER, "MaskFeat recipe")
+    batch = uint8_train_batch(cfg, n, 31)
+    batch["mask"] = loader_masks(cfg, n)
+    timing = timed_train_steps(cfg, batch, 5)
+    check(timing["max_memory_allocated"] < 70e9,
+          f"MaskFeat at {n} clips takes {timing['max_memory_allocated']} bytes")
+    x = maybe_device_preprocess(cfg, batch["inputs"])[0]
+    ps = cfg.MVIT.PATCH_STRIDE
+    thw = [cfg.DATA.NUM_FRAMES // ps[0], cfg.DATA.TRAIN_CROP_SIZE // ps[1],
+           cfg.DATA.TRAIN_CROP_SIZE // ps[2]]
+    (t_d, h_d, w_d), _ = feature_geometry(mvit_block_schedule(cfg), thw,
+                                          max(cfg.MASK.PRETRAIN_DEPTH))
+    hog_ms = device_ms(lambda: MaskMViT._hog_labels(x, t_d, h_d, w_d), iters=10)
+    emit(masked_row(name, cfg, run, ckpt_bytes, timing, blocks=blocks,
+                    mask_window=list(cfg.AUG.MASK_WINDOW_SIZE), mask_ratio=cfg.AUG.MASK_RATIO,
+                    masked_share=batch["mask"].mean().item(),
+                    hog={"frames": n * t_d, "feature_grid": [t_d, h_d, w_d], "ms": hog_ms,
+                         "share_of_step": hog_ms / timing["step_p50_ms"]}))
+    return {"launches": run["launches"]}
+
+
+def phase_mae_train_slice(corpus):
+    """MAE pretraining on ViT-B at the recipe's 64 clips; also the step
+    alone and rows 6 and 7 at the encoder's and decoder's shapes."""
+    name, n = "mae_train_slice", MAE_TRAIN_CLIPS
+    cfg, blocks, run, ckpt_bytes = masked_train_run("mae", MAE_YAML, n, corpus)
+    check(cfg.MASK.MAE_ON and cfg.SOLVER.BETAS == (0.9, 0.95)
+          and cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR == 2.0, "MAE recipe")
+    timing = timed_train_steps(cfg, uint8_train_batch(cfg, n, 32), 5)
+    attn = attention_shape_times("mae_attn", capture_attention(cfg, n, 33, calls=blocks))
+    emit(masked_row(name, cfg, run, ckpt_bytes, timing, blocks=blocks,
+                    mask_ratio=cfg.AUG.MASK_RATIO, attention=attn))
+    return {"launches": run["launches"], "attention": attn}
+
+
+def hog_card_vs_cpu(x):
+    """HOG of ``x`` (fp32 frames on the CPU) on the card and on the CPU. A
+    pixel whose orientation bin differs (a flip) must sit within 1e-5 of a
+    bin edge in float64; every HOG cell with no flipped pixel within
+    HOG_TOL."""
+    from slowfast_tpu_torch.ops.hog import hog_features, orientation_bins
+
+    want, got = hog_features(x), hog_features(x.cuda()).cpu()
+    bins = orientation_bins(x)[1]
+    flipped = orientation_bins(x.cuda())[1].cpu() != bins
+    xp = np.pad(x.double().numpy(), ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect")
+    sm_v = xp[:, :-2] + 2.0 * xp[:, 1:-1] + xp[:, 2:]
+    sm_h = xp[:, :, :-2] + 2.0 * xp[:, :, 1:-1] + xp[:, :, 2:]
+    phase = np.arctan2(sm_v[:, :, :-2] - sm_v[:, :, 2:], sm_h[:, :-2] - sm_h[:, 2:]) / np.pi * 9
+    edge = np.abs(phase - np.round(phase))[flipped.numpy()]
+    check(edge.size == 0 or edge.max() < 1e-5,
+          f"HOG: {edge.size} bins differ card vs CPU, up to {edge.max()} from a bin edge")
+    # Cells (b, c, i, j) holding a flipped pixel; the others are held to HOG_TOL.
+    B, H, W, C = x.shape
+    cell_flip = flipped[:, :H // 8 * 8, :W // 8 * 8].reshape(B, H // 8, 8, W // 8, 8, C)
+    cell_flip = cell_flip.any(dim=4).any(dim=2).permute(0, 3, 1, 2)[:, :, None]
+    err = (got - want).abs()
+    unflipped_err = err.masked_fill(cell_flip, 0.0).max().item()
+    check(unflipped_err <= HOG_TOL, f"HOG card vs CPU: {unflipped_err}")
+    return {"max_abs_err": err.max().item(), "max_abs_err_unflipped_cells": unflipped_err,
+            "flipped_pixels": int(flipped.sum()), "pixels": flipped.numel(),
+            "flip_max_edge_distance": float(edge.max()) if edge.size else None}
+
+
+def masked_forward(cfg, model, clip, mask):
+    """The eval forward of a masked model on ``clip`` (uint8, on the
+    model's device) with ``mask``: (predictions, [(target, mask)])."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+
+    model.eval()
+    with torch.no_grad():
+        return model(maybe_device_preprocess(cfg, [clip]), mask=mask)
+
+
+def phase_masked_fp32():
+    """One fp32 train step of each masked recipe on 2 clips, card (TF32
+    off) vs CPU on the same weights, clips, loader masks (MaskFeat), mask
+    noise (MAE) and HOG targets (the card's step reads the CPU's HOG of its
+    frames, as it reads the same masks: fp32 atan2 rounds differently on
+    the card at bin edges, `hog` below); every flash call of the card's
+    step held. Beside it the eval forward with the card's own targets:
+    predictions and targets card vs CPU, and its loss on its own and on
+    the CPU's targets. HOG on the card against the CPU."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models import masked
+    from slowfast_tpu_torch.models.build import build_model
+
+    rows, failures = {}, []
+    for name, yaml in (("maskfeat", MASKFEAT_YAML), ("mae", MAE_YAML)):
+        cfg = family_cfg(yaml, ["TPU.COMPUTE_DTYPE", "float32"], name)
+        blocks = masked_blocks(cfg)
+        crop = cfg.DATA.TRAIN_CROP_SIZE
+        clip = torch.from_numpy(np.random.RandomState(34).randint(
+            0, 255, (2, cfg.DATA.NUM_FRAMES, crop, crop, 3)).astype(np.uint8))
+        extra = {"mask": loader_masks(cfg, 2).cpu()} if cfg.AUG.GEN_MASK_LOADER else {}
+        ps = cfg.MVIT.PATCH_STRIDE
+        tokens = cfg.DATA.NUM_FRAMES // ps[0] * (crop // ps[1]) * (crop // ps[2])
+        noise = torch.from_numpy(np.random.RandomState(35).rand(2, tokens).astype(np.float32))
+        draw, hog_labels = masked.uniform_noise, masked.MaskMViT._hog_labels
+        masked.uniform_noise = lambda shape, generator, device: noise.reshape(shape).to(device)
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        try:
+            cpu_model = build_model(cfg, device="cpu")
+            state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+            cpu_fwd = masked_forward(cfg, cpu_model, clip, extra.get("mask"))
+            t0 = time.perf_counter()
+            want, want_grads, _ = train_one_step(cfg, cpu_model, clip,
+                                                 torch.zeros(2, dtype=torch.long), 5.0, extra)
+            cpu_s = time.perf_counter() - t0
+            model = build_model(cfg, device="cuda")
+            model.load_state_dict(state, strict=True)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            mask = extra["mask"].cuda() if extra else None
+            card_fwd = masked_forward(cfg, model, clip.cuda(), mask)
+            masked.MaskMViT._hog_labels = staticmethod(
+                lambda x, *grid: hog_labels(x.cpu(), *grid).to(x.device))
+            reset_launches()
+            with FlashShadow() as shadow:
+                got, grads, _ = train_one_step(cfg, model, clip,
+                                               torch.zeros(2, dtype=torch.long), 5.0, extra)
+                torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+            masked.uniform_noise = draw
+            masked.MaskMViT._hog_labels = staticmethod(hog_labels)
+        (cpu_preds, cpu_labels), (card_preds, card_labels) = cpu_fwd, card_fwd
+        card_preds = [p.cpu() for p in card_preds]
+        card_labels = [(t.cpu(), m.cpu()) for t, m in card_labels]
+        cpu_eval_loss = masked.masked_loss(cpu_preds, cpu_labels).item()
+        forward = {
+            "pred_max_abs_err": max((a - b).abs().max().item()
+                                    for a, b in zip(card_preds, cpu_preds)),
+            "pred_rel_l2_err": max(((a - b).norm() / b.norm()).item()
+                                   for a, b in zip(card_preds, cpu_preds)),
+            "target_max_abs_err": max((a[0] - b[0]).abs().max().item()
+                                      for a, b in zip(card_labels, cpu_labels)),
+            "masks_equal": all(torch.equal(a[1], b[1]) for a, b in zip(card_labels, cpu_labels)),
+            "eval_loss_rel_err": abs(masked.masked_loss(card_preds, card_labels).item()
+                                     - cpu_eval_loss) / cpu_eval_loss,
+            "eval_loss_rel_err_cpu_targets": abs(
+                masked.masked_loss(card_preds, cpu_labels).item() - cpu_eval_loss)
+            / cpu_eval_loss}
+        missing = [n for n, p in model.named_parameters() if n not in grads]
+        l2_err = rel_l2(grads, want_grads, list(grads))
+        loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+        rows[name] = {"blocks": blocks, "loss": got["loss"], "cpu_loss": want["loss"],
+                      "loss_rel_err": loss_err, "grad_rel_l2_err": l2_err,
+                      "grad_l2_tol": TRAIN_GRAD_L2_TOL, "lr": got["lr"], "forward": forward,
+                      "params_checked": len(grads), "cpu_step_s": cpu_s,
+                      "flash_shadow_checks": shadow.stats, "launches": launches}
+        for ok, msg in ((not missing, f"{name}: parameters with no gradient: {missing}"),
+                        (forward["masks_equal"], f"{name}: masks differ card vs CPU"),
+                        (loss_err <= 1e-5, f"{name}: loss {got['loss']} vs CPU {want['loss']}"),
+                        (l2_err <= TRAIN_GRAD_L2_TOL, f"{name}: gradients differ by {l2_err}"),
+                        (only_launched(launches, FP32_CORE_KEYS["flash"], blocks),
+                         f"{name}: {launches}")):
+            if not ok:
+                failures.append(msg)
+        try:
+            shadow.check(f"{name} fp32", blocks, blocks, torch.float32)
+        except RuntimeError as e:
+            failures.append(str(e))
+        del model, cpu_model
+    cfg = family_cfg(MASKFEAT_YAML, ["TPU.COMPUTE_DTYPE", "float32"], "maskfeat")
+    x = maybe_device_preprocess(cfg, [torch.from_numpy(np.random.RandomState(34).randint(
+        0, 255, (2, 16, 224, 224, 3)).astype(np.uint8))])[0]
+    try:
+        hog = hog_card_vs_cpu(x.reshape(-1, *x.shape[2:]))
+    except RuntimeError as e:
+        hog = {"failed": str(e)}
+        failures.append(str(e))
+    emit({"phase": "masked_fp32", "clips": 2, **rows, "hog": hog, "hog_tol": HOG_TOL})
+    check(not failures, f"masked_fp32: {failures}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -3519,16 +3860,24 @@ def main():
     family["vit"] = phase_vit_train_slice()
     family["mvit_l"] = phase_mvit_l_fit()
     family["mvit_det"] = phase_mvit_det()
+    with masked_corpus() as (corpus, corpus_s):
+        emit({"phase": "masked_corpus", "videos": MASKED_VIDEOS, "frames": 100,
+              "size": [340, 256], "write_s": corpus_s})
+        family["maskfeat"] = phase_maskfeat_train_slice(corpus)
+        family["mae"] = phase_mae_train_slice(corpus)
+    phase_masked_fp32()
     # The preprocess kernel's launches are those of the SlowFast train run
-    # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches) and
-    # of the one on decoded video (the same, with 2 val batches, and the
-    # test's 8 batches).
+    # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches), of
+    # the one on decoded video (the same, with 2 val batches, and the test's
+    # 8 batches) and of the two masked pretraining runs (4 steps each).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
         "replaces": "slowfast_tpu/ops/preprocess.py:42",
         "launches": sf_train["launches"]["preprocess_u8"]
-        + (data_launches["preprocess_u8"] if data_launches else 0),
+        + (data_launches["preprocess_u8"] if data_launches else 0)
+        + family["maskfeat"]["launches"]["preprocess_u8"]
+        + family["mae"]["launches"]["preprocess_u8"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
@@ -3539,7 +3888,8 @@ def main():
     # are the MViTv2-S test's and the new MViT family paths' (MViTv1-B,
     # ViT-B, MViTv2-L, MViT detection); the exact core runs on the model
     # path only under TPU.PALLAS_ATTENTION, so its launches are those of
-    # phase mvit_train_fused's bf16 exact step.
+    # phase mvit_train_fused's bf16 exact step. The masked pretraining runs
+    # (MaskFeat, MAE) count in the family's.
     family_fwd = sum(f["launches"]["attention_flash"] for f in family.values())
     family_bwd = sum(f["launches"]["attention_flash_bwd"] for f in family.values())
     for core, source, replaces, n in (

@@ -11,7 +11,9 @@ Training samples the short-side jitter before decoding
 (``DATA.DECODE_AT_SCALE``), jitters the frame rate
 (``DATA.TRAIN_JITTER_FPS``) or takes relative scale and aspect crops, and
 under ``AUG.ENABLE`` applies RandAugment, random erasing and ``NUM_SAMPLE``
-repeated augmentations of one decoded clip. A file that fails to decode is
+repeated augmentations of one decoded clip. Under ``AUG.GEN_MASK_LOADER``
+each clip (each repeat) also carries MaskFeat's mask, ``meta["mask"]``,
+drawn after the clip (``gen_mask``). A file that fails to decode is
 tried again, past half the retries with another random video (not in test).
 Each item draws from its own generators (``utils.sample_rngs``) in the JAX
 package's order, so seeding that package's ``random`` and ``np.random``
@@ -24,7 +26,8 @@ out at the crop's size as cropped; so does the port.
 ``Syntheticvideo`` clips are the same bytes as the JAX package's:
 ``np.random.RandomState(index)`` frames, labels seeded by ``index //
 num_clips`` so every view of a video has one label; an item with repeated
-augmentation is ``NUM_SAMPLE`` copies of the clip. Under
+augmentation is ``NUM_SAMPLE`` copies of the clip. Its masks draw from
+``utils.sample_rngs(RNG_SEED, epoch, index)``. Under
 ``DETECTION.ENABLE`` an item is the AVA item's contract: 1-5 boxes with
 multi-hot labels, drawn from the same generator after the frames
 (slowfast_tpu/data/kinetics.py:566-579).
@@ -45,8 +48,34 @@ logger = logging_utils.get_logger(__name__)
 def _check_uint8(cfg):
     if not cfg.TPU.UINT8_PIPELINE:
         raise NotImplementedError("the port's loader ships uint8 clips only")
-    if cfg.AUG.GEN_MASK_LOADER:
-        raise NotImplementedError("loader masks are not ported yet")
+    if cfg.AUG.GEN_MASK_LOADER and cfg.MVIT.PATCH_2D:
+        raise NotImplementedError("loader masks of the 2D patch stem (MVIT.PATCH_2D, image "
+                                  "MaskFeat on ImageNet) are not ported yet")
+
+
+def gen_mask(cfg, rng, np_rng):
+    """MaskFeat's loader mask at ``AUG.MASK_WINDOW_SIZE`` (t, h, w), float32
+    (slowfast_tpu/data/kinetics.py:477, reference kinetics.py:470-504): a 2D
+    block mask repeated over t (``AUG.MASK_TUBE``), whole frames
+    (``AUG.MASK_FRAMES``, from ``np_rng``) or 3D blocks, about
+    ``AUG.MASK_RATIO`` of the window; blocks draw from ``rng``."""
+    win = cfg.AUG.MASK_WINDOW_SIZE
+    ratio = cfg.AUG.MASK_RATIO
+    max_block = cfg.AUG.MAX_MASK_PATCHES_PER_BLOCK
+    if cfg.AUG.MASK_TUBE:
+        m = transform.MaskingGenerator((win[1], win[2]), round(win[1] * win[2] * ratio),
+                                       max_num_patches=max_block)(rng)
+        return np.tile(m[None], (win[0], 1, 1)).astype(np.float32)
+    if cfg.AUG.MASK_FRAMES:
+        m = np.zeros(win, np.float32)
+        m[np_rng.permutation(win[0])[:round(win[0] * ratio)]] = 1.0
+        return m
+    return transform.MaskingGenerator3D(win, round(np.prod(win) * ratio),
+                                        max_num_patches=max_block)(rng).astype(np.float32)
+
+
+def _mask_meta(cfg, rng, np_rng):
+    return {"mask": gen_mask(cfg, rng, np_rng)} if cfg.AUG.GEN_MASK_LOADER else {}
 
 
 class Kinetics(utils.SeededDataset):
@@ -172,13 +201,15 @@ class Kinetics(utils.SeededDataset):
         args = (spatial_sample_index, min_scale, max_scale, crop_size, rng, np_rng)
         num_aug = cfg.AUG.NUM_SAMPLE if train and cfg.AUG.ENABLE else 1
         if num_aug > 1:
-            out = ([self._process_clip(frames, *args) for _ in range(num_aug)],
-                   [label] * num_aug, [index] * num_aug, [time_out] * num_aug,
-                   [{}] * num_aug)
+            clips, metas = [], []
+            for _ in range(num_aug):  # each repeat's mask after its clip
+                clips.append(self._process_clip(frames, *args))
+                metas.append(_mask_meta(cfg, rng, np_rng))
+            out = (clips, [label] * num_aug, [index] * num_aug, [time_out] * num_aug, metas)
         else:
             pre_cropped = bool(fused_crop) and frames.shape[1:3] == (crop_size, crop_size)
-            out = (self._process_clip(frames, *args, pre_cropped=pre_cropped), label, index,
-                   time_out, {})
+            clip = self._process_clip(frames, *args, pre_cropped=pre_cropped)
+            out = (clip, label, index, time_out, _mask_meta(cfg, rng, np_rng))
         if cfg.DATA.DUMMY_LOAD and self.dummy_output is None:
             self.dummy_output = out
         return out
@@ -208,7 +239,7 @@ class Kinetics(utils.SeededDataset):
         return [np.ascontiguousarray(frames)]
 
 
-class Syntheticvideo:
+class Syntheticvideo(utils.SeededDataset):
     def __init__(self, cfg, mode):
         _check_uint8(cfg)
         self.cfg = cfg
@@ -228,7 +259,7 @@ class Syntheticvideo:
         """Number of clips, as the JAX dataset counts them."""
         return self._size
 
-    def __getitem__(self, index):
+    def sample(self, index, rng, np_rng):
         cfg = self.cfg
         crop = cfg.DATA.TRAIN_CROP_SIZE if self.mode in ("train", "val") else (
             cfg.DATA.TEST_CROP_SIZE)
@@ -248,5 +279,6 @@ class Syntheticvideo:
         num_aug = cfg.AUG.NUM_SAMPLE if self.mode == "train" and cfg.AUG.ENABLE else 1
         if num_aug > 1:
             return ([[frames]] * num_aug, [label] * num_aug, [index] * num_aug,
-                    [np.zeros((1,))] * num_aug, [{}] * num_aug)
-        return [frames], label, index, np.zeros((1,)), {}
+                    [np.zeros((1,))] * num_aug,
+                    [_mask_meta(cfg, rng, np_rng) for _ in range(num_aug)])
+        return [frames], label, index, np.zeros((1,)), _mask_meta(cfg, rng, np_rng)

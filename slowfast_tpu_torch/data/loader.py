@@ -4,7 +4,8 @@ Samples are made by a thread pool a few batches ahead (numpy's generators
 release the GIL while they fill an array), stacked into NTHWC batches
 (uint8 clips, or the float pathways of the AVA dataset), and sent to the
 device from pinned memory with a non-blocking copy, with the padded boxes
-and box mask of a detection batch (``detection_collate``). Labels, clip ids
+and box mask of a detection batch (``detection_collate``) and the masks of
+a masked-pretraining batch (``AUG.GEN_MASK_LOADER``). Labels, clip ids
 and the ragged ``ori_boxes`` and ``metadata`` stay on the host. The train
 split is shuffled per epoch with ``np.random.RandomState(RNG_SEED +
 epoch).permutation`` and drops its last partial batch, as the JAX
@@ -35,7 +36,7 @@ PREFETCH = 2  # batches in the making beyond the one being consumed
 # beyond it), so a detection step sees a few shapes only.
 _BOX_BUCKETS = (4, 8, 16, 32)
 # Entries of a batch's meta that go to the device with the inputs.
-DEVICE_META = ("boxes", "box_mask")
+DEVICE_META = ("boxes", "box_mask", "mask")
 
 
 def build_dataset(dataset_name, cfg, split):
@@ -48,14 +49,18 @@ def build_dataset(dataset_name, cfg, split):
 
 def collate(samples):
     """Stack samples into ``(inputs, labels, clip_ids, times, meta)``: integer
-    labels as int64, multi-hot ones as float32."""
+    labels as int64, multi-hot ones as float32; the loader's masks, when the
+    samples carry them, as ``meta["mask"]`` (slowfast_tpu/data/loader.py:132)."""
     num_pathways = len(samples[0][0])
     inputs = [np.stack([s[0][p] for s in samples]) for p in range(num_pathways)]
     labels = np.asarray([s[1] for s in samples])
     labels = labels.astype(np.float32 if labels.dtype.kind == "f" else np.int64)
     index = np.asarray([s[2] for s in samples], np.int64)
     times = np.stack([np.asarray(s[3]) for s in samples])
-    return inputs, labels, index, times, {}
+    meta = {}
+    if "mask" in samples[0][4]:
+        meta["mask"] = np.stack([s[4]["mask"] for s in samples])
+    return inputs, labels, index, times, meta
 
 
 def _box_bucket(n):

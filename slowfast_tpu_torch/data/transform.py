@@ -1,6 +1,7 @@
 """Spatial and color transforms of host (T, H, W, C) clips (counterpart of
 slowfast_tpu/data/transform.py:14-273, the classification subset with the
-box-aware crops of detection; reference slowfast/datasets/transform.py).
+box-aware crops of detection, and :441-547, MaskFeat's block-mask
+generators; reference slowfast/datasets/transform.py).
 
 Resizes are cv2's, as in the JAX package, so the same uint8 clip and the
 same draws give the same bytes. Every random draw comes from a generator
@@ -236,3 +237,100 @@ def color_normalization(frames, mean, stddev):
     mean = np.asarray(mean, frames.dtype).reshape(1, 1, 1, -1)
     stddev = np.asarray(stddev, frames.dtype).reshape(1, 1, 1, -1)
     return (frames - mean) / stddev
+
+
+class MaskingGenerator:
+    """2D block masking of an ``(h, w)`` window (slowfast_tpu/data/transform.py:441,
+    reference transform.py:776-868): blocks of random area and aspect are
+    added until ``num_masking_patches`` cells are masked or a block cannot
+    be placed; the draws come from ``rng`` (a ``random.Random``)."""
+
+    def __init__(self, mask_window_size, num_masking_patches, min_num_patches=4,
+                 max_num_patches=None, min_aspect=0.3, max_aspect=None):
+        if isinstance(mask_window_size, int):
+            mask_window_size = (mask_window_size,) * 2
+        self.height, self.width = mask_window_size
+        self.num_masking_patches = num_masking_patches
+        self.min_num_patches = min_num_patches
+        self.max_num_patches = (num_masking_patches if max_num_patches is None
+                                else max_num_patches)
+        max_aspect = max_aspect or 1 / min_aspect
+        self.log_aspect_ratio = (math.log(min_aspect), math.log(max_aspect))
+
+    def _mask(self, mask, max_mask_patches, rng):
+        delta = 0
+        for _ in range(10):
+            target_area = rng.uniform(self.min_num_patches, max_mask_patches)
+            aspect_ratio = math.exp(rng.uniform(*self.log_aspect_ratio))
+            h = int(round(math.sqrt(target_area * aspect_ratio)))
+            w = int(round(math.sqrt(target_area / aspect_ratio)))
+            if w < self.width and h < self.height:
+                top = rng.randint(0, self.height - h)
+                left = rng.randint(0, self.width - w)
+                block = mask[top:top + h, left:left + w]
+                num_masked = block.sum()
+                if 0 < h * w - num_masked <= max_mask_patches:
+                    delta += int((block == 0).sum())
+                    block[...] = 1
+                if delta > 0:
+                    break
+        return delta
+
+    def __call__(self, rng):
+        mask = np.zeros((self.height, self.width), np.int64)
+        mask_count = 0
+        while mask_count < self.num_masking_patches:
+            max_mask_patches = min(self.num_masking_patches - mask_count, self.max_num_patches)
+            delta = self._mask(mask, max_mask_patches, rng)
+            if delta == 0:
+                break
+            mask_count += delta
+        return mask
+
+
+class MaskingGenerator3D:
+    """3D (tube) block masking of a ``(t, h, w)`` window
+    (slowfast_tpu/data/transform.py:499, reference transform.py:869-947); the
+    draws come from ``rng`` (a ``random.Random``)."""
+
+    def __init__(self, mask_window_size, num_masking_patches, min_num_patches=4,
+                 max_num_patches=None, min_aspect=0.3, max_aspect=None):
+        self.temporal, self.height, self.width = mask_window_size
+        self.num_masking_patches = num_masking_patches
+        self.min_num_patches = min_num_patches
+        self.max_num_patches = (num_masking_patches if max_num_patches is None
+                                else max_num_patches)
+        max_aspect = max_aspect or 1 / min_aspect
+        self.log_aspect_ratio = (math.log(min_aspect), math.log(max_aspect))
+
+    def _mask(self, mask, max_mask_patches, rng):
+        delta = 0
+        for _ in range(10):
+            target_area = rng.uniform(self.min_num_patches, max_mask_patches)
+            aspect_ratio = math.exp(rng.uniform(*self.log_aspect_ratio))
+            h = int(round(math.sqrt(target_area * aspect_ratio)))
+            w = int(round(math.sqrt(target_area / aspect_ratio)))
+            t = rng.randint(1, self.temporal)
+            if w < self.width and h < self.height:
+                top = rng.randint(0, self.height - h)
+                left = rng.randint(0, self.width - w)
+                t0 = rng.randint(0, self.temporal - t)
+                block = mask[t0:t0 + t, top:top + h, left:left + w]
+                num_masked = block.sum()
+                if 0 < t * h * w - num_masked <= max_mask_patches:
+                    block[...] = 1
+                    delta += t * h * w - num_masked
+                if delta > 0:
+                    break
+        return delta
+
+    def __call__(self, rng):
+        mask = np.zeros((self.temporal, self.height, self.width), np.int64)
+        mask_count = 0
+        while mask_count < self.num_masking_patches:
+            max_mask_patches = min(self.num_masking_patches - mask_count, self.max_num_patches)
+            delta = self._mask(mask, max_mask_patches, rng)
+            if delta == 0:
+                break
+            mask_count += delta
+        return mask

@@ -6,12 +6,15 @@ then through the model in the configured compute dtype with fp32
 parameters. The train step adds mixup, the fp32 loss, the backward, the
 global-norm clip and the optimizer's update; the eval step runs under
 ``torch.inference_mode()``. Under ``DETECTION.ENABLE`` both also take the
-padded boxes, and the loss is masked to the real boxes.
+padded boxes, and the loss is masked to the real boxes. Under
+``MASK.ENABLE`` (MaskFeat, MAE) the model makes its own targets from the
+clips and the loader's mask, and the loss is ``masked_loss``.
 """
 
 import torch
 
 from slowfast_tpu_torch.data.mixup import mixup_batch
+from slowfast_tpu_torch.models.masked import masked_loss
 from slowfast_tpu_torch.models.video_models import compute_dtype
 from slowfast_tpu_torch.ops.preprocess import device_preprocess
 from slowfast_tpu_torch.solver.losses import MULTI_LABEL_LOSSES, get_loss_func
@@ -72,11 +75,14 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
     (slowfast_tpu/engine/steps.py:69). Detection batches also hold
     ``"boxes"`` ``(B, M, 4)`` and ``"box_mask"`` ``(B, M)`` on the device, with
     ``(B, M, K)`` labels; the loss is ``masked_detection_loss`` and no top-k
-    is reported.
+    is reported. Masked pretraining (``MASK.ENABLE``) passes ``batch["mask"]``
+    (the loader's mask on the device, absent when the model draws its own)
+    to the model and scores its ``(preds, [(target, mask)])`` with
+    ``masked_loss`` in fp32; no top-k is reported
+    (slowfast_tpu/engine/steps.py:117-127).
     """
-    if cfg.MASK.ENABLE:
-        raise NotImplementedError("masked (MaskFeat/MAE) training is not ported yet")
     detection = cfg.DETECTION.ENABLE
+    masked = cfg.MASK.ENABLE
     loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
     multi_label = cfg.DATA.MULTI_LABEL or cfg.MODEL.LOSS_FUNC in MULTI_LABEL_LOSSES
     lr_fn = make_epoch_lr_fn(cfg)
@@ -97,6 +103,9 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
         if detection:
             preds = model(inputs, batch["boxes"])
             loss = masked_detection_loss(loss_fun, preds, loss_labels, batch["box_mask"])
+        elif masked:
+            preds, targets = model(inputs, mask=batch.get("mask"))
+            loss = masked_loss(preds, targets)
         else:
             preds = model(inputs)
             loss = loss_fun(preds, loss_labels)
@@ -104,7 +113,7 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
         lr = lr_fn(batch["epoch_exact"])
         grad_norm = optimizer.step(lr)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
-        if not multi_label and not detection:
+        if not (multi_label or detection or masked):
             with torch.no_grad():
                 k1, k5 = topks_correct(preds.float(), labels, (1, 5))
                 b = preds.shape[0]

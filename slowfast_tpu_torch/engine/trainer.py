@@ -9,7 +9,10 @@ and are read back only every ``LOG_PERIOD`` iterations and at the epoch's
 end, so the host does not wait for the card on every step; the NaN guard
 runs on the same cadence. Detection (``DETECTION.ENABLE``) trains on the
 padded boxes and logs through ``AVAMeter``, whose val epoch scores the
-predictions of the real boxes by AVA mAP.
+predictions of the real boxes by AVA mAP. Masked pretraining
+(``MASK.ENABLE``) hands the step the loader's mask, on the device, and
+never runs a val epoch: the reconstruction objective has no val protocol
+(slowfast_tpu/engine/trainer.py:426-430).
 """
 
 import math
@@ -35,7 +38,6 @@ def _check_supported(cfg):
         "MODEL.MODEL_NAME ContrastiveModel (SSL)": cfg.MODEL.MODEL_NAME == "ContrastiveModel",
         "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
         "MULTIGRID": cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
-        "MASK.ENABLE": cfg.MASK.ENABLE,
         "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
         "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
     }
@@ -72,6 +74,8 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
                  "epoch_exact": cur_epoch + cur_iter / data_size}
         if cfg.DETECTION.ENABLE:
             batch.update(boxes=meta["boxes"], box_mask=meta["box_mask"])
+        if "mask" in meta:
+            batch["mask"] = meta["mask"]
         m = step_fn(batch)
         pending.append((cur_iter, m, labels.shape[0]))
         meter.iter_toc()
@@ -154,7 +158,7 @@ def train(cfg, device="cuda"):
                     cur_epoch + 1, epoch_timer.last_epoch_time(), start_epoch + 1,
                     cur_epoch + 1, epoch_timer.avg_epoch_time())
         is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch)
-        is_eval = is_eval_epoch(cfg, cur_epoch)
+        is_eval = is_eval_epoch(cfg, cur_epoch) and not cfg.MASK.ENABLE
         # Precise BN before the checkpoint and the val epoch (reference
         # train_net.py:698-710).
         if cfg.BN.USE_PRECISE_STATS and (is_checkp or is_eval):

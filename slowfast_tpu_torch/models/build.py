@@ -11,7 +11,11 @@ model's device, also seeded by ``cfg.RNG_SEED``.
 import torch
 from torch import nn
 
+import math
+import re
+
 from .common import Conv3D, msra_fill_, trunc_normal_
+from .masked import MaskMViT
 from .mvit import MViT
 from .resnet import ResBlock
 from .video_models import X3D, ResNet, SlowFast
@@ -22,7 +26,7 @@ from .video_models import X3D, ResNet, SlowFast
 # at bottleneck_transform); ResNet_nopool is the ResNet without the
 # temporal pool after res2.
 MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT,
-                  "ResNet": ResNet, "PTVResNet": ResNet, "ResNet_nopool": ResNet,
+                  "MaskMViT": MaskMViT, "ResNet": ResNet, "PTVResNet": ResNet, "ResNet_nopool": ResNet,
                   "PTVCSN": ResNet, "PTVR2plus1D": ResNet, "X3D": X3D, "PTVX3D": X3D}
 
 
@@ -54,6 +58,12 @@ def init_weights(model, cfg, generator):
                 nn.init.zeros_(getattr(m.branch2, m.branch2.FINAL_CONV).weight)
 
 
+# MSSeparateHead's LayerNorms: the last entry of each ``transforms.{i}``.
+_HEAD_NORM = re.compile(r"pred_head\.transforms\.\d+\.\d+\.(weight|bias)")
+_TRUNC_TABLES = ("rel_pos", "cls_token", "pos_embed", "mask_token", "decoder_pos_embed",
+                 "dec_pos_embed")
+
+
 def init_mvit_weights(model, cfg, generator):
     """MViT's init (slowfast_tpu/models/attention.py:31-34, mvit.py, stem.py,
     heads.py): Linear and conv weights (``qkv`` or ``q``/``k``/``v``, the
@@ -63,10 +73,21 @@ def init_mvit_weights(model, cfg, generator):
     0; the head trunc_normal(0.02 * HEAD_INIT_SCALE) with a zero bias, or,
     under detection, the RoI head's N(0, FC_INIT_STD) with a zero bias.
     Rel-pos tables are 0 under REL_POS_ZERO_INIT; layer scales keep their
-    constant."""
+    constant. ``MaskMViT`` (slowfast_tpu/models/masked.py): the mask token
+    and the decoder pos-embeds trunc_normal(0.02); its heads' LayerNorms
+    the default init (scale 1, bias 0) and their projections
+    trunc_normal(0.02) with a zero bias; ``norm`` and ``decoder_embed`` the
+    0.02 bias."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name == "head.projection.weight":
+        if _HEAD_NORM.fullmatch(name) or name.startswith("pred_head.projections."):
+            if leaf == "weight" and p.dim() == 2:
+                trunc_normal_(p, 0.02, generator)
+            elif leaf == "weight":
+                nn.init.ones_(p)
+            else:
+                nn.init.zeros_(p)
+        elif name == "head.projection.weight":
             if cfg.DETECTION.ENABLE:
                 with torch.no_grad():
                     p.normal_(0.0, cfg.MODEL.FC_INIT_STD, generator=generator)
@@ -80,8 +101,25 @@ def init_mvit_weights(model, cfg, generator):
             nn.init.ones_(p)
         elif leaf == "bias":
             nn.init.constant_(p, 0.02)
-        elif leaf == "weight" or leaf.startswith(("rel_pos", "cls_token", "pos_embed")):
+        elif leaf == "weight" or leaf.startswith(_TRUNC_TABLES):
             trunc_normal_(p, 0.02, generator)
+
+
+
+def scale_init_by_depth(model):
+    """``MASK.SCALE_INIT_BY_DEPTH`` (slowfast_tpu/models/build.py:57-95,
+    reference masked.py fix_init_weight): each residual branch's output
+    projection (``attn.proj``, ``mlp.fc2``) of trunk block ``i`` divided by
+    ``sqrt(2 (i + 1))``; in decoder block ``j`` the attention's layer id
+    continues past the trunk's blocks while ``fc2``'s restarts at 1."""
+    n_trunk = len(model.blocks)
+    blocks = [(blk, i + 1, i + 1) for i, blk in enumerate(model.blocks)]
+    for layers in model.pred_head.transforms:
+        blocks += [(blk, j + 1, j + 1 + n_trunk) for j, blk in enumerate(layers[:-1])]
+    with torch.no_grad():
+        for blk, layer_id, attn_id in blocks:
+            blk.attn.proj.weight.div_(math.sqrt(2.0 * attn_id))
+            blk.mlp.fc2.weight.div_(math.sqrt(2.0 * layer_id))
 
 
 def build_model(cfg, device="cuda"):
@@ -92,8 +130,10 @@ def build_model(cfg, device="cuda"):
         raise NotImplementedError(f"model {name!r} is not ported yet; "
                                   f"available: {sorted(MODEL_REGISTRY)}")
     model = MODEL_REGISTRY[name](cfg)
-    init = init_mvit_weights if isinstance(model, MViT) else init_weights
+    init = init_mvit_weights if isinstance(model, (MViT, MaskMViT)) else init_weights
     init(model, cfg, torch.Generator().manual_seed(cfg.RNG_SEED))
+    if cfg.MASK.ENABLE and cfg.MASK.SCALE_INIT_BY_DEPTH:
+        scale_init_by_depth(model)
     model = model.to(device=device, memory_format=torch.channels_last_3d)
     set_generator(model, torch.Generator(device=device).manual_seed(cfg.RNG_SEED))
     return model

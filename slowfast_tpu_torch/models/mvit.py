@@ -84,6 +84,38 @@ def mvit_block_schedule(cfg):
     return blocks
 
 
+def feature_geometry(schedule, thw, depth):
+    """The token grid after block ``depth`` of ``schedule`` from the grid
+    ``thw``, and the q stride accumulated to it, each pooled block's
+    ``(size - 1) // stride + 1`` applied in turn: a cumulative division
+    differs at odd sizes (14 -> 7 -> 4, not 14 // 4 = 3)
+    (slowfast_tpu/models/masked.py:221-236)."""
+    size, acc = list(thw), [1, 1, 1]
+    for blk in schedule[:depth + 1]:
+        if blk["stride_q"]:
+            size = [(s - 1) // st + 1 for s, st in zip(size, blk["stride_q"])]
+            acc = [a * st for a, st in zip(acc, blk["stride_q"])]
+    return size, acc
+
+
+def maskfeat_feature_size(cfg):
+    """H (= W) of the deepest ``MASK.PRETRAIN_DEPTH`` feature grid
+    (slowfast_tpu/models/mvit.py:100)."""
+    size = cfg.DATA.TRAIN_CROP_SIZE // cfg.MVIT.PATCH_STRIDE[-2]
+    grid, _ = feature_geometry(mvit_block_schedule(cfg), [1, size, size],
+                               max(cfg.MASK.PRETRAIN_DEPTH))
+    return grid[1]
+
+
+def sep_pos_table(spatial, temporal, cls=None):
+    """A separable pos-embed table: the ``(1, H·W, C)`` spatial rows tiled
+    over time plus each time step's row of ``(1, T, C)``, with the class
+    rows ``cls`` first."""
+    pos = (spatial.repeat(1, temporal.shape[1], 1)
+           + temporal.repeat_interleave(spatial.shape[1], dim=1))
+    return pos if cls is None else torch.cat([cls, pos], dim=1)
+
+
 def get_3d_sincos_pos_embed(embed_dim, grid_size, t_size, cls_token=False):
     """Fixed 3D sin-cos positional embedding (slowfast_tpu/models/mvit.py:116,
     reference models/utils.py:55-100): ``(t_size * grid_size**2 [+ 1],
@@ -219,11 +251,8 @@ class MViT(nn.Module):
         token grid ``thw``, or None."""
         s = int(self.cls_on)
         if self.sep_pos_embed:
-            T0, H0, W0 = self.patch_dims
-            pos = (self.pos_embed_spatial.repeat(1, T0, 1)
-                   + self.pos_embed_temporal.repeat_interleave(H0 * W0, dim=1))
-            if self.cls_on:
-                pos = torch.cat([self.pos_embed_class, pos], dim=1)
+            pos = sep_pos_table(self.pos_embed_spatial, self.pos_embed_temporal,
+                                self.pos_embed_class if self.cls_on else None)
         elif self.joint_pos_embed:
             pos = self.sincos if self.sincos is not None else self.pos_embed
         else:

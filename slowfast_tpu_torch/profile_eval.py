@@ -11,7 +11,9 @@ forward with its dropout, backward, the clip and the recipe's optimizer) on
 of ``TRAIN_CROP_SIZE``; without it, the eval step on ``TEST.BATCH_SIZE``
 clips of ``TEST_CROP_SIZE``. A detection config (``DETECTION.ENABLE``)
 profiles on the synthetic detection items of that many clips: 1-5 boxes a
-clip, padded to their bucket, with multi-hot labels.
+clip, padded to their bucket, with multi-hot labels. A masked-pretraining
+recipe (``MASK.ENABLE``) trains on its targets, with one loader mask a clip
+(``kinetics.gen_mask``, seeded) where it sets ``AUG.GEN_MASK_LOADER``.
 
 Prints one JSON line: the median step time on the host clock (each step
 ends in a synchronize), the kernel time per step, the device's idle share
@@ -26,6 +28,7 @@ import re
 import statistics
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -103,6 +106,12 @@ def profile_eval(cfg, steps=3, top=12, train=False):
                      labels=torch.from_numpy(labels).cuda(),
                      boxes=torch.from_numpy(meta["boxes"]).cuda(),
                      box_mask=torch.from_numpy(meta["box_mask"]).cuda())
+    if cfg.AUG.GEN_MASK_LOADER:
+        from slowfast_tpu_torch.data.kinetics import gen_mask
+        from slowfast_tpu_torch.data.utils import sample_rngs
+
+        masks = [gen_mask(cfg, *sample_rngs(cfg.RNG_SEED, 0, i)) for i in range(batch_size)]
+        batch["mask"] = torch.from_numpy(np.stack(masks)).cuda()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(batch)

@@ -5,7 +5,11 @@ Each takes ``(predictions, labels)`` and computes in fp32. For the
 cross-entropies labels are integer class ids or soft distributions (mixup's
 targets); for ``bce`` (on probabilities), ``bce_logit`` (on logits) and
 ``mse`` they are targets of the predictions' shape, such as multi-hot
-vectors.
+vectors. ``multi_mse`` takes lists of predictions and targets (each target
+optionally a ``(target, weight)`` pair) and returns the weighted sum and
+the list of the MSEs; the masked-pretraining recipes name it, though their
+train step scores with ``models.masked.masked_loss``, as the JAX package's
+does.
 """
 
 import torch
@@ -58,8 +62,22 @@ def mse(preds, labels, reduction="mean"):
     return _reduce(torch.square(preds.float() - labels), reduction)
 
 
+def multi_mse(preds, labels, reduction="mean"):
+    """Weighted sum of MSEs over lists (slowfast_tpu/solver/losses.py:65,
+    reference losses.py:25-57): ``(sum, [mse, ...])``."""
+    loss_sum, multi = 0.0, []
+    for xt, yt in zip(preds, labels):
+        wt = 1.0
+        if isinstance(yt, (tuple, list)) and len(yt) >= 2:
+            yt, wt = yt[0], yt[1]
+        loss = mse(xt, yt, reduction)
+        loss_sum = loss_sum + loss * wt
+        multi.append(loss)
+    return loss_sum, multi
+
+
 _LOSSES = {"cross_entropy": cross_entropy, "soft_cross_entropy": soft_cross_entropy,
-           "bce": bce, "bce_logit": bce_logit, "mse": mse}
+           "bce": bce, "bce_logit": bce_logit, "mse": mse, "multi_mse": multi_mse}
 # Losses whose labels are targets of the predictions' shape: multi-label
 # training (slowfast_tpu/engine/steps.py:69).
 MULTI_LABEL_LOSSES = ("bce", "bce_logit")

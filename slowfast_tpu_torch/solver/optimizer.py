@@ -50,6 +50,11 @@ def mvit_no_weight_decay(cfg):
             names += ["rel_pos_t"]
         if cfg.MVIT.CLS_EMBED_ON:
             names.append("cls_token")
+        if cfg.MASK.ENABLE and cfg.MASK.DECODER_SEP_POS_EMBED:
+            # Only the separable decoder tables, as in the JAX package: the
+            # reference's joint name "pos_embed_decoder" matches no
+            # parameter, so "decoder_pos_embed" is decayed.
+            names += ["dec_pos_embed_spatial", "dec_pos_embed_temporal", "dec_pos_embed_class"]
     return names
 
 

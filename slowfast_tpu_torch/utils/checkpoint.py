@@ -10,7 +10,11 @@ is mechanical: flax ``blocks_{i}`` -> ``blocks.{i}``, conv kernels
 (d,1,kt,kh,kw)), dense kernels (I,O) -> (O,I), BN and LayerNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var, and parameter
 tables (``cls_token``, ``rel_pos_*``, ``pos_embed*``, layer-scale
-``gamma_*``) copied as they are.
+``gamma_*``, and ``MaskMViT``'s ``mask_token``, ``decoder_pos_embed`` and
+``dec_pos_embed_*``) copied as they are. ``MaskMViT``'s heads map flax
+``transforms_{i}_{j}`` / ``projections_{i}`` to ``transforms.{i}.{j}`` /
+``projections.{i}``, the reference's ``nn.Sequential`` and ``nn.ModuleList``
+keys (slowfast_tpu/utils/checkpoint.py:329-345 maps them back).
 
 Train checkpoints follow the JAX package's path rules
 (slowfast_tpu/utils/checkpoint.py:35-76: ``OUTPUT_DIR/checkpoints/
@@ -35,12 +39,22 @@ logger = get_logger(__name__)
 
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
-_TABLE_PREFIXES = ("cls_token", "rel_pos_", "pos_embed", "gamma_")
+_TABLE_PREFIXES = ("cls_token", "rel_pos_", "pos_embed", "gamma_", "mask_token",
+                   "decoder_pos_embed", "dec_pos_embed_")
+_MODULE_NAMES = ((r"^blocks_(\d+)$", r"blocks.\1"),
+                 (r"^transforms_(\d+)_(\d+)$", r"transforms.\1.\2"),
+                 (r"^projections_(\d+)$", r"projections.\1"))
+
+
+def _torch_name(mod):
+    for pattern, repl in _MODULE_NAMES:
+        mod = re.sub(pattern, repl, mod)
+    return mod
 
 
 def _torch_path(mods):
     """Flax module names -> torch ``state_dict`` prefixes."""
-    return tuple(re.sub(r"^blocks_(\d+)$", r"blocks.\1", m) for m in mods)
+    return tuple(_torch_name(m) for m in mods)
 
 
 def _flatten(tree, prefix=()):
