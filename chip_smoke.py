@@ -203,7 +203,31 @@ Phases, each printing one JSON line:
               the loss within 1e-5, the gradients within 1e-3 relative L2;
               HOG on the card against the CPU within 1e-5 (a bin flip only
               on a float64 bin edge, counted).
- 27. kernels  one line per kernel with its launches on its path, error,
+ 24a. finetune_slice  (after mae_train_slice, on the same corpus)
+              run_net.main fine-tuning MViTv2-S (k400_MVITv2_S_16x4_FT.yaml,
+              CHECKPOINT_EPOCH_RESET) in bf16 from maskfeat_train_slice's
+              checkpoint: 4 decoded steps of 16 clips and a val epoch, from
+              epoch 0; before the first step every loaded tensor equal to
+              the checkpoint's or, where the shapes differ, its resize; the
+              load's counts FINETUNE_COUNTS; every flash call held.
+ 27. rev_mvit_train_slice  run_net.main training Rev-MViT-B 16x4
+              (REV_MVIT_B_16x4_CONV.yaml) at full width and depth in bf16
+              with the reversible backward: 4 steps of 16 clips, a val
+              epoch, the checkpoint (identical eval output on reload), the
+              5 x 1 test of 2 videos; 29 row-6 forwards and 16 row-7
+              backwards a step, every call held (FlashShadow), the
+              rebuilds' included; the step alone, unheld.
+ 28. rev_mvit_memory  the memory a forward leaves for the backward and the
+              peak above the allocation before it, 16 clips in bf16, with
+              the reversible backward, the checkpointed fallback
+              (TPU.REV_BACKPROP False) and neither, at depth 16 and 24: the
+              reversible growth a block under 5% of the checkpointed one;
+              the rebuilt inputs' error against the forward's, per span.
+ 29. rev_mvit_fp32  one fp32 train step of Rev-MViT-B on 2 clips, card
+              (TF32 off) vs CPU: loss within 1e-5, gradients within 1e-3
+              relative L2; the reversible backward against the fallback on
+              the card within the same limits.
+ 30. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 Before the phases, one line per host library that the data path may use
 (cv2, PIL, sklearn): whether it imports, and its version.
@@ -235,6 +259,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 FULL_WIDTH_ATOL = 1e-4  # softmax, card (fp32, TF32 off) vs CPU
+# The MaskFeat pretraining checkpoint loaded into the MViTv2-S fine-tune
+# (finetune_slice): the counts the JAX package's load gives at the recipes'
+# depth and grids (tests/test_torch_finetune.py pins them); "loaded" is the
+# fine-tune's tensors less the missing final norm and head.
+FINETUNE_COUNTS = {"skipped": 0, "missing": 4, "unexpected": 5}
 # Exponentials: 16 a clock on each of the 132 SMs at the 1.98 GHz boost
 # clock (the multi-function unit's ex2 rate, CUDA programming guide).
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -3073,11 +3102,12 @@ class FlashShadow:
         return s
 
 
-def drive_train(yaml, opts, out_dir, expect_val=True):
+def drive_train(yaml, opts, out_dir, expect_val=True, on_model=None):
     """``run_net.main`` training ``yaml`` with ``opts`` into ``out_dir`` on
     the card, every call of the flash kernels held by a ``FlashShadow``,
     every kernel count set to 0 just before and read just after; a val
-    epoch must run when ``expect_val``, else none. Returns the steps
+    epoch must run when ``expect_val``, else none; ``on_model`` is called
+    with the model before its first step. Returns the steps
     (clips, loss, grad norm, LR), the logged stats, the launches, the
     shadow's stats, the peak memory, the wall time and the trained model."""
     import gc
@@ -3091,6 +3121,8 @@ def drive_train(yaml, opts, out_dir, expect_val=True):
 
     def recording_make_step(cfg, model, optimizer, generator):
         models.append(model)
+        if on_model is not None:
+            on_model(model)
         step = make_step(cfg, model, optimizer, generator)
 
         def recorded(batch):
@@ -3576,9 +3608,8 @@ def reload_identical(model, cfg, out_dir):
     """The epoch-1 checkpoint of ``out_dir`` loads into a fresh model with
     weights equal to ``model``'s; returns the checkpoint's bytes."""
     from slowfast_tpu_torch.models.build import build_model
-    from slowfast_tpu_torch.utils import checkpoint as cu
 
-    path = cu.get_path_to_checkpoint(out_dir, 1, cfg.TASK)
+    path = cu_path(out_dir, cfg)
     check(os.path.exists(path), f"no checkpoint at {path}")
     fresh = build_model(cfg, device="cuda")
     fresh.load_state_dict(torch.load(path, map_location="cuda", weights_only=True)["model_state"],
@@ -3606,10 +3637,11 @@ def masked_blocks(cfg):
     return max(cfg.MASK.PRETRAIN_DEPTH) + 1 + n_xf * len(cfg.MASK.PRETRAIN_DEPTH)
 
 
-def masked_train_run(name, yaml, clips, corpus):
+def masked_train_run(name, yaml, clips, corpus, keep=None):
     """``run_net.main`` pretraining ``yaml`` for one epoch of 4 steps of
     ``clips`` decoded clips, every flash call held, then the checkpoint
-    reloaded; returns (cfg, blocks, run, checkpoint bytes)."""
+    reloaded (and copied to ``keep`` when given); returns (cfg, blocks,
+    run, checkpoint bytes)."""
     cfg = family_cfg(yaml, [], name)
     blocks = masked_blocks(cfg)
     check(cfg.TRAIN.BATCH_SIZE == clips and not cfg.MIXUP.ENABLE, f"{name} recipe")
@@ -3618,6 +3650,8 @@ def masked_train_run(name, yaml, clips, corpus):
     with removed_after(os.path.join(out_dir, "checkpoints")):
         run = drive_train(yaml, opts, out_dir, expect_val=False)
         ckpt_bytes = reload_identical(run["model"], cfg, out_dir)
+        if keep is not None:
+            shutil.copyfile(cu_path(out_dir, cfg), keep)
     launches, steps = run["launches"], run["steps"]
     check(len(steps) == 4 and all(s["clips"] == clips for s in steps),
           f"{name} steps {[s['clips'] for s in steps]}")
@@ -3644,15 +3678,23 @@ def masked_row(name, cfg, run, ckpt_bytes, timing, **extra):
             "launches": run["launches"]}
 
 
-def phase_maskfeat_train_slice(corpus):
-    """MaskFeat pretraining on MViTv2-S at the recipe's 32 clips; also the
-    step alone and HOG's time a step."""
+def cu_path(out_dir, cfg):
+    """The epoch-1 checkpoint of the run in ``out_dir``."""
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    return cu.get_path_to_checkpoint(out_dir, 1, cfg.TASK)
+
+
+def phase_maskfeat_train_slice(corpus, keep=None):
+    """MaskFeat pretraining on MViTv2-S at the recipe's 32 clips (its
+    checkpoint copied to ``keep`` for finetune_slice); also the step alone
+    and HOG's time a step."""
     from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
     from slowfast_tpu_torch.models.masked import MaskMViT
     from slowfast_tpu_torch.models.mvit import feature_geometry, mvit_block_schedule
 
     name, n = "maskfeat_train_slice", MASKFEAT_TRAIN_CLIPS
-    cfg, blocks, run, ckpt_bytes = masked_train_run("maskfeat", MASKFEAT_YAML, n, corpus)
+    cfg, blocks, run, ckpt_bytes = masked_train_run("maskfeat", MASKFEAT_YAML, n, corpus, keep)
     check(cfg.MASK.PRED_HOG and cfg.AUG.GEN_MASK_LOADER, "MaskFeat recipe")
     batch = uint8_train_batch(cfg, n, 31)
     batch["mask"] = loader_masks(cfg, n)
@@ -3829,6 +3871,376 @@ def phase_masked_fp32():
     check(not failures, f"masked_fp32: {failures}")
 
 
+REV_YAML = os.path.join(ROOT, "configs", "Kinetics", "REV_MVIT_B_16x4_CONV.yaml")
+MVITV2_FT_YAML = os.path.join(ROOT, "configs", "masked_ssl", "k400_MVITv2_S_16x4_FT.yaml")
+# Rev-MViT-B at depth 24: the 8 extra blocks land in the 384-wide stage
+# (8 x 14 x 14 = 1,568 tokens a clip), its stage-4 entries moved from 14 to 22.
+REV_DEPTH24 = ["MVIT.DEPTH", "24", "MVIT.DIM_MUL", "[[1, 2.0], [3, 2.0], [22, 2.0]]",
+               "MVIT.HEAD_MUL", "[[1, 2.0], [3, 2.0], [22, 2.0]]",
+               "MVIT.POOL_Q_STRIDE", "[[1, 1, 2, 2], [3, 1, 2, 2], [22, 1, 2, 2]]",
+               "MVIT.REV.BUFFER_LAYERS", "[1, 3, 22]"]
+# The reversible path's activation growth per extra block, as a share of
+# the checkpointed path's, must stay under this.
+REV_GROWTH_SHARE = 0.05
+FINETUNE_CLIPS = 16  # TRAIN.BATCH_SIZE 8 x AUG.NUM_SAMPLE 2
+
+
+def rev_launches_per_step(cfg):
+    """Row-6 forwards and row-7 backwards of one Rev-MViT train step: each
+    transition's forward once, each reversible block's twice (its forward
+    and its rebuild); one backward a block."""
+    n_rev = cfg.MVIT.DEPTH - len(cfg.MVIT.REV.BUFFER_LAYERS)
+    return cfg.MVIT.DEPTH + n_rev, cfg.MVIT.DEPTH
+
+
+def eval_identical(model, cfg, path):
+    """A fresh model loaded from the checkpoint ``path`` gives ``model``'s
+    eval output, bit for bit, on a seeded batch of 8 clips."""
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+
+    fresh = build_model(cfg, device="cuda")
+    fresh.load_state_dict(torch.load(path, map_location="cuda", weights_only=True)["model_state"],
+                          strict=True)
+    batch = {"inputs": uint8_train_batch(cfg, 8, 41)["inputs"]}
+    same = torch.equal(make_eval_step(cfg, model)(batch), make_eval_step(cfg, fresh)(batch))
+    del fresh
+    return same
+
+
+def phase_rev_mvit_train_slice():
+    """``run_net.main`` training Rev-MViT-B 16x4 (``REV_MVIT_B_16x4_CONV
+    .yaml``: 16 layers, transitions at [1, 3, 14], the reversible backward)
+    at full width and depth in bf16 on synthetic video: 4 steps of 16 clips
+    with the recipe's AdamW, mixup/cutmix, RandAugment and random erasing,
+    a val epoch, the checkpoint (reloaded: identical eval output), then the
+    5 x 1 test of 2 videos on it; every call of rows 6 and 7 held against
+    flash_plain / flash_bwd_plain, the rebuilds' included; 29 forwards and
+    16 backwards a step. Also the step alone, unheld (p50, peak memory)."""
+    cfg = family_cfg(REV_YAML, [], "rev_mvit")
+    depth = cfg.MVIT.DEPTH
+    fwd, bwd = rev_launches_per_step(cfg)
+    check(depth == 16 and (fwd, bwd) == (29, 16) and cfg.TPU.REV_BACKPROP
+          and not cfg.MVIT.CLS_EMBED_ON, "Rev-MViT recipe")
+    out_dir = os.path.join(OUT_DIR, "rev_mvit")
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_train(REV_YAML, ["DATA.SYNTHETIC_SIZE", "32", "TRAIN.BATCH_SIZE", "8"],
+                          out_dir)
+        launches, steps = run["launches"], run["steps"]
+        check(len(steps) == 4 and all(s["clips"] == TRAIN_CLIPS for s in steps),
+              f"steps {[s['clips'] for s in steps]}")
+        # 4 train steps and 4 val batches (one forward a block).
+        check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+              and launches["attention_flash"] == fwd * 4 + depth * 4
+              and launches["attention_flash_bwd"] == bwd * 4
+              and launches["preprocess_u8"] == 4 + 4, f"train launches {launches}")
+        shadow = run["shadow"].check("rev_mvit train", fwd * 4 + depth * 4, bwd * 4)
+        identical = eval_identical(run["model"], cfg, cu_path(out_dir, cfg))
+        check(identical, "the reloaded checkpoint's eval output differs")
+        del run["model"]
+        with FlashShadow() as test_shadow:
+            test_row, test_launches = drive_test(
+                "rev_mvit_test", lambda extra: family_cfg(REV_YAML, extra, "rev_mvit"), out_dir, 2)
+    check(only_launched(test_launches, ("attention_flash",), depth * test_row["batches"]),
+          f"test launches {test_launches}")
+    test_shadow.check("rev_mvit test", depth * test_row["batches"], 0)
+    timing = timed_train_steps(family_cfg(REV_YAML, ["TRAIN.BATCH_SIZE", "8"], "rev_mvit"),
+                               uint8_train_batch(cfg, TRAIN_CLIPS, 42), 5)
+    total = {k: launches[k] + test_launches[k] for k in launches}
+    emit({"phase": "rev_mvit_train_slice", "steps": len(steps), "clips_per_step": TRAIN_CLIPS,
+          "per_step": steps, "flash_fwd_per_step": fwd, "flash_bwd_per_step": bwd,
+          "val_epoch": [s for s in run["logged"] if s["_type"] == "val_epoch"][-1],
+          "reload_identical": identical, "train_wall_s": run["wall_s"],
+          "run_max_memory_allocated": run["max_memory_allocated"],
+          "step_p50_ms": timing["step_p50_ms"], "steps_ms": timing["steps_ms"],
+          "max_memory_allocated": timing["max_memory_allocated"],
+          "train_clips_per_s": TRAIN_CLIPS / timing["step_p50_ms"] * 1e3,
+          "flash_shadow_checks": shadow, "test_flash_shadow_checks": test_shadow.stats,
+          "test": test_row, "launches": total})
+    return {"launches": total}
+
+
+def rev_model(cfg, mode):
+    """Rev-MViT on the card; ``mode`` "plain" runs its reversible blocks
+    with neither the reversible backward nor checkpointing (every
+    intermediate kept), the yardstick of the activation memory."""
+    import types
+
+    from slowfast_tpu_torch.models.build import build_model
+
+    model = build_model(cfg, device="cuda")
+    if mode == "plain":
+        def plain_span(self, idx, x1, x2, thws):
+            for i in idx:
+                x1, x2 = self.layers[i](x1, x2, thws[i])
+            return x1, x2
+
+        model.rev_backbone._run_span = types.MethodType(plain_span, model.rev_backbone)
+    return model
+
+
+def rev_activation_bytes(cfg, batch, mode):
+    """The activation memory of one bf16 train step, after a first step (the
+    optimizer state and the parameter gradients exist; the gradients,
+    zeroed, are accumulated into in place, so they count as before the
+    forward): ``held_bytes``, what the forward leaves allocated for the
+    backward, and ``activation_bytes``, the peak ``max_memory_allocated`` of
+    the forward and backward, each minus what is allocated just before the
+    forward."""
+    import gc
+
+    from slowfast_tpu_torch.engine.steps import make_train_step, maybe_device_preprocess
+    from slowfast_tpu_torch.solver.losses import get_loss_func
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = rev_model(cfg, mode)
+    step = make_train_step(cfg, model, construct_optimizer(model, cfg),
+                           torch.Generator().manual_seed(cfg.RNG_SEED))
+    step(batch)
+    inputs = maybe_device_preprocess(cfg, batch["inputs"])
+    loss_fun = get_loss_func(cfg.MODEL.LOSS_FUNC)
+    for p in model.parameters():
+        p.grad.zero_()
+    model.train()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = loss_fun(model(inputs), batch["labels"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    loss.backward()
+    torch.cuda.synchronize()
+    out = {"held_bytes": held, "activation_bytes": torch.cuda.max_memory_allocated() - before,
+           "allocated_before_forward": before, "loss": loss.item()}
+    check(np.isfinite(out["loss"]), f"non-finite loss {out}")
+    del model, step, loss
+    return out
+
+
+def rev_rebuild_errors(cfg, batch):
+    """One bf16 train forward and backward with each reversible block's F
+    and G inputs recorded in the forward and in the rebuild; per span, the
+    worst relative L2 error of the rebuilt x2 (F's input) and y1 (G's
+    input) against the forward's."""
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models.reversible import ReversibleBlock
+    from slowfast_tpu_torch.solver.losses import get_loss_func
+
+    model = rev_model(cfg, "rev")
+    model.train()
+    seen = {}
+    spans, span = [], []
+    for i, blk in enumerate(model.rev_backbone.layers):
+        if not isinstance(blk, ReversibleBlock):
+            spans, span = spans + [span] * bool(span), []
+            continue
+        span.append(i)
+        f, g = blk.f, blk.g
+
+        def rec_f(x2, thw, i=i, f=f):
+            seen.setdefault((i, "x2"), []).append(x2.detach().float().clone())
+            return f(x2, thw)
+
+        def rec_g(y1, i=i, g=g):
+            seen.setdefault((i, "y1"), []).append(y1.detach().float().clone())
+            return g(y1)
+
+        blk.f, blk.g = rec_f, rec_g
+    spans += [span] * bool(span)
+    inputs = maybe_device_preprocess(cfg, batch["inputs"])
+    get_loss_func(cfg.MODEL.LOSS_FUNC)(model(inputs), batch["labels"]).backward()
+    rows = []
+    for idx in spans:
+        row = {"blocks": idx}
+        for what in ("x2", "y1"):
+            errs = {}
+            for i in idx:
+                fwd, rebuilt = seen[(i, what)]
+                errs[i] = ((rebuilt - fwd).norm() / fwd.norm()).item()
+            worst = max(errs, key=errs.get)
+            row[what] = {"worst_block": worst, "rel_l2": errs[worst]}
+        rows.append(row)
+    del model, seen
+    return rows
+
+
+def phase_rev_mvit_memory():
+    """Activation memory of Rev-MViT-B at full width, 16 clips, bf16: the
+    reversible backward, the checkpointed fallback (``TPU.REV_BACKPROP
+    False``) and no checkpointing at all, at depth 16 and at depth 24 (8
+    more blocks in the 384-wide stage). The reversible path's growth per
+    extra block of the memory held for the backward must stay under 5% of
+    the checkpointed path's, which keeps two 16 x 1,568 x 384 bf16 streams
+    a block. (The peak is reported too: it falls in the 25,088-token first
+    stage, before the extra blocks' streams exist, and grows with neither.)
+    Also the rebuilt inputs' error against the forward's, per span."""
+    opts = ["MIXUP.ENABLE", "False", "MODEL.LOSS_FUNC", "cross_entropy", "TRAIN.BATCH_SIZE", "8"]
+    rows = {}
+    for depth, extra in ((16, []), (24, REV_DEPTH24)):
+        for mode in ("rev", "checkpoint", "plain"):
+            cfg = family_cfg(REV_YAML, opts + extra + ["TPU.REV_BACKPROP", str(mode == "rev")],
+                             "rev_mvit")
+            check(cfg.MVIT.DEPTH == depth, f"depth {cfg.MVIT.DEPTH}")
+            rows[f"{mode}_{depth}"] = rev_activation_bytes(
+                cfg, uint8_train_batch(cfg, TRAIN_CLIPS, 43), mode)
+    growth, peak_growth = ({mode: (rows[f"{mode}_24"][key] - rows[f"{mode}_16"][key]) / 8
+                            for mode in ("rev", "checkpoint", "plain")}
+                           for key in ("held_bytes", "activation_bytes"))
+    cfg = family_cfg(REV_YAML, opts, "rev_mvit")
+    errors = rev_rebuild_errors(cfg, uint8_train_batch(cfg, TRAIN_CLIPS, 44))
+    share = growth["rev"] / growth["checkpoint"]
+    emit({"phase": "rev_mvit_memory", "clips": TRAIN_CLIPS, "dtype": "bfloat16", **rows,
+          "held_growth_per_block": growth, "peak_growth_per_block": peak_growth,
+          "rev_over_checkpoint_growth": share,
+          "growth_share_limit": REV_GROWTH_SHARE,
+          "two_streams_bytes": 2 * TRAIN_CLIPS * 1568 * 384 * 2, "rebuild_errors": errors})
+    check(growth["checkpoint"] > 0 and share < REV_GROWTH_SHARE,
+          f"reversible held-memory growth {growth['rev']} per block against the "
+          f"checkpointed {growth['checkpoint']}")
+
+
+def phase_rev_mvit_fp32():
+    """One fp32 train step of full-width Rev-MViT-B on 2 clips, card (TF32
+    off) against the CPU on the same weights: the loss within 1e-5, the
+    gradients within 1e-3 relative L2; on the card, the reversible backward
+    against the checkpointed fallback within the same limits. Every flash
+    call held; 29 FMA forwards and 16 FMA backwards a step."""
+    from slowfast_tpu_torch.models.build import build_model
+
+    base = ["TPU.COMPUTE_DTYPE", "float32", "AUG.NUM_SAMPLE", "1", "MIXUP.ENABLE", "False",
+            "MVIT.DROPPATH_RATE", "0.0", "MODEL.DROPOUT_RATE", "0.0"]
+    cfg = family_cfg(REV_YAML, base, "rev_mvit")
+    depth = cfg.MVIT.DEPTH
+    fwd, bwd = rev_launches_per_step(cfg)
+    cpu_model = build_model(cfg, device="cpu")
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    clip = torch.from_numpy(np.random.RandomState(27).randint(
+        0, 255, (2, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE, 3)
+    ).astype(np.uint8))
+    label = torch.tensor([17, 301])
+    t0 = time.perf_counter()
+    want, want_grads, _ = train_one_step(cfg, cpu_model, clip, label, 15.0)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    card = {}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for rev in (True, False):
+            model = build_model(family_cfg(REV_YAML, base + ["TPU.REV_BACKPROP", str(rev)],
+                                           "rev_mvit"), device="cuda")
+            model.load_state_dict(state, strict=True)
+            reset_launches()
+            with FlashShadow() as shadow:
+                got, grads, _ = train_one_step(cfg, model, clip, label, 15.0)
+                torch.cuda.synchronize()
+            card[rev] = (got, grads, read_launches(), shadow)
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got, grads, launches, shadow = card[True]
+    # A bias on every key shifts a logit row by a constant: norm_k.bias's
+    # gradient is zero in exact arithmetic.
+    missing = [n for n in state if n not in grads or (
+        grads[n].abs().max().item() == 0.0 and not n.endswith("norm_k.bias"))]
+    names = [n for n in grads if not n.endswith("norm_k.bias")]
+    loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+    l2_err = rel_l2(grads, want_grads, names)
+    off, off_grads, off_launches, off_shadow = card[False]
+    off_loss_err = abs(off["loss"] - got["loss"]) / got["loss"]
+    off_l2 = rel_l2(grads, off_grads, names)
+    emit({"phase": "rev_mvit_fp32", "clips": 2, "loss": got["loss"], "cpu_loss": want["loss"],
+          "loss_rel_err": loss_err, "grad_rel_l2_err": l2_err, "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+          "fallback_loss_rel_err": off_loss_err, "rev_vs_fallback_grad_rel_l2": off_l2,
+          "params_checked": len(names), "cpu_step_s": cpu_s,
+          "flash_shadow_checks": shadow.stats, "fallback_flash_shadow_checks": off_shadow.stats,
+          "launches": launches, "fallback_launches": off_launches})
+    check(not missing, f"parameters with no or an all-zero gradient: {missing}")
+    check(loss_err <= 1e-5, f"loss {got['loss']} vs CPU {want['loss']}")
+    check(l2_err <= TRAIN_GRAD_L2_TOL, f"gradients differ from the CPU's by {l2_err} (L2)")
+    check(off_loss_err <= 1e-5 and off_l2 <= TRAIN_GRAD_L2_TOL,
+          f"reversible vs checkpointed: loss {off_loss_err}, gradients {off_l2}")
+    for lc, sh in ((launches, shadow), (off_launches, off_shadow)):
+        check(only_launched(lc, FP32_CORE_KEYS["flash"], None)
+              and lc["attention_flash_fma"] == fwd and lc["attention_flash_fma_bwd"] == bwd,
+              f"launches {lc}")
+        sh.check("rev_mvit fp32", fwd, bwd, torch.float32)
+    check(depth == 16, "depth")
+
+
+def phase_finetune_slice(corpus, pt_ckpt):
+    """``run_net.main`` fine-tuning MViTv2-S (``k400_MVITv2_S_16x4_FT.yaml``:
+    ``CHECKPOINT_EPOCH_RESET``, layer decay 0.75, AdamW, mixup) at full
+    width and depth in bf16 from ``pt_ckpt``, the checkpoint that
+    maskfeat_train_slice wrote: 4 steps of 16 clips decoded from the mp4
+    corpus and a val epoch. Before the first step every tensor the load
+    wrote equals the checkpoint's bit for bit, or, where the shapes differ
+    (block 15's rel-pos tables: MaskFeat keeps the 14² grid there), its
+    resize by ``_surgery_convert``; the load's counts are
+    ``FINETUNE_COUNTS``; the run starts at epoch 0; every flash call held."""
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    cfg = family_cfg(MVITV2_FT_YAML, ["TRAIN.BATCH_SIZE", "8"], "finetune")
+    depth = cfg.MVIT.DEPTH
+    check(cfg.TRAIN.CHECKPOINT_EPOCH_RESET and depth == 16
+          and FINETUNE_CLIPS == cfg.TRAIN.BATCH_SIZE * cfg.AUG.NUM_SAMPLE, "fine-tune recipe")
+    out_dir = os.path.join(OUT_DIR, "finetune")
+    opts = kinetics_split(corpus, "finetune", 4 * cfg.TRAIN.BATCH_SIZE) + [
+        "TRAIN.BATCH_SIZE", str(cfg.TRAIN.BATCH_SIZE), "TRAIN.CHECKPOINT_FILE_PATH", pt_ckpt]
+    reports, snapshots, load = [], [], cu.load_weights
+
+    def recording_load(*args, **kwargs):
+        reports.append(load(*args, **kwargs))
+        return reports[-1]
+
+    cu.load_weights = recording_load
+    try:
+        with removed_after(os.path.join(out_dir, "checkpoints")):
+            run = drive_train(MVITV2_FT_YAML, opts, out_dir, on_model=lambda m: snapshots.append(
+                {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}))
+    finally:
+        cu.load_weights = load
+    del run["model"]
+    pt_state = torch.load(pt_ckpt, map_location="cpu", weights_only=True)["model_state"]
+    (report,), (before,) = reports, snapshots
+    resized = [k for k in report.loaded if before[k].shape != pt_state[k].shape]
+
+    def loaded_value(k):
+        if k not in resized:
+            return pt_state[k]
+        return torch.from_numpy(cu._surgery_convert(k, pt_state[k].numpy(), before[k].shape))
+
+    differ = [k for k in report.loaded if not torch.equal(before[k], loaded_value(k))]
+    counts = {"loaded": len(report.loaded), "skipped": report.skipped,
+              "missing": len(report.missing), "unexpected": len(report.unexpected)}
+    launches, steps = run["launches"], run["steps"]
+    val_batches = (launches["attention_flash"] - depth * 4) // depth
+    epochs = [s["epoch"] for s in run["logged"] if s["_type"] == "train_epoch"]
+    emit({"phase": "finetune_slice", "steps": len(steps), "clips_per_step": FINETUNE_CLIPS,
+          "per_step": steps, "epochs": epochs, "load_counts": counts,
+          "pinned_counts": FINETUNE_COUNTS, "missing": report.missing, "resized": resized,
+          "loaded_differ_from_checkpoint": differ, "val_batches": val_batches,
+          "val_epoch": [s for s in run["logged"] if s["_type"] == "val_epoch"][-1],
+          "train_wall_s": run["wall_s"], "run_max_memory_allocated": run["max_memory_allocated"],
+          "flash_shadow_checks": run["shadow"].stats, "launches": launches})
+    check(epochs == ["1/1"], f"the fine-tune ran epochs {epochs}, not from epoch 0")
+    check(len(steps) == 4 and all(s["clips"] == FINETUNE_CLIPS for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    check(not differ, f"loaded tensors differ from the checkpoint: {differ[:5]}")
+    check({k: counts[k] for k in FINETUNE_COUNTS} == FINETUNE_COUNTS
+          and counts["loaded"] == len(before) - FINETUNE_COUNTS["missing"],
+          f"load counts {counts}, expected {FINETUNE_COUNTS}")
+    check(val_batches >= 1 and only_launched(launches, ("attention_flash", "attention_flash_bwd"),
+                                             None)
+          and launches["attention_flash"] == depth * (4 + val_batches)
+          and launches["attention_flash_bwd"] == depth * 4
+          and launches["preprocess_u8"] == 4 + val_batches, f"launches {launches}")
+    run["shadow"].check("finetune train", depth * (4 + val_batches), depth * 4)
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -3863,21 +4275,29 @@ def main():
     with masked_corpus() as (corpus, corpus_s):
         emit({"phase": "masked_corpus", "videos": MASKED_VIDEOS, "frames": 100,
               "size": [340, 256], "write_s": corpus_s})
-        family["maskfeat"] = phase_maskfeat_train_slice(corpus)
+        # MaskFeat's checkpoint, kept outside the run files for the fine-tune.
+        pt_ckpt = os.path.join(corpus, "maskfeat_pt.pyth")
+        family["maskfeat"] = phase_maskfeat_train_slice(corpus, keep=pt_ckpt)
         family["mae"] = phase_mae_train_slice(corpus)
+        family["finetune"] = phase_finetune_slice(corpus, pt_ckpt)
     phase_masked_fp32()
+    family["rev_mvit"] = phase_rev_mvit_train_slice()
+    phase_rev_mvit_memory()
+    phase_rev_mvit_fp32()
     # The preprocess kernel's launches are those of the SlowFast train run
     # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches), of
     # the one on decoded video (the same, with 2 val batches, and the test's
-    # 8 batches) and of the two masked pretraining runs (4 steps each).
+    # 8 batches), of the two masked pretraining runs (4 steps each), of the
+    # fine-tune (4 steps and its val batch) and of Rev-MViT's run (4 steps,
+    # 4 val and 2 test batches).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
         "replaces": "slowfast_tpu/ops/preprocess.py:42",
         "launches": sf_train["launches"]["preprocess_u8"]
         + (data_launches["preprocess_u8"] if data_launches else 0)
-        + family["maskfeat"]["launches"]["preprocess_u8"]
-        + family["mae"]["launches"]["preprocess_u8"],
+        + sum(family[k]["launches"]["preprocess_u8"]
+              for k in ("maskfeat", "mae", "finetune", "rev_mvit")),
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
@@ -3889,7 +4309,8 @@ def main():
     # ViT-B, MViTv2-L, MViT detection); the exact core runs on the model
     # path only under TPU.PALLAS_ATTENTION, so its launches are those of
     # phase mvit_train_fused's bf16 exact step. The masked pretraining runs
-    # (MaskFeat, MAE) count in the family's.
+    # (MaskFeat, MAE), the fine-tune and Rev-MViT's run (29 forwards and 16
+    # backwards a train step) count in the family's.
     family_fwd = sum(f["launches"]["attention_flash"] for f in family.values())
     family_bwd = sum(f["launches"]["attention_flash_bwd"] for f in family.values())
     for core, source, replaces, n in (

@@ -219,7 +219,11 @@ class MultiScaleAttention(nn.Module):
         x = x.reshape(B, L, self.pool_heads, C // self.pool_heads)
         return layer_norm(x, ln).reshape(B, L, C).to(self.dtype)
 
-    def forward(self, x, thw):
+    def forward(self, x, thw, res_input=None):
+        """``(out, q_shape)``; with ``res_input`` (Rev-MViT's transition
+        residual, slowfast_tpu/models/attention.py:528-534) also that tensor
+        pooled with the same ``pool_q`` kernel and ``norm_q`` as q:
+        ``(out, q_shape, pooled_res)``."""
         B = x.shape[0]
         nh = self.num_heads
         if self.pool_first:
@@ -264,6 +268,9 @@ class MultiScaleAttention(nn.Module):
         x = linear(xo.reshape(B, Nq, self.dim_out), self.proj, self.dtype)
         if self.training and self.drop_rate > 0.0:
             x = dropout(x, self.drop_rate, self.generator)
+        if res_input is not None:
+            res, _ = pool(res_input, self.pool_q, self.norm_q, self.kernel_q, self.stride_q)
+            return x, q_shape, res
         return x, q_shape
 
 

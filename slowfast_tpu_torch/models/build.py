@@ -60,6 +60,11 @@ def init_weights(model, cfg, generator):
 
 # MSSeparateHead's LayerNorms: the last entry of each ``transforms.{i}``.
 _HEAD_NORM = re.compile(r"pred_head\.transforms\.\d+\.\d+\.(weight|bias)")
+# Rev-MViT's TwoStreamFusion parameters (flax default inits).
+_FUSION = re.compile(r"(^|\.)(fuse_fn[12]?|fuse_norm|fuse_mlp)\.")
+# The std of a unit normal truncated at +-2 (flax's truncated_normal
+# variance scaling divides by it).
+_TRUNC_STD = 0.87962566103423978
 _TRUNC_TABLES = ("rel_pos", "cls_token", "pos_embed", "mask_token", "decoder_pos_embed",
                  "dec_pos_embed")
 
@@ -77,10 +82,23 @@ def init_mvit_weights(model, cfg, generator):
     and the decoder pos-embeds trunc_normal(0.02); its heads' LayerNorms
     the default init (scale 1, bias 0) and their projections
     trunc_normal(0.02) with a zero bias; ``norm`` and ``decoder_embed`` the
-    0.02 bias."""
+    0.02 bias. Rev-MViT's stream fusions (``fuse_fn*``, ``fuse_norm``,
+    ``fuse_mlp``) keep flax's defaults (slowfast_tpu/models/common.py:276-287):
+    lecun_normal projections with zero biases."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if _HEAD_NORM.fullmatch(name) or name.startswith("pred_head.projections."):
+        if _FUSION.search(name):
+            # flax defaults: Dense lecun_normal with zero bias, LayerNorm
+            # scale 1 and bias 0, the Mlp's trunc_normal(0.02) with zero bias.
+            if leaf == "bias":
+                nn.init.zeros_(p)
+            elif p.dim() == 1:
+                nn.init.ones_(p)
+            elif ".fuse_mlp." in name:
+                trunc_normal_(p, 0.02, generator)
+            else:
+                trunc_normal_(p, math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD, generator)
+        elif _HEAD_NORM.fullmatch(name) or name.startswith("pred_head.projections."):
             if leaf == "weight" and p.dim() == 2:
                 trunc_normal_(p, 0.02, generator)
             elif leaf == "weight":

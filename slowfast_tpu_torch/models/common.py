@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def sum_dtype(dtype):
@@ -256,3 +257,82 @@ class DropPath(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         u = torch.rand(shape, generator=self.generator, device=x.device)
         return x / keep * (u < keep).to(x.dtype)
+
+
+def checkpointed(fn, generator, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant). The
+    checkpoint restores the global RNG states for the recompute, not the
+    model's ``generator``, from which drop path and dropout draw: its state
+    is kept before the first run, set again for the recompute and put back
+    after it, so the recompute draws the first run's masks and leaves the
+    generator where the forward left it. ``generator`` None: nothing to
+    replay."""
+    start = generator.get_state() if generator is not None else None
+    runs = []
+
+    def run(*a):
+        if not runs or start is None:
+            runs.append(1)
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+FUSION_MODES = ("add", "max", "min", "avg", "concat", "concat_linear", "concat_linear_1",
+                "concat_linear_2", "ln+mlp")
+
+
+class TwoStreamFusion(nn.Module):
+    """Fuses the two streams of Rev-MViT, concatenated on the channels
+    (slowfast_tpu/models/common.py:254-290, reference common.py:73-146):
+    ``add``, ``max``, ``min`` and ``avg`` of the halves (width ``dim // 2``),
+    ``concat`` as it is, ``concat_linear``/``_1`` ``x + fuse_fn(x)``,
+    ``concat_linear_2`` ``x + fuse_fn2(fuse_fn1(x))`` and ``ln+mlp``
+    ``x + fuse_mlp(fuse_norm(x))`` (width ``dim``). The projections are flax
+    ``nn.Dense`` without a dtype, as in JAX: they compute in fp32 (the
+    promotion of the input and the fp32 weights), and so does the sum;
+    ``fuse_norm`` has flax's default epsilon, 1e-6."""
+
+    def __init__(self, mode, dim=0):
+        super().__init__()
+        if mode not in FUSION_MODES:
+            raise NotImplementedError(f"TwoStreamFusion mode {mode}")
+        self.mode = mode
+        if mode in ("concat_linear", "concat_linear_1"):
+            self.fuse_fn = nn.Linear(dim, dim)
+        elif mode == "concat_linear_2":
+            self.fuse_fn1 = nn.Linear(dim, dim)
+            self.fuse_fn2 = nn.Linear(dim, dim)
+        elif mode == "ln+mlp":
+            self.fuse_norm = nn.LayerNorm(dim, eps=1e-6)
+            self.fuse_mlp = Mlp(dim, 4 * dim, dim)
+
+    def out_width(self, width):
+        """The fused width of a ``width``-wide input."""
+        return width // 2 if self.mode in ("add", "max", "min", "avg") else width
+
+    def forward(self, x):
+        mode = self.mode
+        if mode == "concat":
+            return x
+        if mode in ("add", "max", "min", "avg"):
+            a, b = x.chunk(2, dim=-1)
+            if mode == "add":
+                return a + b
+            if mode == "max":
+                return torch.maximum(a, b)
+            if mode == "min":
+                return torch.minimum(a, b)
+            return (a + b) * 0.5
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        if mode == "ln+mlp":
+            return x + self.fuse_mlp(layer_norm(x, self.fuse_norm))
+        if mode == "concat_linear_2":
+            return x + linear(linear(x, self.fuse_fn1, dtype), self.fuse_fn2, dtype)
+        return x + linear(x, self.fuse_fn, dtype)

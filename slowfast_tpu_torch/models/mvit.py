@@ -9,18 +9,19 @@ MultiScaleBlocks (pooled attention in every mode, decomposed rel-pos,
 residual pooling, the adaptive KV-stride schedule), optionally each run
 under ``torch.utils.checkpoint`` (``MODEL.ACT_CHECKPOINT``), then the final
 norm with the cls row or the mean of the tokens, and the transformer head,
-or the RoI head of detection. Rev-MViT and the 2D patch stem raise
+or the RoI head of detection; or Rev-MViT's reversible encoder
+(``models/reversible.py``) with its stream fusion. The 2D patch stem raises
 ``NotImplementedError``.
 """
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .attention import MultiScaleBlock
-from .common import dropout, layer_norm, resize_linear, round_width
+from .common import TwoStreamFusion, checkpointed, dropout, layer_norm, resize_linear, round_width
 from .heads import ResNetRoIHead, TransformerBasicHead
+from .reversible import ReversibleMViT
 from .stem import PatchEmbed
 from .video_models import compute_dtype
 
@@ -151,7 +152,6 @@ def _check_supported(cfg):
     m = cfg.MVIT
     unported = {
         "MVIT.PATCH_2D (the 2D patch stem)": m.PATCH_2D,
-        "MVIT.REV (Rev-MViT)": m.REV.ENABLE,
     }
     for name, on in unported.items():
         if on:
@@ -159,12 +159,18 @@ def _check_supported(cfg):
     if m.NORM != "layernorm":
         # The reference raises on any other norm too.
         raise NotImplementedError(f"MViT supports MVIT.NORM 'layernorm' only, not {m.NORM!r}")
+    # JAX :297 (reference video_model_builder.py:1148).
+    assert not (m.REV.ENABLE and m.CLS_EMBED_ON), "reversible MViT does not support a cls token"
 
 
 class MViT(nn.Module):
     """Patch stem -> (cls token) -> pos-embeds -> (dropout, norm) ->
     MultiScaleBlocks -> norm -> cls row or token mean -> head; or, under
-    ``DETECTION.ENABLE``, norm -> token grid -> RoI head.
+    ``DETECTION.ENABLE``, norm -> token grid -> RoI head. Under
+    ``MVIT.REV.ENABLE`` the blocks are Rev-MViT's ``rev_backbone``, whose two
+    streams ``fuse`` joins (``REV.RESPATH_FUSE``) around the token mean and
+    the norm, in ``USE_MEAN_POOLING``'s order (JAX :286-320); the head then
+    takes the fused width, ``2 * final_dim`` under a ``concat`` fusion.
 
     Takes ``[clips (B, T, H, W, C)]`` (and under detection the boxes) and
     returns logits (train) or activated predictions (eval; detection's RoI
@@ -214,6 +220,21 @@ class MViT(nn.Module):
         # kernel s+1 or odd, pad k//2 gives (size - 1) // stride + 1.
         input_size = list(self.patch_dims)
         schedule = mvit_block_schedule(cfg)
+        final_dim = schedule[-1]["dim_out"]
+        self.rev = m.REV.ENABLE
+        if self.rev:
+            self.rev_backbone = ReversibleMViT(cfg, self.patch_dims, self.dtype)
+            self.fuse = TwoStreamFusion(m.REV.RESPATH_FUSE, dim=2 * final_dim)
+            # Two streams, unless the last layer is a transition (flax infers
+            # the norm's and the head's widths from their inputs).
+            width = final_dim if self.rev_backbone.specs[-1]["transition"] else 2 * final_dim
+            fused = self.fuse.out_width(width)
+            self.norm = nn.LayerNorm(fused if self.use_mean_pooling else width, eps=1e-6)
+            self.head = TransformerBasicHead(
+                fused, cfg.MODEL.NUM_CLASSES, dropout_rate=cfg.MODEL.DROPOUT_RATE,
+                act_func=cfg.MODEL.HEAD_ACT, detach_final_fc=cfg.MODEL.DETACH_FINAL_FC,
+                dtype=self.dtype)
+            return
         dpr = np.linspace(0, m.DROPPATH_RATE, m.DEPTH)
         self.blocks = nn.ModuleList()
         for i, blk in enumerate(schedule):
@@ -231,7 +252,6 @@ class MViT(nn.Module):
                 dtype=self.dtype))
             if blk["stride_q"]:
                 input_size = [(s - 1) // st + 1 for s, st in zip(input_size, blk["stride_q"])]
-        final_dim = schedule[-1]["dim_out"]
         self.norm = nn.LayerNorm(final_dim, eps=1e-6)
         if self.detection:
             self.head = ResNetRoIHead(
@@ -269,30 +289,6 @@ class MViT(nn.Module):
         grid = resize_linear(grid, (1, *thw, grid.shape[-1])).reshape(1, -1, grid.shape[-1])
         return torch.cat([pos[:, :s], grid], dim=1) if s else grid
 
-    def _run_block(self, blk, x, thw):
-        """``blk`` under ``torch.utils.checkpoint`` (non-reentrant). The
-        checkpoint restores the global RNG states for the recompute, not
-        the model's generator, from which drop path and dropout draw: the
-        generator's state is kept before the first run, set again for the
-        recompute and put back after it, so the recompute draws the first
-        run's masks and leaves the generator where the forward left it."""
-        gen = self.generator if self.training else None
-        start = gen.get_state() if gen is not None else None
-        runs = []
-
-        def run(x):
-            if not runs or start is None:
-                runs.append(1)
-                return blk(x, thw)
-            after = gen.get_state()
-            gen.set_state(start)
-            try:
-                return blk(x, thw)
-            finally:
-                gen.set_state(after)
-
-        return checkpoint(run, x, use_reentrant=False)
-
     def forward(self, xs, bboxes=None):
         x, thw = self.patch_embed(xs[0].to(self.dtype))
         B = x.shape[0]
@@ -313,9 +309,13 @@ class MViT(nn.Module):
             x = dropout(x, self.dropout_rate, self.generator)
         if self.norm_stem is not None:
             x = layer_norm(x, self.norm_stem)  # fp32, as flax's LayerNorm gives
+        if self.rev:
+            return self.head(self._rev_features(x, thw))
         for blk in self.blocks:
             if self.act_checkpoint and torch.is_grad_enabled():
-                x, thw = self._run_block(blk, x, thw)
+                # Drop path and dropout replay their masks in the recompute.
+                x, thw = checkpointed(lambda x, blk=blk, thw=thw: blk(x, thw),
+                                      self.generator if self.training else None, x)
             else:
                 x, thw = blk(x, thw)
 
@@ -336,3 +336,13 @@ class MViT(nn.Module):
         else:
             x = layer_norm(x, self.norm).mean(dim=1)
         return self.head(x)
+
+    def _rev_features(self, x, thw):
+        """Rev-MViT's encoder, then fuse, token mean and norm (mean pooling)
+        or norm, fuse and token mean: the head's input."""
+        x = self.rev_backbone(x, thw)
+        if self.use_mean_pooling:
+            x = self.fuse(x)
+            x = x.mean(dim=1, dtype=torch.float32).to(x.dtype)
+            return layer_norm(x, self.norm)
+        return self.fuse(layer_norm(x, self.norm)).mean(dim=1)

@@ -23,8 +23,16 @@ reference ``.pyth`` format, a ``torch.save`` of ``{"epoch", "model_state",
 "optimizer_state", "cfg"}``; ``model_state`` loads into the JAX package
 through its ``load_torch_checkpoint_dict``. The JAX package's own pickled
 checkpoints are not read here.
+
+Fine-tuning loads (``TRAIN.CHECKPOINT_FILE_PATH``, test checkpoints) are
+partial, as the JAX package's import of a ``.pyth`` is
+(slowfast_tpu/utils/checkpoint.py:500-607): ``load_state_dict_partial``
+copies what fits by name and shape, inflates 2D kernels, resizes pos-embed
+and rel-pos tables and applies the image-init surgery; caffe2 pickles go
+through ``c2_import``. Auto-resume stays strict.
 """
 
+import math
 import os
 import pickle
 import re
@@ -42,6 +50,7 @@ _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 _TABLE_PREFIXES = ("cls_token", "rel_pos_", "pos_embed", "gamma_", "mask_token",
                    "decoder_pos_embed", "dec_pos_embed_")
 _MODULE_NAMES = ((r"^blocks_(\d+)$", r"blocks.\1"),
+                 (r"^layers_(\d+)$", r"layers.\1"),
                  (r"^transforms_(\d+)_(\d+)$", r"transforms.\1.\2"),
                  (r"^projections_(\d+)$", r"projections.\1"))
 
@@ -95,29 +104,6 @@ def state_dict_from_jax(variables):
         sd.setdefault(".".join(mods + ("num_batches_tracked",)),
                       torch.zeros((), dtype=torch.long))
     return sd
-
-
-def load_test_checkpoint(cfg, model):
-    """Load TEST.CHECKPOINT_FILE_PATH, else the last checkpoint in
-    ``OUTPUT_DIR``, else TRAIN.CHECKPOINT_FILE_PATH into ``model``
-    (slowfast_tpu/utils/checkpoint.py:640): a torch file holding
-    ``{"model_state": state_dict}``, the reference ``.pyth`` format, which
-    loads with no name mapping."""
-    if cfg.TEST.CHECKPOINT_FILE_PATH:
-        path, ckpt_type = cfg.TEST.CHECKPOINT_FILE_PATH, cfg.TEST.CHECKPOINT_TYPE
-    elif has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
-        path, ckpt_type = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK), "pytorch"
-    else:
-        path, ckpt_type = cfg.TRAIN.CHECKPOINT_FILE_PATH, cfg.TRAIN.CHECKPOINT_TYPE
-    if not path:
-        logger.info("Testing with random initialization. Only for debugging.")
-        return model
-    if ckpt_type != "pytorch":
-        raise NotImplementedError(f"{ckpt_type} checkpoints are not ported yet")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(ckpt.get("model_state", ckpt), strict=True)
-    logger.info("Loaded test checkpoint %s", path)
-    return model
 
 
 def get_checkpoint_dir(path_to_job):
@@ -187,11 +173,15 @@ def _is_jax_native(path):
         "slowfast_tpu.")
 
 
-def _load_pyth(path):
+def _refuse_jax_native(path):
     if _is_jax_native(path):
         raise NotImplementedError(
             f"{path} is a JAX-package checkpoint; convert its variables with "
             f"state_dict_from_jax and save them as a .pyth")
+
+
+def _load_pyth(path):
+    _refuse_jax_native(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -200,8 +190,11 @@ def load_train_checkpoint(cfg, model, optimizer):
     returns the epoch to start from.
 
     With ``TRAIN.AUTO_RESUME`` and a checkpoint in ``OUTPUT_DIR`` the model
-    and optimizer resume after its epoch; else ``TRAIN.CHECKPOINT_FILE_PATH``
-    (a ``.pyth``) initializes the model's weights and training starts at 0.
+    and optimizer resume, strictly, after its epoch; else
+    ``TRAIN.CHECKPOINT_FILE_PATH`` (a ``.pyth``, or a caffe2 pickle under
+    ``TRAIN.CHECKPOINT_TYPE caffe2``) initializes the model's weights through
+    the partial load (``load_weights``) and training starts at epoch 0, as
+    the JAX package does for a file that is not its own.
     """
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
         path = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
@@ -211,10 +204,210 @@ def load_train_checkpoint(cfg, model, optimizer):
         logger.info("Resumed from %s", path)
         return ckpt["epoch"] + 1
     if cfg.TRAIN.CHECKPOINT_FILE_PATH:
-        if cfg.TRAIN.CHECKPOINT_TYPE != "pytorch":
-            raise NotImplementedError(
-                f"{cfg.TRAIN.CHECKPOINT_TYPE} checkpoints are not ported yet")
-        ckpt = _load_pyth(cfg.TRAIN.CHECKPOINT_FILE_PATH)
-        model.load_state_dict(ckpt.get("model_state", ckpt), strict=True)
-        logger.info("Loaded %s", cfg.TRAIN.CHECKPOINT_FILE_PATH)
+        load_weights(cfg, model, cfg.TRAIN.CHECKPOINT_FILE_PATH, checkpoint_type(cfg))
     return 0
+
+
+def load_test_checkpoint(cfg, model):
+    """Load TEST.CHECKPOINT_FILE_PATH, else the last checkpoint in
+    ``OUTPUT_DIR``, else TRAIN.CHECKPOINT_FILE_PATH into ``model``
+    (slowfast_tpu/utils/checkpoint.py:640), each through the partial load
+    (``load_weights``, the JAX package's ``_load_any``, :691)."""
+    if cfg.TEST.CHECKPOINT_FILE_PATH:
+        path, ckpt_type = cfg.TEST.CHECKPOINT_FILE_PATH, checkpoint_type(cfg)
+    elif has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
+        path, ckpt_type = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK), "pytorch"
+    else:
+        path, ckpt_type = cfg.TRAIN.CHECKPOINT_FILE_PATH, checkpoint_type(cfg)
+    if not path:
+        logger.info("Testing with random initialization. Only for debugging.")
+        return model
+    load_weights(cfg, model, path, ckpt_type)
+    return model
+
+
+def checkpoint_type(cfg):
+    """``TEST.CHECKPOINT_TYPE`` when training is off, else
+    ``TRAIN.CHECKPOINT_TYPE`` (slowfast_tpu/utils/checkpoint.py:709)."""
+    return cfg.TEST.CHECKPOINT_TYPE if not cfg.TRAIN.ENABLE else cfg.TRAIN.CHECKPOINT_TYPE
+
+
+def load_weights(cfg, model, path, ckpt_type="pytorch"):
+    """The weights of ``path`` into ``model`` as the JAX package's
+    ``_load_any`` loads a file that is not its own: a caffe2 pickle through
+    ``c2_import.load_caffe2_checkpoint`` (with ``TRAIN.CHECKPOINT_INFLATE``),
+    a ``.pyth`` through ``load_state_dict_partial`` with the ``TRAIN``
+    options (``CHECKPOINT_INFLATE``, ``CHECKPOINT_IN_INIT``,
+    ``CHECKPOINT_CLEAR_NAME_PATTERN``). Logs and returns the ``LoadReport``."""
+    if ckpt_type == "caffe2":
+        from .c2_import import load_caffe2_checkpoint
+
+        _refuse_jax_native(path)
+        report = load_caffe2_checkpoint(path, model, inflate=cfg.TRAIN.CHECKPOINT_INFLATE)
+    else:
+        ckpt = _load_pyth(path)
+        report = load_state_dict_partial(
+            model, ckpt.get("model_state", ckpt), inflate=cfg.TRAIN.CHECKPOINT_INFLATE,
+            image_init=cfg.TRAIN.CHECKPOINT_IN_INIT,
+            clear_name_pattern=tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
+    logger.info("Loaded %s (%s): %d loaded, %d shape-skipped, %d missing (fresh init), "
+                "%d unexpected (dropped, the shape-skipped among them)", path, ckpt_type,
+                len(report.loaded), report.skipped, len(report.missing),
+                len(report.unexpected))
+    return report
+
+
+# --- Partial loads (slowfast_tpu/utils/checkpoint.py:358-607) -----------------
+
+class LoadReport:
+    """What a partial load did: ``loaded`` (the model's names that were
+    written), ``missing`` (the model's names that were not; BN's
+    ``num_batches_tracked`` counts in neither, as the JAX package has no
+    such leaf), ``unexpected`` (the checkpoint's names with no place in the
+    model, and those whose shape fit no rule, marked
+    ``" (shape mismatch)"``, as JAX lists them) and ``skipped``, the count
+    of the latter."""
+
+    def __init__(self, loaded, missing, unexpected):
+        self.loaded, self.missing, self.unexpected = loaded, missing, unexpected
+        self.skipped = sum(u.endswith(" (shape mismatch)") for u in unexpected)
+
+
+def inflate_weight(w2d, t):
+    """2D -> 3D kernel inflation: ``(O, I, h, w)`` repeated ``t`` times
+    over a new time axis and divided by ``t`` (:364, reference
+    checkpoint.py:148-178)."""
+    return np.repeat(w2d[:, :, None], t, axis=2) / float(t)
+
+
+def _interp_linear(v, n):
+    """``F.interpolate(mode="linear")`` of an ``(L, C)`` table over its rows
+    to ``n`` (:387, reference checkpoint.py:443-451)."""
+    t = torch.from_numpy(np.ascontiguousarray(v.astype(np.float32)))
+    out = torch.nn.functional.interpolate(t.t().unsqueeze(0), size=n, mode="linear")
+    return out[0].t().numpy()
+
+
+def _interp_bicubic_2d(v, hw):
+    """Bicubic resize of a ``(1, H·W, C)`` square grid to ``hw`` x ``hw``
+    (:399, reference checkpoint.py:470-487)."""
+    src = int(math.sqrt(v.shape[1]))
+    assert src * src == v.shape[1], "pos_embed_spatial is not square"
+    t = torch.from_numpy(np.ascontiguousarray(v.astype(np.float32)))
+    t = t.reshape(1, src, src, -1).permute(0, 3, 1, 2)
+    t = torch.nn.functional.interpolate(t, size=(hw, hw), mode="bicubic")
+    return t.reshape(1, -1, hw * hw).permute(0, 2, 1).numpy()
+
+
+def _surgery_convert(name, val, ts):
+    """The table surgery for a shape mismatch (:413-429): a ``rel_pos``
+    table of the same width linearly over its rows, ``pos_embed_temporal``
+    linearly over time, ``pos_embed_spatial`` bicubically over its square
+    grid; None for anything else."""
+    ts = tuple(ts)
+    if "rel_pos" in name and val.ndim == 2 and len(ts) == 2 and val.shape[1] == ts[1]:
+        return _interp_linear(val, ts[0])
+    if "pos_embed_temporal" in name and val.ndim == 3 and len(ts) == 3 and val.shape[2] == ts[2]:
+        return _interp_linear(val[0], ts[1])[None]
+    if "pos_embed_spatial" in name and val.ndim == 3 and len(ts) == 3 and val.shape[2] == ts[2]:
+        return _interp_bicubic_2d(val, int(round(np.sqrt(ts[1]))))
+    return None
+
+
+def _image_init_surgery(sd, shapes):
+    """Image -> video init under ``TRAIN.CHECKPOINT_IN_INIT`` (:432-497,
+    reference checkpoint.py:315-433), on the checkpoint's names before the
+    load, ``shapes`` the model's parameter shapes: a joint ``pos_embed``
+    split into ``pos_embed_class`` and ``pos_embed_spatial`` for a model
+    with separated tables, separated ones merged into a joint one for a
+    model with a joint table; the ``patch_embed.proj`` and
+    ``pool_{q,k,v}`` convs repeated over the model's T, without dividing by
+    T (unlike CNN inflation). Returns a new dict."""
+    sd = dict(sd)
+    sp_shape = shapes.get("pos_embed_spatial")
+    if "pos_embed" in sd and sp_shape is not None and "pos_embed" not in shapes:
+        pe = sd["pos_embed"]
+        if pe.shape[1] == sp_shape[1] + 1:
+            sd["pos_embed_class"] = pe[:, :1]
+            sd["pos_embed_spatial"] = pe[:, 1:]
+            sd.pop("pos_embed")
+    joint_shape = shapes.get("pos_embed")
+    if "pos_embed_spatial" in sd and joint_shape is not None and "pos_embed_spatial" not in shapes:
+        pe = sd["pos_embed_spatial"]
+        if "pos_embed_class" in sd and pe.shape[1] + 1 == joint_shape[1]:
+            pe = np.concatenate([sd.pop("pos_embed_class"), pe], axis=1)
+        if pe.shape == tuple(joint_shape):
+            sd["pos_embed"] = pe
+            sd.pop("pos_embed_spatial")
+    for name in list(sd):
+        if not name.endswith(".weight") or not (
+                "patch_embed.proj" in name or any(p in name for p in ("pool_q", "pool_k", "pool_v"))):
+            continue
+        ts = shapes.get(_model_name(name))
+        if ts is None or len(ts) != 5:
+            continue
+        val, t = sd[name], ts[2]
+        if val.ndim == 4:
+            sd[name] = np.repeat(val[:, :, None], t, axis=2)
+        elif val.ndim == 5 and val.shape[2] == 1 and t > 1:
+            sd[name] = np.repeat(val, t, axis=2)
+    return sd
+
+
+def _model_name(name):
+    """A checkpoint name as the model's (a ``DataParallel`` ``module.``
+    prefix dropped)."""
+    return re.sub(r"^module\.", "", name)
+
+
+def _as_numpy(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def load_state_dict_partial(model, state_dict, inflate=False, image_init=False,
+                            clear_name_pattern=()):
+    """``state_dict`` (reference names, torch layouts) into ``model`` where
+    it fits, as the JAX package's ``load_torch_checkpoint_dict`` (:500-607)
+    does: the ``clear_name_pattern`` substrings removed from every name
+    first, then (``image_init``) ``_image_init_surgery``; a tensor is copied
+    where the model has its name and its shape, a 2D conv kernel inflated
+    to the model's 3D one under ``inflate``, a mismatched pos-embed or
+    rel-pos table resized (``_surgery_convert``); everything else is left
+    at its init. Returns a ``LoadReport``."""
+    sd = {}
+    for k, v in state_dict.items():
+        for p in clear_name_pattern:
+            if p in k:
+                k = k.replace(p, "")
+        sd[k] = _as_numpy(v)
+    target = model.state_dict()
+    kernels = {n for n, p in model.named_parameters() if p.dim() >= 2}
+    if image_init:
+        sd = _image_init_surgery(sd, {n: tuple(p.shape) for n, p in model.named_parameters()})
+    loaded, unexpected, new = [], [], {}
+    for name, val in sd.items():
+        mname = _model_name(name)
+        if mname.endswith("num_batches_tracked"):
+            continue
+        if mname not in target:
+            unexpected.append(name)
+            continue
+        ts = tuple(target[mname].shape)
+        conv = val if val.shape == ts else None
+        if conv is None and inflate and mname in kernels and val.ndim == 4 and len(ts) == 5:
+            conv = inflate_weight(val, ts[2])
+            conv = conv if conv.shape == ts else None
+        if conv is None:
+            conv = _surgery_convert(name, val, ts)
+        if conv is None:
+            unexpected.append(f"{name} (shape mismatch)")
+            continue
+        if conv.shape != ts:
+            raise ValueError(f"{name}: the resized table has shape {conv.shape}, not {ts}")
+        new[mname] = torch.from_numpy(np.ascontiguousarray(conv.astype(np.float32)))
+        loaded.append(mname)
+    with torch.no_grad():
+        for mname, val in new.items():
+            target[mname].copy_(val.to(target[mname].dtype))
+    missing = [n for n in target if n not in new and not n.endswith("num_batches_tracked")]
+    return LoadReport(loaded, missing, unexpected)

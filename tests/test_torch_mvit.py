@@ -348,7 +348,10 @@ def test_tester_matches_jax_test_meter(jax_side, tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    ["MVIT.REV.ENABLE", "True"], ["MVIT.PATCH_2D", "True"], ["MVIT.NORM", "batchnorm"],
+    # Rev-MViT is ported (tests/test_torch_reversible.py); contrastive SSL,
+    # a model of its own, is not.
+    ["MODEL.MODEL_NAME", "ContrastiveModel"], ["MVIT.PATCH_2D", "True"],
+    ["MVIT.NORM", "batchnorm"],
 ])
 def test_unported_options_raise(opt):
     with pytest.raises(NotImplementedError):
