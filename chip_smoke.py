@@ -210,6 +210,42 @@ Phases, each printing one JSON line:
               epoch 0; before the first step every loaded tensor equal to
               the checkpoint's or, where the shapes differ, its resize; the
               load's counts FINETUNE_COUNTS; every flash call held.
+ 24b. ssl_train_slice  (after finetune_slice, on the same corpus)
+              run_net.main pretraining MoCo (MoCo_SlowR50_8x8.yaml: Slow R50
+              8 x 224², DIM 128, a 3-layer projection MLP, QUEUE_LEN 65,536,
+              MOCO_MULTI_VIEW_QUEUE, 4 temporal views a clip with the MoCo-v2
+              colour recipe) at full width in bf16 for 3 epochs over the 128
+              decoded videos at the recipe's 64 clips a step: epoch 0 is all
+              queue warm-up (the parameters bit-equal after each step), every
+              step after it updates, the queue pointer moves 2 x clips a
+              step, the kNN probe runs after epoch 3, the checkpoint resumes
+              model and SSL state bit-equal; the p50 and the fastest of the
+              updating steps after the first (clips/s), the run's peak
+              memory, and the loader alone per batch. No kernel launches: the SSL items are
+              float pathways and Slow R50 runs on cuDNN.
+ 24c. linear_probe_slice  run_net.main training linear_k400_Slow_8x8_R50_syn8
+              (Slow R50, DETACH_FINAL_FC) from ssl_train_slice's checkpoint
+              through CHECKPOINT_CLEAR_NAME_PATTERN ("backbone."): the load's
+              counts (every backbone tensor loaded, the head's projection
+              fresh), 4 decoded steps of 16 clips and a val batch, 5
+              preprocess launches, the backbone bit-equal to the checkpoint
+              after them and without gradients.
+ 24d. ssl_family  BYOL, SimCLR and SwAV at full width in bf16 with LARS,
+              each 4 decoded run_net steps of 32 clips (64 do not fit in
+              80 GB) with finite losses: the p50 and the fastest of the
+              steps after the first (clips/s) and the run's peak memory; SwAV's prototype
+              rows of unit length after each step and unmoved in epoch 0
+              but for the renormalization.
+ 26a. ssl_fp32  one MoCo step on 2 clips and one BYOL step on 4 (its MLPs'
+              BNs are degenerate on 2) at full width in fp32, card (TF32
+              off) vs CPU from the same weights, SSL state
+              and batch, past MoCo's warm-up: the loss within 1e-5, the
+              gradients no further from the float64 step than twice the
+              CPU's; the queue rows written, the kNN rows and each leaf of
+              the momentum encoder within 1e-6 relative L2 of the CPU's or
+              no further from the float64 step than twice the CPU's (a leaf
+              that takes in an update large against it carries the
+              gradients' conditioning); equal pointers and step counts.
  27. rev_mvit_train_slice  run_net.main training Rev-MViT-B 16x4
               (REV_MVIT_B_16x4_CONV.yaml) at full width and depth in bf16
               with the reversible backward: 4 steps of 16 clips, a val
@@ -4241,6 +4277,458 @@ def phase_finetune_slice(corpus, pt_ckpt):
     return {"launches": launches}
 
 
+# --- Contrastive SSL pretraining and its transfer ----------------------------------
+
+SSL_CONFIGS = os.path.join(ROOT, "configs", "contrastive_ssl")
+SSL_YAML = {t: os.path.join(SSL_CONFIGS, f) for t, f in (
+    ("moco", "MoCo_SlowR50_8x8.yaml"), ("byol", "BYOL_SlowR50_8x8.yaml"),
+    ("simclr", "SimCLR_SlowR50_8x8.yaml"), ("swav", "SwAV_Slow_R50_8x8.yaml"))}
+LINEAR_YAML = os.path.join(SSL_CONFIGS, "linear_k400_Slow_8x8_R50_syn8.yaml")
+# Clips a step: MoCo at its recipe's 64; BYOL, SimCLR and SwAV run out of
+# an 80 GB card's memory at their recipes' 64, so at 32 (PERF.md).
+SSL_CLIPS = {"moco": 64, "byol": 32, "simclr": 32, "swav": 32}
+LINEAR_CLIPS = 16
+SSL_STATE_TOL = 1e-6
+
+
+def ssl_float_batch(cfg, n, seed, device="cuda"):
+    """An SSL step's batch of ``n`` clips: two views of seeded normal float
+    pathways (the SSL items' normalized clips), clip ids and times."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (n, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE, 3)
+    views = [[torch.randn(shape, generator=gen, device=device)] for _ in range(2)]
+    return {"inputs": views[0], "inputs2": views[1], "index": torch.arange(n, device=device),
+            "time": torch.rand(n, generator=gen, device=device)}
+
+
+def ssl_setup(cfg, device, steps_per_epoch, first_iter=0, generator=None):
+    """A fresh model, optimizer, SSL state and SSL train step on ``device``;
+    the step count starts at ``first_iter``."""
+    from slowfast_tpu_torch.engine.ssl_steps import make_ssl_train_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.models.contrastive import init_ssl_state
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    model = build_model(cfg, device=device)
+    opt = construct_optimizer(model, cfg)
+    ssl = init_ssl_state(cfg, model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    ssl.iter = first_iter
+    return model, opt, ssl, make_ssl_train_step(cfg, model, opt, ssl, steps_per_epoch, generator)
+
+
+def drive_ssl_train(yaml, opts, out_dir, on_step=None):
+    """``run_net.main`` pretraining ``yaml`` with ``opts`` into ``out_dir``
+    on the card, every kernel count set to 0 just before and read just
+    after. Each step is recorded: its clips, loss, grad norm, LR, step
+    count, device-synchronized ms, whether it moved any parameter, and how
+    far the queue pointer advanced; ``on_step(model, ssl, before)`` gets the
+    parameters from before it. Returns the steps, the logged stats, the
+    launches, the peak memory, the wall time, the model and the SSL state."""
+    import gc
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.engine import trainer
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, made, make = [], [], trainer.make_ssl_train_step
+
+    def recording(cfg, model, optimizer, ssl, steps_per_epoch, generator=None):
+        step = make(cfg, model, optimizer, ssl, steps_per_epoch, generator)
+        made.append((model, ssl))
+
+        def recorded(batch):
+            before = [p.detach().clone() for p in model.parameters()]
+            ptr, length = ssl.ptr, None if ssl.queue_x is None else ssl.queue_x.shape[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            moved = not all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+            steps.append({"clips": batch["index"].shape[0], "iter": ssl.iter - 1,
+                          "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                          "lr": m["lr"], "ms": ms, "params_moved": moved,
+                          "ptr_advance": None if length is None else (ssl.ptr - ptr) % length})
+            if on_step is not None:
+                on_step(model, ssl, before)
+            return m
+
+        return recorded
+
+    argv = ["--cfg", yaml, "--opts", "NUM_GPUS", "1", "TEST.ENABLE", "False",
+            "OUTPUT_DIR", out_dir] + list(opts)
+    trainer.make_ssl_train_step = recording
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run_net.main(argv)
+    finally:
+        trainer.make_ssl_train_step = make
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    check(steps and all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
+          f"non-finite SSL loss: {steps}")
+    check(not any(launches.values()), f"an SSL pretrain launched {launches}")
+    model, ssl = made[-1]
+    return dict(steps=steps, logged=logged, launches=launches, wall_s=wall, model=model, ssl=ssl,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def ssl_reload_identical(cfg, out_dir, model, ssl):
+    """The last checkpoint of ``out_dir`` auto-resumes a fresh model,
+    optimizer and SSL state to ``model``'s weights and ``ssl``'s state, bit
+    for bit; returns the checkpoint's bytes."""
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    path = cu.get_last_checkpoint(out_dir, cfg.TASK)
+    check(path is not None, f"no checkpoint in {out_dir}")
+    fresh, fresh_opt, fresh_ssl, _ = ssl_setup(cfg, "cuda", 1)
+    cu.load_train_checkpoint(cfg, fresh, fresh_opt, fresh_ssl)
+    want, got = ssl.state_dict(), fresh_ssl.state_dict()
+    for k, v in want.items():
+        if isinstance(v, dict):
+            check(all(torch.equal(v[n], got[k][n]) for n in v), f"resumed SSL state {k} differs")
+        elif isinstance(v, torch.Tensor):
+            check(torch.equal(v, got[k]), f"resumed SSL state {k} differs")
+        else:
+            check(v == got[k], f"resumed SSL state {k}: {got[k]}, not {v}")
+    mine = model.state_dict()
+    for name, t in fresh.state_dict().items():
+        check(torch.equal(t, mine[name]), f"resumed model differs at {name}")
+    del fresh, fresh_opt, fresh_ssl
+    return os.path.getsize(path)
+
+
+def loader_batch_ms(cfg):
+    """The train loader alone: ms to its first batch on the card (a 64-clip
+    SSL batch of 4 views a clip takes seconds, against which the pool's
+    start is noise)."""
+    from slowfast_tpu_torch.data import construct_loader
+
+    t0 = time.perf_counter()
+    next(iter(construct_loader(cfg, "train", "cuda")))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_ssl_train_slice(corpus, keep):
+    """``run_net.main`` pretraining MoCo (MoCo_SlowR50_8x8.yaml: Slow R50,
+    8 x 224², DIM 128, a 3-layer projection MLP, QUEUE_LEN 65,536,
+    MOCO_MULTI_VIEW_QUEUE, 4 temporal views, the MoCo-v2 colour recipe) at
+    full width in bf16 on the mp4 corpus for 3 epochs at the recipe's 64
+    clips a step: epoch 0 all queue warm-up (the parameters bit-equal after
+    each step), every step after it updating, the pointer 2 x clips on a
+    step, the kNN probe after epoch 3, the checkpoint auto-resuming
+    bit-equal (copied to ``keep`` for the linear probe). The p50 and the
+    fastest of the updating steps after the first (clips/s), the run's
+    peak memory, and the loader alone."""
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    cfg0 = family_cfg(SSL_YAML["moco"], [], "ssl")
+    c = cfg0.CONTRASTIVE
+    check(cfg0.MODEL.MODEL_NAME == "ContrastiveModel" and c.TYPE == "moco"
+          and c.QUEUE_LEN == 65536 and c.NUM_MLP_LAYERS == 3 and c.MOCO_MULTI_VIEW_QUEUE
+          and cfg0.TRAIN.BATCH_SIZE == SSL_CLIPS["moco"] and cfg0.DATA.TRAIN_CROP_SIZE == 224
+          and cfg0.DATA.NUM_FRAMES == 8 and cfg0.TPU.COMPUTE_DTYPE == "bfloat16", "MoCo recipe")
+    n = SSL_CLIPS["moco"]
+    out_dir = os.path.join(OUT_DIR, "ssl")
+    opts = kinetics_split(corpus, "ssl", MASKED_VIDEOS) + [
+        "TRAIN.BATCH_SIZE", str(n), "SOLVER.MAX_EPOCH", "3"]
+    cfg = family_cfg(SSL_YAML["moco"], opts, "ssl")
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_ssl_train(SSL_YAML["moco"], opts, out_dir)
+        cfg.CONTRASTIVE.LENGTH = MASKED_VIDEOS
+        ckpt_bytes = ssl_reload_identical(cfg, out_dir, run["model"], run["ssl"])
+        shutil.copyfile(cu.get_last_checkpoint(out_dir, cfg.TASK), keep)
+    steps, spe = run["steps"], MASKED_VIDEOS // n
+    del run["model"], run["ssl"]
+    loader_ms = loader_batch_ms(cfg)
+    knn = [s for s in run["logged"] if s["_type"] == "knn_epoch"]
+    epochs = [s["epoch"] for s in run["logged"] if s["_type"] == "train_epoch"]
+    frozen_ms = [s["ms"] for s in steps[1:spe]]
+    ms = [s["ms"] for s in steps[spe + 1:]]
+    p50 = statistics.median(ms)
+    emit({"phase": "ssl_train_slice", "recipe": "MoCo_SlowR50_8x8.yaml", "clips_per_step": n,
+          "videos": MASKED_VIDEOS, "steps_per_epoch": spe, "warmup_iters": 65536 // n,
+          "epochs": epochs, "per_step": steps, "knn": knn, "checkpoint_bytes": ckpt_bytes,
+          "reload_identical": True, "step_p50_ms": p50, "train_clips_per_s": n / p50 * 1e3,
+          "step_min_ms": min(ms), "min_step_clips_per_s": n / min(ms) * 1e3,
+          "warmup_step_p50_ms": statistics.median(frozen_ms) if frozen_ms else None,
+          "max_memory_allocated": run["max_memory_allocated"],
+          "loader_batch_ms": loader_ms, "train_wall_s": run["wall_s"],
+          "launches": run["launches"]})
+    check(len(steps) == 3 * spe and all(s["clips"] == n for s in steps), f"steps {len(steps)}")
+    check(not any(s["params_moved"] for s in steps[:spe]),
+          "a queue warm-up step of epoch 0 moved the parameters")
+    check(all(s["params_moved"] for s in steps[spe:]), "a step after epoch 0 left the parameters")
+    check(all(s["ptr_advance"] == 2 * n for s in steps), "the queue pointer moved by "
+          f"{[s['ptr_advance'] for s in steps]}, not 2 x {n}")
+    check(epochs == ["1/3", "2/3", "3/3"] and len(knn) == 1
+          and 0.0 <= knn[0]["top1_acc"] <= 100.0, f"epochs {epochs}, kNN {knn}")
+    return {"launches": run["launches"]}
+
+
+def phase_linear_probe_slice(corpus, pt_ckpt):
+    """``run_net.main`` training the linear probe
+    (linear_k400_Slow_8x8_R50_syn8.yaml: Slow R50, DETACH_FINAL_FC) at full
+    width in bf16 from ssl_train_slice's checkpoint through
+    ``CHECKPOINT_CLEAR_NAME_PATTERN ("backbone.",)``: every backbone tensor
+    loaded, the head's projection fresh; 4 decoded steps of 16 clips and a
+    val batch, each through the preprocess kernel; the backbone's weights
+    bit-equal to the checkpoint's after them, no backbone parameter with a
+    gradient."""
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    cfg = family_cfg(LINEAR_YAML, ["TRAIN.BATCH_SIZE", str(LINEAR_CLIPS)], "linear")
+    check(cfg.MODEL.DETACH_FINAL_FC and cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN == ("backbone.",)
+          and cfg.MODEL.MODEL_NAME == "ResNet", "linear probe recipe")
+    out_dir = os.path.join(OUT_DIR, "linear")
+    opts = kinetics_split(corpus, "linear", 4 * LINEAR_CLIPS) + [
+        "TRAIN.BATCH_SIZE", str(LINEAR_CLIPS), "TRAIN.CHECKPOINT_FILE_PATH", pt_ckpt]
+    reports, load = [], cu.load_weights
+
+    def recording_load(*args, **kwargs):
+        reports.append(load(*args, **kwargs))
+        return reports[-1]
+
+    cu.load_weights = recording_load
+    try:
+        with removed_after(os.path.join(out_dir, "checkpoints")):
+            run = drive_train(LINEAR_YAML, opts, out_dir)
+    finally:
+        cu.load_weights = load
+    model = run.pop("model")
+    (report,) = reports
+    pt_state = torch.load(pt_ckpt, map_location="cpu", weights_only=True)["model_state"]
+    names = [k for k in model.state_dict() if not k.endswith("num_batches_tracked")]
+    backbone = [k for k, _ in model.named_parameters() if not k.startswith("head.projection")]
+    differ = [k for k in backbone
+              if not torch.equal(model.get_parameter(k).detach().cpu(), pt_state["backbone." + k])]
+    with_grad = [k for k in backbone if model.get_parameter(k).grad is not None
+                 and model.get_parameter(k).grad.abs().max().item() > 0]
+    del model
+    launches, steps = run["launches"], run["steps"]
+    counts = {"loaded": len(report.loaded), "skipped": report.skipped,
+              "missing": len(report.missing), "unexpected": len(report.unexpected)}
+    emit({"phase": "linear_probe_slice", "recipe": "linear_k400_Slow_8x8_R50_syn8.yaml",
+          "steps": len(steps), "clips_per_step": LINEAR_CLIPS, "per_step": steps,
+          "load_counts": counts, "missing": report.missing, "unexpected": report.unexpected,
+          "backbone_params": len(backbone), "backbone_differ_from_checkpoint": differ,
+          "backbone_params_with_grad": with_grad,
+          "val_epoch": [s for s in run["logged"] if s["_type"] == "val_epoch"][-1],
+          "train_wall_s": run["wall_s"], "run_max_memory_allocated": run["max_memory_allocated"],
+          "launches": launches})
+    check(len(steps) == 4 and all(s["clips"] == LINEAR_CLIPS for s in steps), f"steps {steps}")
+    check(sorted(report.missing) == ["head.projection.bias", "head.projection.weight"]
+          and sorted(report.loaded) == sorted(n for n in names if not n.startswith("head."))
+          and report.skipped == 0
+          and all(u.startswith("head.projection.projection.") for u in report.unexpected),
+          f"load {counts}: missing {report.missing}, unexpected {report.unexpected}")
+    check(not differ and not with_grad, f"DETACH_FINAL_FC moved {differ[:4]}, grads {with_grad[:4]}")
+    check(only_launched(launches, (), None) and launches["preprocess_u8"] == 4 + 1
+          and launches["roi_align"] == 0, f"launches {launches}")
+    return {"launches": launches}
+
+
+def phase_ssl_family(corpus):
+    """BYOL (2-layer MLPs of 4,096, a predictor), SimCLR and SwAV (1,000
+    prototypes) at full width in bf16 with LARS: per recipe
+    ``run_net.main`` for 4 decoded steps of 32 clips on the mp4 corpus with
+    finite losses, the p50 and the fastest of the steps after the first
+    (clips/s) and the run's peak memory; SwAV's prototype rows of unit length after each step
+    and, in epoch 0, after each step but the first equal to the rows before
+    it renormalized (LARS gives their zero gradient no decay)."""
+    out = {}
+    for t in ("byol", "simclr", "swav"):
+        cfg = family_cfg(SSL_YAML[t], [], f"ssl_{t}")
+        check(cfg.SOLVER.LARS_ON and cfg.CONTRASTIVE.TYPE == t, f"{t} recipe")
+        n = SSL_CLIPS[t]
+        out_dir = os.path.join(OUT_DIR, f"ssl_{t}")
+        proto = []
+
+        def swav_check(model, ssl, before, proto=proto):
+            if t != "swav":
+                return
+            w = model.swav_prototypes.weight.detach()
+            w0 = before[[n for n, _ in model.named_parameters()].index("swav_prototypes.weight")]
+            unit0 = w0 / torch.linalg.vector_norm(w0, dim=1, keepdim=True)
+            proto.append({"max_row_norm_err": (torch.linalg.vector_norm(w, dim=1) - 1).abs()
+                          .max().item(), "max_move_beyond_renorm": (w - unit0).abs().max().item()})
+
+        with removed_after(os.path.join(out_dir, "checkpoints")):
+            run = drive_ssl_train(SSL_YAML[t], kinetics_split(corpus, f"ssl_{t}", 4 * n) + [
+                "TRAIN.BATCH_SIZE", str(n), "SOLVER.MAX_EPOCH", "1"], out_dir, on_step=swav_check)
+        del run["model"], run["ssl"]
+        # The loader's workers decode the next batches on the host's cores
+        # while the first steps run; the fastest step is the one they left
+        # alone.
+        ms = [s["ms"] for s in run["steps"][1:]]
+        p50 = statistics.median(ms)
+        out[t] = {"clips_per_step": n, "step_p50_ms": p50, "train_clips_per_s": n / p50 * 1e3,
+                  "step_min_ms": min(ms), "min_step_clips_per_s": n / min(ms) * 1e3,
+                  "max_memory_allocated": run["max_memory_allocated"],
+                  "run_steps": run["steps"], "train_wall_s": run["wall_s"], "prototypes": proto}
+        check(len(run["steps"]) == 4 and all(s["params_moved"] for s in run["steps"]),
+              f"{t} steps {run['steps']}")
+        if t == "swav":
+            check(len(proto) == 4 and all(p["max_row_norm_err"] <= 1e-6 for p in proto)
+                  and all(p["max_move_beyond_renorm"] <= 1e-6 for p in proto[1:]),
+                  f"SwAV prototypes {proto}")
+    emit({"phase": "ssl_family", **out})
+
+
+def float64_ssl(model, cfg, ssl_state, batch):
+    """The SSL step of ``model`` (its state before the step) in float64 on
+    the CPU: returns its loss, gradients and SSL state after it."""
+    import copy
+
+    from slowfast_tpu_torch.engine.ssl_steps import make_ssl_train_step
+    from slowfast_tpu_torch.models.contrastive import init_ssl_state
+    from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+    def as_float64(module):
+        module.double()
+        for m in module.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+        return module
+
+    m64 = as_float64(copy.deepcopy(model))
+    ssl = init_ssl_state(cfg, m64, torch.Generator().manual_seed(0))
+    ssl.load_state_dict(ssl_state)
+    for name in ssl.TENSORS:
+        if getattr(ssl, name) is not None:
+            setattr(ssl, name, getattr(ssl, name).double())
+    if ssl.hist is not None:
+        as_float64(ssl.hist)
+    step = make_ssl_train_step(cfg, m64, construct_optimizer(m64, cfg), ssl, 1,
+                               torch.Generator().manual_seed(0))
+    step.keep_grads = True
+    m = step({k: [x.double() for x in v] if isinstance(v, list) else v for k, v in batch.items()})
+    return m["loss"].item(), step.last_grads, ssl
+
+
+def ssl_fp32_case(t, clips):
+    """One fp32 step of ``t`` at full width on ``clips`` clips, card (TF32
+    off) vs CPU vs float64 on the CPU, from one state: random BN parameters
+    and statistics, the momentum encoder a copy of the backbone, the
+    recipe's queue and kNN bank, the step count in epoch 1 (past MoCo's
+    warm-up)."""
+    cfg = family_cfg(SSL_YAML[t], ["TPU.COMPUTE_DTYPE", "float32",
+                                   "TRAIN.BATCH_SIZE", str(clips)], "ssl_fp32")
+    cpu_model, cpu_opt, cpu_ssl, cpu_step = ssl_setup(cfg, "cpu", 1, first_iter=1,
+                                                      generator=torch.Generator())
+    randomize_bn(cpu_model, 5)
+    cpu_ssl.hist.load_state_dict(cpu_model.backbone.state_dict())
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    ssl0 = cpu_ssl.state_dict()
+    batch = ssl_float_batch(cfg, clips, 9, device="cpu")
+    names = [n for n, _ in cpu_model.named_parameters()]
+    t0 = time.perf_counter()
+    cpu_step.keep_grads = True
+    want = cpu_step(batch)
+    cpu_s = time.perf_counter() - t0
+    model, opt, ssl, step = ssl_setup(cfg, "cuda", 1, first_iter=1, generator=torch.Generator(
+        device="cuda"))
+    model.load_state_dict(state, strict=True)
+    ssl.load_state_dict(ssl0)
+    step.keep_grads = True
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_launches()
+        got = step({k: [x.cuda() for x in v] if isinstance(v, list) else v.cuda()
+                    for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu_model.load_state_dict(state, strict=True)
+    loss64, grads64, ssl64 = float64_ssl(cpu_model, cfg, ssl0, batch)
+    grads = {n: g.cpu() for n, g in step.last_grads.items()}
+    want_grads = cpu_step.last_grads
+    gnames = [n for n in names if n in want_grads]
+    check(sorted(grads) == sorted(want_grads), "the card and the CPU took different gradients")
+    card_vs_f64, cpu_vs_f64 = rel_l2(grads, grads64, gnames), rel_l2(want_grads, grads64, gnames)
+    # The SSL state: the queue rows this step wrote, the kNN bank's rows of
+    # the batch, the momentum encoder's weights and BN statistics.
+    got_s, want_s, exact_s = ssl.state_dict(), cpu_ssl.state_dict(), ssl64.state_dict()
+    parts = {}
+    index = batch["index"]
+    if "queue_x" in want_s:
+        ptr0, rows = ssl0["ptr"], 2 * clips
+        idx = (ptr0 + torch.arange(rows)) % want_s["queue_x"].shape[0]
+        parts["queue_rows"] = [d["queue_x"][idx] for d in (got_s, want_s, exact_s)]
+    parts["knn_rows"] = [d["memory"][index] for d in (got_s, want_s, exact_s)]
+    for k in want_s.get("hist", {}):
+        if not k.endswith("num_batches_tracked"):
+            parts["hist." + k] = [d["hist"][k] for d in (got_s, want_s, exact_s)]
+    state_err = {}
+    for k, (g, w, e) in parts.items():
+        one = {"x": g.double()}, {"x": w.double()}, {"x": e.double()}
+        state_err[k] = (rel_l2(one[0], one[1], ["x"]), rel_l2(one[0], one[2], ["x"]),
+                        rel_l2(one[1], one[2], ["x"]))
+    # Each part within 1e-6 of the CPU's, or no further from the float64
+    # step than twice the CPU's: a momentum-encoder leaf takes (1 - mmt) of
+    # the update in, so where the update is large against the leaf (the
+    # stem, the BN biases, the MLPs' zero-initialised biases) it carries the
+    # gradients' conditioning, and the queue and kNN rows are the fp32
+    # forward's embeddings.
+    bad_state = {k: v for k, v in state_err.items()
+                 if v[0] > SSL_STATE_TOL and v[1] > 2.0 * v[2]}
+    over = sorted(((v[0], k) for k, v in state_err.items() if v[0] > SSL_STATE_TOL), reverse=True)
+    hist_err = max((v[0] for k, v in state_err.items() if k.startswith("hist.")), default=0.0)
+    loss_err = abs(got["loss"].item() - want["loss"].item()) / abs(want["loss"].item())
+    card_loss_f64 = abs(got["loss"].item() - loss64) / abs(loss64)
+    cpu_loss_f64 = abs(want["loss"].item() - loss64) / abs(loss64)
+    out = {"clips": clips, "loss": got["loss"].item(), "cpu_loss": want["loss"].item(),
+           "float64_loss": loss64, "loss_rel_err": loss_err,
+           "card_vs_float64_loss_rel_err": card_loss_f64,
+           "cpu_vs_float64_loss_rel_err": cpu_loss_f64, "lr": got["lr"],
+           "card_vs_float64_grad_rel_l2": card_vs_f64, "cpu_vs_float64_grad_rel_l2": cpu_vs_f64,
+           "grad_rel_l2_err": rel_l2(grads, want_grads, gnames), "params_with_grad": len(gnames),
+           "ptr": [ssl.ptr, cpu_ssl.ptr], "iter": [ssl.iter, cpu_ssl.iter],
+           "max_hist_rel_l2_err": hist_err,
+           "queue_rows_rel_l2_err": state_err.get("queue_rows", [None])[0],
+           "knn_rows_rel_l2_err": state_err["knn_rows"][0],
+           "state_over_1e-6": {k: state_err[k] for _, k in over[:12]},
+           "state_over_1e-6_count": len(over),
+           "state_beyond_tol": bad_state, "cpu_step_s": cpu_s, "launches": launches}
+    out["fails"] = [msg for bad, msg in (
+        (loss_err > 1e-5, "loss"),
+        (card_vs_f64 > 2.0 * cpu_vs_f64, "gradients"),
+        (ssl.ptr != cpu_ssl.ptr or ssl.iter != cpu_ssl.iter, "pointer or step count"),
+        (bool(bad_state), "SSL state"),
+        (any(launches.values()), "launches")) if bad]
+    del model, opt, ssl, step
+    return out
+
+
+def phase_ssl_fp32():
+    """One MoCo step on 2 clips and one BYOL step on 4 at full width in fp32,
+    card with TF32 off vs CPU on the same weights, state and batch
+    (ssl_fp32_case). BYOL's projection and predictor MLPs batch-normalize:
+    over 2 clips a BN's output is +-1 whatever its input, so every gradient
+    below it is zero in exact arithmetic and rounding noise in fp32; 4
+    clips keep them real. The loss within 1e-5; the gradients no further
+    from the float64 step than twice the CPU's fp32 ones (Slow R50's fp32
+    gradient is ill-conditioned, ROADMAP Queue 3 #4); the queue rows
+    written, the kNN bank's rows and each leaf of the momentum encoder
+    within 1e-6 relative L2 of the CPU's, or no further from the float64
+    step than twice the CPU's fp32 run (the leaves that take in an update
+    large against them carry the gradients' conditioning); equal pointers
+    and step counts."""
+    cases = {"moco": ssl_fp32_case("moco", 2), "byol": ssl_fp32_case("byol", 4)}
+    emit({"phase": "ssl_fp32", **cases})
+    check(not any(c["fails"] for c in cases.values()),
+          f"ssl_fp32 fails: { {t: c['fails'] for t, c in cases.items()} }")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -4280,6 +4768,12 @@ def main():
         family["maskfeat"] = phase_maskfeat_train_slice(corpus, keep=pt_ckpt)
         family["mae"] = phase_mae_train_slice(corpus)
         family["finetune"] = phase_finetune_slice(corpus, pt_ckpt)
+        # MoCo's checkpoint, kept outside the run files for the linear probe.
+        ssl_ckpt = os.path.join(corpus, "moco_pt.pyth")
+        family["ssl"] = phase_ssl_train_slice(corpus, keep=ssl_ckpt)
+        family["linear"] = phase_linear_probe_slice(corpus, ssl_ckpt)
+        phase_ssl_family(corpus)
+    phase_ssl_fp32()
     phase_masked_fp32()
     family["rev_mvit"] = phase_rev_mvit_train_slice()
     phase_rev_mvit_memory()
@@ -4288,8 +4782,9 @@ def main():
     # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches), of
     # the one on decoded video (the same, with 2 val batches, and the test's
     # 8 batches), of the two masked pretraining runs (4 steps each), of the
-    # fine-tune (4 steps and its val batch) and of Rev-MViT's run (4 steps,
-    # 4 val and 2 test batches).
+    # fine-tune (4 steps and its val batch), of the linear probe (4 steps and
+    # its val batch; the SSL pretrains ship float pathways) and of Rev-MViT's
+    # run (4 steps, 4 val and 2 test batches).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
@@ -4297,7 +4792,7 @@ def main():
         "launches": sf_train["launches"]["preprocess_u8"]
         + (data_launches["preprocess_u8"] if data_launches else 0)
         + sum(family[k]["launches"]["preprocess_u8"]
-              for k in ("maskfeat", "mae", "finetune", "rev_mvit")),
+              for k in ("maskfeat", "mae", "finetune", "linear", "rev_mvit")),
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],

@@ -75,14 +75,43 @@ def get_video_fps_and_frames(path):
     return cap, fps, int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
 
 
+def _read_window(cap, total, start_idx, end_idx, num_frames, max_spatial_scale=0):
+    """The ``num_frames`` linspace frames of the window ``[start_idx,
+    end_idx]`` of an open capture, RGB uint8 (T, H, W, C), each frame's short
+    side shrunk to ``max_spatial_scale`` when it is longer; None when no
+    frame reads."""
+    import cv2
+
+    start_f = max(int(math.floor(start_idx)), 0)
+    end_f = min(int(math.ceil(end_idx)), total - 1)
+    if int(cap.get(cv2.CAP_PROP_POS_FRAMES)) != start_f:
+        cap.set(cv2.CAP_PROP_POS_FRAMES, start_f)
+    frames = []
+    for _ in range(end_f - start_f + 1):
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if max_spatial_scale > 0:
+            h, w = frame.shape[:2]
+            if min(h, w) > max_spatial_scale:
+                scale = max_spatial_scale / min(h, w)
+                frame = cv2.resize(frame, (int(round(w * scale)), int(round(h * scale))),
+                                   interpolation=cv2.INTER_LINEAR)
+        frames.append(frame[:, :, ::-1])  # BGR -> RGB
+    if not frames:
+        return None
+    frames = np.stack(frames)
+    index = np.linspace(start_idx - start_f, end_idx - start_f, num_frames)
+    index = np.clip(index, 0, frames.shape[0] - 1).astype(np.int64)
+    return frames[index]
+
+
 def decode(path, sampling_rate, num_frames, rng=None, clip_idx=-1, num_clips=10,
            target_fps=30, max_spatial_scale=0, use_offset=False):
     """One clip of ``num_frames`` uint8 RGB frames (T, H, W, C), frames
     ``sampling_rate`` apart at ``target_fps``: returns ``(frames, fps,
     False, time_frac)``, with the window's relative start ``time_frac``, or
     None when the file cannot be read."""
-    import cv2
-
     cap, fps, total = get_video_fps_and_frames(path)
     if cap is None:
         return None
@@ -92,27 +121,33 @@ def decode(path, sampling_rate, num_frames, rng=None, clip_idx=-1, num_clips=10,
         clip_size = sampling_rate * num_frames / target_fps * fps
         start_idx, end_idx, time_frac = get_start_end_idx(total, clip_size, clip_idx,
                                                           num_clips, rng, use_offset=use_offset)
-        start_f = max(int(math.floor(start_idx)), 0)
-        end_f = min(int(math.ceil(end_idx)), total - 1)
-        if start_f > 0:
-            cap.set(cv2.CAP_PROP_POS_FRAMES, start_f)
-        frames = []
-        for _ in range(end_f - start_f + 1):
-            ok, frame = cap.read()
-            if not ok:
-                break
-            if max_spatial_scale > 0:
-                h, w = frame.shape[:2]
-                if min(h, w) > max_spatial_scale:
-                    scale = max_spatial_scale / min(h, w)
-                    frame = cv2.resize(frame, (int(round(w * scale)), int(round(h * scale))),
-                                       interpolation=cv2.INTER_LINEAR)
-            frames.append(frame[:, :, ::-1])  # BGR -> RGB
+        frames = _read_window(cap, total, start_idx, end_idx, num_frames, max_spatial_scale)
     finally:
         cap.release()
-    if not frames:
+    return None if frames is None else (frames, fps, False, time_frac)
+
+
+def decode_views(path, sampling_rate, num_frames, rng, n_views, num_clips=10, target_fps=30,
+                 min_delta=-math.inf, max_delta=math.inf):
+    """``n_views`` random windows drawn jointly until the gaps between them
+    lie in ``[min_delta, max_delta]`` (``get_multiple_start_end_idx``), each
+    decoded as ``decode`` decodes one: the SSL views under
+    ``CONTRASTIVE.DELTA_CLIPS_{MIN,MAX}``, which the JAX package draws in
+    its FFmpeg multi-window decode (slowfast_tpu/data/decoder.py:150-164).
+    Returns ``(clips, fps, False, time_fracs)`` or None."""
+    cap, fps, total = get_video_fps_and_frames(path)
+    if cap is None:
         return None
-    frames = np.stack(frames)
-    index = np.linspace(start_idx - start_f, end_idx - start_f, num_frames)
-    index = np.clip(index, 0, frames.shape[0] - 1).astype(np.int64)
-    return frames[index], fps, False, time_frac
+    try:
+        if total <= 0:
+            return None
+        clip_size = sampling_rate * num_frames / target_fps * fps
+        se = get_multiple_start_end_idx(total, [clip_size] * n_views, -1, num_clips, rng,
+                                        min_delta=min_delta, max_delta=max_delta)
+        span = max(total - clip_size, 0)
+        clips = [_read_window(cap, total, s, e, num_frames) for s, e in se]
+    finally:
+        cap.release()
+    if any(c is None for c in clips):
+        return None
+    return clips, fps, False, [s / span if span != 0 else 0.0 for s, _ in se]

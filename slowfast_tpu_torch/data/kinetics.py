@@ -18,7 +18,11 @@ tried again, past half the retries with another random video (not in test).
 Each item draws from its own generators (``utils.sample_rngs``) in the JAX
 package's order, so seeding that package's ``random`` and ``np.random``
 with the same number gives the same clip. Items are uint8 clips; the card
-normalizes them. The decode backend is logged when a split is built.
+normalizes them. ``ContrastiveModel``'s items are normalized float
+pathways, and in training its multi-view items (``_ssl_views``);
+``DATA.SSL_COLOR_JITTER`` applies the SSL colour recipe to every train clip
+before the spatial sampling. The decode backend is logged when a split is
+built.
 ``DATA.FUSED_DECODE_CROP`` belongs to the FFmpeg decoder:
 under cv2 the JAX package pre-crops nothing, and treats a frame that comes
 out at the crop's size as cropped; so does the port.
@@ -33,6 +37,7 @@ multi-hot labels, drawn from the same generator after the frames
 (slowfast_tpu/data/kinetics.py:566-579).
 """
 
+import math
 import os
 
 import numpy as np
@@ -45,9 +50,14 @@ from .random_erasing import RandomErasing
 logger = logging_utils.get_logger(__name__)
 
 
+def _ssl(cfg):
+    return cfg.MODEL.MODEL_NAME == "ContrastiveModel"
+
+
 def _check_uint8(cfg):
-    if not cfg.TPU.UINT8_PIPELINE:
-        raise NotImplementedError("the port's loader ships uint8 clips only")
+    if not cfg.TPU.UINT8_PIPELINE and not _ssl(cfg):
+        raise NotImplementedError("the port's loader ships uint8 clips only, and float "
+                                  "pathways for ContrastiveModel")
     if cfg.AUG.GEN_MASK_LOADER and cfg.MVIT.PATCH_2D:
         raise NotImplementedError("loader masks of the 2D patch stem (MVIT.PATCH_2D, image "
                                   "MaskFeat on ImageNet) are not ported yet")
@@ -83,13 +93,9 @@ class Kinetics(utils.SeededDataset):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown split {mode!r}")
         _check_uint8(cfg)
-        unported = {"SSL multi-view clips (MODEL_NAME ContrastiveModel)":
-                    cfg.MODEL.MODEL_NAME == "ContrastiveModel",
-                    "DATA.SSL_COLOR_JITTER": cfg.DATA.SSL_COLOR_JITTER,
-                    "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"Kinetics with {name} is not ported yet")
+        if cfg.DATA.LOADER_CHUNK_SIZE > 0:
+            raise NotImplementedError("Kinetics with DATA.LOADER_CHUNK_SIZE (chunked csv) is "
+                                      "not ported yet")
         self.cfg = cfg
         self.mode = mode
         self._num_retries = num_retries
@@ -172,12 +178,12 @@ class Kinetics(utils.SeededDataset):
             target_fps += rng.uniform(0.0, cfg.DATA.TRAIN_JITTER_FPS)
         decode_at_scale = 0
         if (train and cfg.DATA.DECODE_AT_SCALE and not cfg.DATA.TRAIN_JITTER_SCALES_RELATIVE
-                and not (cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1)):
+                and not (cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1) and not _ssl(cfg)):
             decode_at_scale = transform.sample_jitter_size(min_scale, max_scale, rng,
                                                            cfg.DATA.INV_UNIFORM_SAMPLE)
             min_scale = max_scale = decode_at_scale
         fused_crop = (decode_at_scale and cfg.DATA.FUSED_DECODE_CROP and not cfg.AUG.ENABLE
-                      and not cfg.DATA.TRAIN_JITTER_MOTION_SHIFT)
+                      and not cfg.DATA.SSL_COLOR_JITTER and not cfg.DATA.TRAIN_JITTER_MOTION_SHIFT)
         for i_try in range(self._num_retries):
             rng.random(), rng.random()  # the FFmpeg decoder's crop placement, unused here
             result = decoder.decode(
@@ -196,9 +202,11 @@ class Kinetics(utils.SeededDataset):
         else:
             raise RuntimeError(f"Failed to fetch video after {self._num_retries} retries.")
 
+        args = (spatial_sample_index, min_scale, max_scale, crop_size, rng, np_rng)
+        if train and _ssl(cfg):
+            return self._ssl_views(index, frames, time_frac, target_fps, args)
         label = self._labels[index]
         time_out = np.asarray([time_frac], np.float32)
-        args = (spatial_sample_index, min_scale, max_scale, crop_size, rng, np_rng)
         num_aug = cfg.AUG.NUM_SAMPLE if train and cfg.AUG.ENABLE else 1
         if num_aug > 1:
             clips, metas = [], []
@@ -214,13 +222,76 @@ class Kinetics(utils.SeededDataset):
             self.dummy_output = out
         return out
 
+    def _ssl_views(self, index, frames, time_frac, target_fps, args):
+        """The SSL item (slowfast_tpu/data/kinetics.py:219-321): ``n_t``
+        temporal windows (``TRAIN_CROP_NUM_TEMPORAL``), the first the clip
+        already decoded, each extra one decoded afresh at a random place,
+        or all drawn jointly under ``CONTRASTIVE.DELTA_CLIPS_{MIN,MAX}``
+        (``decoder.decode_views``, the first replacing the decoded clip);
+        each window through ``augment_raw_frames`` under
+        ``DATA.TIME_DIFF_PROB``, then ``n_s`` (``TRAIN_CROP_NUM_SPATIAL``)
+        independent augmentations of it; at least two views. Returns
+        ``(views, label, index, view times, {})``."""
+        cfg = self.cfg
+        rng = args[-2]
+        path, rate, t = self._path_to_videos[index], cfg.DATA.SAMPLING_RATE, cfg.DATA.NUM_FRAMES
+        n_t = max(cfg.DATA.TRAIN_CROP_NUM_TEMPORAL, 1)
+        n_s = max(cfg.DATA.TRAIN_CROP_NUM_SPATIAL, 1)
+        if n_t * n_s < 2:
+            n_s = 2
+        d_min, d_max = cfg.CONTRASTIVE.DELTA_CLIPS_MIN, cfg.CONTRASTIVE.DELTA_CLIPS_MAX
+        windows = [(frames, time_frac)]
+        if n_t > 1 and (d_min > -math.inf or d_max < math.inf):
+            got = decoder.decode_views(path, rate, t, rng, n_t,
+                                       num_clips=cfg.TEST.NUM_ENSEMBLE_VIEWS,
+                                       target_fps=target_fps, min_delta=d_min, max_delta=d_max)
+            if got is not None:
+                windows = list(zip(got[0], got[3]))
+        views, times = [], []
+        for i in range(n_t):
+            if i < len(windows):
+                t_frames, t_time = windows[i]
+            else:
+                got = decoder.decode(path, rate, t, rng, clip_idx=-1,
+                                     num_clips=cfg.TEST.NUM_ENSEMBLE_VIEWS,
+                                     target_fps=target_fps,
+                                     use_offset=cfg.DATA.USE_OFFSET_SAMPLING)
+                t_frames, t_time = (got[0], got[3]) if got is not None else (frames, time_frac)
+            if cfg.DATA.TIME_DIFF_PROB > 0:
+                t_frames, _ = transform.augment_raw_frames(
+                    t_frames, rng, time_diff_prob=cfg.DATA.TIME_DIFF_PROB)
+            for _ in range(n_s):
+                views.append(self._process_clip(t_frames, *args))
+                times.append(t_time)
+        return views, self._labels[index], index, np.asarray(times, np.float32), {}
+
     def _process_clip(self, frames, spatial_sample_index, min_scale, max_scale, crop_size,
                       rng, np_rng, pre_cropped=False):
-        """RandAugment, the spatial sampling (or only the flip of a clip the
-        decoder already cropped), random erasing; returns ``[clip]``."""
+        """The SSL colour recipe (train, ``DATA.SSL_COLOR_JITTER``, on [0, 1]
+        floats, before everything else), RandAugment, the spatial sampling
+        (or only the flip of a clip the decoder already cropped), random
+        erasing; returns ``[clip]``, a uint8 clip, or for ``ContrastiveModel``
+        the normalized float pathways (slowfast_tpu/data/kinetics.py:387-475).
+        A float clip goes back to uint8 by truncation, as the JAX package's
+        ``astype(np.uint8)`` does (:433-434)."""
         cfg = self.cfg
+        is_float255 = frames.dtype != np.uint8
+        if self.mode == "train" and cfg.DATA.SSL_COLOR_JITTER:
+            f = transform.color_jitter_video_ssl(
+                frames.astype(np.float32) / 255.0, rng, bri_con_sat=cfg.DATA.SSL_COLOR_BRI_CON_SAT,
+                hue=cfg.DATA.SSL_COLOR_HUE, p_convert_gray=cfg.DATA.COLOR_RND_GRAYSCALE,
+                moco_v2_aug=cfg.DATA.SSL_MOCOV2_AUG)
+            frames, is_float255 = np.clip(f, 0.0, 1.0) * 255.0, True
         if self.randaug is not None:
+            if is_float255:
+                frames, is_float255 = np.clip(frames, 0, 255).astype(np.uint8), False
             frames = self.randaug(frames, rng)
+        if _ssl(cfg):
+            frames = utils.tensor_normalize(
+                frames.astype(np.float32) / 255.0 if is_float255 else frames,
+                cfg.DATA.MEAN, cfg.DATA.STD)
+        elif frames.dtype != np.uint8:
+            frames = np.clip(frames, 0, 255).astype(np.uint8)
         if pre_cropped:
             if cfg.DATA.RANDOM_FLIP:
                 frames = transform.horizontal_flip(0.5, frames, np_rng)
@@ -236,11 +307,21 @@ class Kinetics(utils.SeededDataset):
                 motion_shift=cfg.DATA.TRAIN_JITTER_MOTION_SHIFT and self.mode == "train")
         if self.erasing is not None:
             frames = self.erasing(frames, rng, np_rng)
+        if _ssl(cfg):
+            return utils.pack_pathway_output(cfg, frames.astype(np.float32))
         return [np.ascontiguousarray(frames)]
 
 
 class Syntheticvideo(utils.SeededDataset):
     def __init__(self, cfg, mode):
+        if _ssl(cfg):
+            # slowfast_tpu/data/kinetics.py:557-565 returns one pathway list
+            # where ssl_collate expects views (ROADMAP Queue 3).
+            raise NotImplementedError(
+                "Syntheticvideo has no SSL views for ContrastiveModel: the JAX package's "
+                "synthetic item is one pathway list, which its ssl_collate reads as one view "
+                "of several pathways, so its SSL step cannot take it; pretrain on video files "
+                "(TRAIN.DATASET kinetics)")
         _check_uint8(cfg)
         self.cfg = cfg
         self.mode = mode

@@ -5,7 +5,8 @@ release the GIL while they fill an array), stacked into NTHWC batches
 (uint8 clips, or the float pathways of the AVA dataset), and sent to the
 device from pinned memory with a non-blocking copy, with the padded boxes
 and box mask of a detection batch (``detection_collate``) and the masks of
-a masked-pretraining batch (``AUG.GEN_MASK_LOADER``). Labels, clip ids
+a masked-pretraining batch (``AUG.GEN_MASK_LOADER``); an SSL train batch
+(``ssl_collate``) is a tuple of views, each a list of pathways. Labels, clip ids
 and the ragged ``ori_boxes`` and ``metadata`` stay on the host. The train
 split is shuffled per epoch with ``np.random.RandomState(RNG_SEED +
 epoch).permutation`` and drops its last partial batch, as the JAX
@@ -108,6 +109,21 @@ def detection_collate(samples):
     return inputs, padded, index, times, meta
 
 
+def ssl_collate(samples):
+    """The SSL multi-view batch (slowfast_tpu/data/loader.py:98): each item's
+    first entry is its list of views, each a pathway list. Returns ``(views,
+    labels, clip ids, times, {})``, ``views`` a tuple of stacked float32
+    pathway lists, one per view (at least two; the train step takes the
+    first two)."""
+    views = tuple([np.stack([s[0][v][p] for s in samples]).astype(np.float32)
+                   for p in range(len(samples[0][0][v]))]
+                  for v in range(len(samples[0][0])))
+    labels = np.asarray([s[1] for s in samples])
+    index = np.asarray([s[2] for s in samples], np.int64)
+    times = np.stack([np.asarray(s[3]) for s in samples])
+    return views, labels, index, times, {}
+
+
 def multiple_samples_collate(samples):
     """Flatten repeated-augmentation items (each a list of ``NUM_SAMPLE``
     clips with replicated labels and ids) into the batch axis (reference
@@ -172,7 +188,11 @@ class Loader:
                     [f.result() for f in window.popleft()])
                 meta = {k: self._to_device(v) if k in DEVICE_META else v
                         for k, v in meta.items()}
-                yield [self._to_device(x) for x in inputs], labels, index, times, meta
+                if isinstance(inputs, tuple):  # SSL views
+                    inputs = tuple([self._to_device(x) for x in view] for view in inputs)
+                else:
+                    inputs = [self._to_device(x) for x in inputs]
+                yield inputs, labels, index, times, meta
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
@@ -191,6 +211,8 @@ def construct_loader(cfg, split, device="cuda"):
     dataset = build_dataset(dataset_name, cfg, split)
     if cfg.DETECTION.ENABLE:
         collate_fn = detection_collate
+    elif train and cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        collate_fn = ssl_collate
     elif train and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1:
         collate_fn = multiple_samples_collate
     else:

@@ -1,7 +1,8 @@
 """Spatial and color transforms of host (T, H, W, C) clips (counterpart of
 slowfast_tpu/data/transform.py:14-273, the classification subset with the
-box-aware crops of detection, and :441-547, MaskFeat's block-mask
-generators; reference slowfast/datasets/transform.py).
+box-aware crops of detection, :275-439, the SSL colour recipe, blur and
+temporal difference, and :441-547, MaskFeat's block-mask generators;
+reference slowfast/datasets/transform.py).
 
 Resizes are cv2's, as in the JAX package, so the same uint8 clip and the
 same draws give the same bytes. Every random draw comes from a generator
@@ -237,6 +238,147 @@ def color_normalization(frames, mean, stddev):
     mean = np.asarray(mean, frames.dtype).reshape(1, 1, 1, -1)
     stddev = np.asarray(stddev, frames.dtype).reshape(1, 1, 1, -1)
     return (frames - mean) / stddev
+
+
+# SSL augmentations (slowfast_tpu/data/transform.py:275-439, reference
+# transform.py:1047-1180) on float (T, H, W, C) clips.
+
+def _tv_brightness(frames, factor):
+    """torchvision ``adjust_brightness``: ``img * factor``."""
+    return np.clip(frames * factor, 0.0, 1.0)
+
+
+def _tv_contrast(frames, factor):
+    """torchvision ``adjust_contrast``: a blend with the clip's mean gray."""
+    mean = grayscale(frames)[..., 0].mean()
+    return np.clip(frames * factor + mean * (1.0 - factor), 0.0, 1.0)
+
+
+def _tv_saturation(frames, factor):
+    """torchvision ``adjust_saturation``: a blend with each pixel's gray."""
+    return np.clip(frames * factor + grayscale(frames) * (1.0 - factor), 0.0, 1.0)
+
+
+def _tv_hue(frames, factor):
+    """torchvision ``adjust_hue``: the hue turned by ``factor`` (in turns)
+    through HSV."""
+    r, g, b = frames[..., 0], frames[..., 1], frames[..., 2]
+    maxc = frames.max(axis=-1)
+    minc = frames.min(axis=-1)
+    v = maxc
+    delta = maxc - minc
+    s = np.where(maxc > 0, delta / np.maximum(maxc, 1e-12), 0.0)
+    dz = np.maximum(delta, 1e-12)
+    rc, gc, bc = (maxc - r) / dz, (maxc - g) / dz, (maxc - b) / dz
+    h = np.where(maxc == r, bc - gc, np.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = (h / 6.0) % 1.0
+    h = np.where(delta == 0, 0.0, h)
+    h = (h + factor) % 1.0
+    i = np.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = i.astype(np.int32) % 6
+    out = np.stack([np.choose(i, [v, q, p, p, t, v]), np.choose(i, [t, v, v, q, p, p]),
+                    np.choose(i, [p, p, t, v, v, q])], axis=-1)
+    return out.astype(frames.dtype)
+
+
+def _gaussian_blur_frames(frames, sigma):
+    """Each frame blurred spatially with a Gaussian of ``sigma`` (scipy,
+    edges repeated)."""
+    from scipy.ndimage import gaussian_filter
+
+    return gaussian_filter(frames, sigma=(0.0, sigma, sigma, 0.0), mode="nearest").astype(
+        frames.dtype)
+
+
+def color_jitter_video_ssl(frames, rng, bri_con_sat=(0.4, 0.4, 0.4), hue=0.1,
+                           p_convert_gray=0.0, moco_v2_aug=False):
+    """The SSL colour recipe on a float [0, 1] clip, one draw for all its
+    frames (:339): torchvision's ColorJitter (brightness, contrast,
+    saturation, hue in a random order); with ``moco_v2_aug`` MoCo-v2's
+    recipe: the jitter with p 0.8, grayscale with ``p_convert_gray``, a
+    Gaussian blur of sigma U(0.1, 2) with p 0.5 (the JAX package's fixed
+    range; it ignores ``DATA.SSL_BLUR_SIGMA_*``); else grayscale, then the
+    jitter. Draws from ``rng`` (a ``random.Random``)."""
+
+    def jitter(f):
+        ops = []
+        for var, op in zip(bri_con_sat, (_tv_brightness, _tv_contrast, _tv_saturation)):
+            if var > 0:
+                fac = rng.uniform(max(0.0, 1 - var), 1 + var)
+                ops.append(lambda x, fac=fac, op=op: op(x, fac))
+        if hue > 0:
+            fac = rng.uniform(-hue, hue)
+            ops.append(lambda x, fac=fac: _tv_hue(x, fac))
+        rng.shuffle(ops)
+        for op in ops:
+            f = op(f)
+        return f
+
+    frames = np.asarray(frames, np.float32)
+    if moco_v2_aug:
+        if rng.random() < 0.8:
+            frames = jitter(frames)
+        if rng.random() < p_convert_gray:
+            frames = grayscale(frames)
+        if rng.random() < 0.5:
+            frames = _gaussian_blur_frames(frames, rng.uniform(0.1, 2.0))
+    else:
+        if rng.random() < p_convert_gray:
+            frames = grayscale(frames)
+        frames = jitter(frames)
+    return frames
+
+
+class GaussianBlurVideo:
+    """A Gaussian blur of a (T, H, W, C) clip over space (sigma drawn in
+    ``[sigma_min[1], sigma_max[1]]``) and time (``[sigma_min[0],
+    sigma_max[0]]``), never over channels (:389)."""
+
+    def __init__(self, sigma_min=(0.0, 0.1), sigma_max=(0.0, 2.0)):
+        self.sigma_min = sigma_min
+        self.sigma_max = sigma_max
+
+    def __call__(self, frames, rng):
+        from scipy.ndimage import gaussian_filter
+
+        sigma_s = rng.uniform(self.sigma_min[1], self.sigma_max[1])
+        sigma_t = rng.uniform(self.sigma_min[0], self.sigma_max[0])
+        return gaussian_filter(np.asarray(frames, np.float32),
+                               sigma=(sigma_t, sigma_s, sigma_s, 0.0), mode="nearest")
+
+
+def temporal_difference(frames, use_grayscale=False, absolute=False):
+    """Each frame minus the next (the last repeats the one before), of the
+    gray clip under ``use_grayscale`` (:409)."""
+    frames = np.asarray(frames, np.float32)
+    if use_grayscale:
+        frames = grayscale(frames)
+    t = frames.shape[0]
+    out = np.zeros_like(frames)
+    dt = frames[: t - 1] - frames[1:]
+    if absolute:
+        dt = np.abs(dt)
+    out[: t - 1] = dt
+    if t > 1:
+        out[-1] = dt[-1]
+    return out
+
+
+def augment_raw_frames(frames, rng, time_diff_prob=0.0, gaussian_prob=0.0):
+    """SSL augmentation of raw (0..255) frames (:425): a video blur with
+    ``gaussian_prob``, then, with ``time_diff_prob``, the gray temporal
+    difference mapped back to 0..255. Returns ``(frames, time_diff_applied)``."""
+    frames = np.asarray(frames, np.float32)
+    if gaussian_prob > 0.0 and rng.random() < gaussian_prob:
+        frames = GaussianBlurVideo()(frames, rng)
+    if time_diff_prob > 0.0 and rng.random() < time_diff_prob:
+        frames = (temporal_difference(frames, use_grayscale=True) + 255.0) / 2.0
+        return frames, True
+    return frames, False
 
 
 class MaskingGenerator:

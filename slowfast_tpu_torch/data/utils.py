@@ -2,8 +2,9 @@
 slowfast/datasets/utils.py).
 
 The port's loader ships uint8 clips, which the preprocess kernel normalizes
-and splits into pathways on the card; the AVA dataset ships float clips,
-normalized on the host and split by ``pack_pathway_output``.
+and splits into pathways on the card; the AVA dataset and the SSL
+pretraining items ship float clips, normalized on the host
+(``tensor_normalize``) and split by ``pack_pathway_output``.
 ``sample_rngs`` makes the generators each sample draws from.
 """
 
@@ -60,6 +61,14 @@ def get_sequence(center_idx, half_len, sample_rate, num_frames):
     utils.py:55-75)."""
     seq = list(range(center_idx - half_len, center_idx + half_len, sample_rate))
     return [min(max(s, 0), num_frames - 1) for s in seq]
+
+
+def tensor_normalize(frames, mean, std):
+    """``(x - mean) / std``, a uint8 clip first divided by 255 (reference
+    utils.py:278-297)."""
+    if frames.dtype == np.uint8:
+        frames = frames.astype(np.float32) / 255.0
+    return (frames - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
 
 
 def pack_pathway_output(cfg, frames):

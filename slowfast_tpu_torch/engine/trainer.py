@@ -12,7 +12,9 @@ padded boxes and logs through ``AVAMeter``, whose val epoch scores the
 predictions of the real boxes by AVA mAP. Masked pretraining
 (``MASK.ENABLE``) hands the step the loader's mask, on the device, and
 never runs a val epoch: the reconstruction objective has no val protocol
-(slowfast_tpu/engine/trainer.py:426-430).
+(slowfast_tpu/engine/trainer.py:426-430). ``ContrastiveModel`` trains
+through ``train_ssl``: the SSL step on two views a clip, the SSL state in
+the checkpoint, and a kNN probe instead of the val epoch.
 """
 
 import math
@@ -22,8 +24,10 @@ import torch
 
 from slowfast_tpu_torch.data import construct_loader, shuffle_dataset
 from slowfast_tpu_torch.engine.precise_bn import compute_precise_bn_stats
+from slowfast_tpu_torch.engine.ssl_steps import knn_eval, make_ssl_train_step, ssl_batch
 from slowfast_tpu_torch.engine.steps import make_eval_step, make_train_step
 from slowfast_tpu_torch.models.build import build_model, resolve_device
+from slowfast_tpu_torch.models.contrastive import init_ssl_state
 from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 from slowfast_tpu_torch.utils import checkpoint as cu
 from slowfast_tpu_torch.utils import logging as logging_utils
@@ -35,7 +39,6 @@ logger = logging_utils.get_logger(__name__)
 
 def _check_supported(cfg):
     unported = {
-        "MODEL.MODEL_NAME ContrastiveModel (SSL)": cfg.MODEL.MODEL_NAME == "ContrastiveModel",
         "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
         "MULTIGRID": cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
         "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
@@ -46,10 +49,9 @@ def _check_supported(cfg):
             raise NotImplementedError(f"training with {name} is not ported yet")
 
 
-def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
-    """One training epoch."""
-    data_size = len(train_loader)
-    device = train_loader.device
+def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg):
+    """One training epoch of ``step_fn`` on ``make_batch(cur_iter, item)``
+    for each loader item, the metrics read back every ``LOG_PERIOD`` steps."""
     log_period = max(int(cfg.LOG_PERIOD), 1)
     pending = []  # (cur_iter, device metrics, batch size)
 
@@ -67,17 +69,11 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
         pending.clear()
 
     meter.iter_tic()
-    for cur_iter, (inputs, labels, _, _, meta) in enumerate(train_loader):
+    for cur_iter, item in enumerate(train_loader):
         meter.data_toc()
-        labels = torch.from_numpy(labels).to(device, non_blocking=True)
-        batch = {"inputs": inputs, "labels": labels,
-                 "epoch_exact": cur_epoch + cur_iter / data_size}
-        if cfg.DETECTION.ENABLE:
-            batch.update(boxes=meta["boxes"], box_mask=meta["box_mask"])
-        if "mask" in meta:
-            batch["mask"] = meta["mask"]
+        batch = make_batch(cur_iter, item)
         m = step_fn(batch)
-        pending.append((cur_iter, m, labels.shape[0]))
+        pending.append((cur_iter, m, len(item[2])))
         meter.iter_toc()
         if (cur_iter + 1) % log_period == 0:
             flush()
@@ -85,6 +81,24 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
     flush()
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
+
+
+def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
+    """One training epoch."""
+    data_size = len(train_loader)
+    device = train_loader.device
+
+    def make_batch(cur_iter, item):
+        inputs, labels, _, _, meta = item
+        batch = {"inputs": inputs, "labels": torch.from_numpy(labels).to(device, non_blocking=True),
+                 "epoch_exact": cur_epoch + cur_iter / data_size}
+        if cfg.DETECTION.ENABLE:
+            batch.update(boxes=meta["boxes"], box_mask=meta["box_mask"])
+        if "mask" in meta:
+            batch["mask"] = meta["mask"]
+        return batch
+
+    drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg)
 
 
 def detection_preds(eval_fn, inputs, meta):
@@ -122,13 +136,62 @@ def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
     return stats
 
 
+def train_ssl(cfg, device):
+    """SSL pretraining of ``ContrastiveModel`` (slowfast_tpu/engine/trainer.py:199);
+    returns ``(model, ssl_state)``.
+
+    ``CONTRASTIVE.LENGTH`` is set to the train set's size (the banks are
+    indexed by clip id). Auto-resume restores the model, the optimizer and
+    the SSL state. Each epoch: the SSL step on views 0 and 1 of every
+    batch, the checkpoint (with the SSL state) on the checkpoint cadence
+    and, under ``CONTRASTIVE.KNN_ON``, the kNN probe on the val split on the
+    eval cadence (a ``knn_epoch`` json_stats line)."""
+    train_loader = construct_loader(cfg, "train", device)
+    steps_per_epoch = max(len(train_loader), 1)
+    num_videos = train_loader.dataset.num_videos
+    if num_videos and cfg.CONTRASTIVE.LENGTH != num_videos:
+        logger.warning("CONTRASTIVE.LENGTH %d != dataset size %d; resizing memory banks",
+                       cfg.CONTRASTIVE.LENGTH, num_videos)
+        cfg.CONTRASTIVE.LENGTH = num_videos
+    model = build_model(cfg, device)
+    optimizer = construct_optimizer(model, cfg)
+    ssl = init_ssl_state(cfg, model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    start_epoch = cu.load_train_checkpoint(cfg, model, optimizer, ssl)
+    if start_epoch:
+        logger.info("Resuming SSL training from epoch %d", start_epoch + 1)
+    step_fn = make_ssl_train_step(cfg, model, optimizer, ssl, steps_per_epoch)
+    meter = TrainMeter(steps_per_epoch, cfg)
+    train_labels = train_loader.dataset._labels
+
+    def make_batch(cur_iter, item):
+        views, _, index, times, _ = item
+        return ssl_batch(views, index, times, device)
+
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        shuffle_dataset(train_loader, cur_epoch)
+        drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg)
+        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+            cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg, ssl_state=ssl)
+        if cfg.CONTRASTIVE.KNN_ON and is_eval_epoch(cfg, cur_epoch):
+            acc = knn_eval(cfg, model, ssl, train_labels, construct_loader(cfg, "val", device))
+            if acc is not None:
+                logger.info("knn eval epoch %d: top1 %.2f%%", cur_epoch + 1, acc)
+                logging_utils.log_json_stats({"_type": "knn_epoch", "epoch": cur_epoch + 1,
+                                              "top1_acc": acc}, cfg.OUTPUT_DIR)
+    logger.info("ssl training done")
+    return model, ssl
+
+
 def train(cfg, device="cuda"):
-    """Train entry (slowfast_tpu/engine/trainer.py:298); returns the model."""
+    """Train entry (slowfast_tpu/engine/trainer.py:298); returns the model
+    (for ``ContrastiveModel``, ``train_ssl``'s ``(model, ssl_state)``)."""
     _check_supported(cfg)
     device = resolve_device(device)
     logging_utils.setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:")
     logger.info(pprint.pformat(cfg.to_dict()))
+    if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        return train_ssl(cfg, device)
 
     model = build_model(cfg, device)
     optimizer = construct_optimizer(model, cfg)

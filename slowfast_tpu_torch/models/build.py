@@ -15,6 +15,8 @@ import math
 import re
 
 from .common import Conv3D, msra_fill_, trunc_normal_
+from .contrastive import ContrastiveModel
+from .heads import MLPHead
 from .masked import MaskMViT
 from .mvit import MViT
 from .resnet import ResBlock
@@ -27,7 +29,8 @@ from .video_models import X3D, ResNet, SlowFast
 # temporal pool after res2.
 MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT,
                   "MaskMViT": MaskMViT, "ResNet": ResNet, "PTVResNet": ResNet, "ResNet_nopool": ResNet,
-                  "PTVCSN": ResNet, "PTVR2plus1D": ResNet, "X3D": X3D, "PTVX3D": X3D}
+                  "PTVCSN": ResNet, "PTVR2plus1D": ResNet, "X3D": X3D, "PTVX3D": X3D,
+                  "ContrastiveModel": ContrastiveModel}
 
 
 def resolve_device(device):
@@ -41,14 +44,24 @@ def resolve_device(device):
 def init_weights(model, cfg, generator):
     """MSRA fan-out normal conv weights (zero for each residual branch's
     final conv under ``RESNET.ZERO_INIT_FINAL_CONV``) and zero conv biases
-    (SE, non-local), N(0, FC_INIT_STD) projection with zero bias; BN starts
-    at scale 1 (0 for zero-init BNs: final BNs, the non-local ``bn``), bias
-    0, mean 0, var 1 (slowfast_tpu/models/common.py:14, :58, heads.py:76-82,
-    batchnorm.py)."""
+    (SE, non-local), N(0, FC_INIT_STD) projection with zero bias, the SSL
+    MLP heads' Linears Xavier-uniform with zero biases (heads.py:233); BN
+    starts at scale 1 (0 for zero-init BNs: final BNs, the non-local
+    ``bn``), bias 0, mean 0, var 1 (slowfast_tpu/models/common.py:14, :58,
+    heads.py:76-82, batchnorm.py)."""
+    mlp = set()
+    for m in model.modules():
+        if isinstance(m, MLPHead):
+            for layer in m.projection:
+                if isinstance(layer, nn.Linear):
+                    xavier_uniform_(layer.weight, generator)
+                    if layer.bias is not None:
+                        nn.init.zeros_(layer.bias)
+                    mlp.add(layer)
     for m in model.modules():
         if isinstance(m, Conv3D):
             msra_fill_(m.weight, generator)
-        elif isinstance(m, nn.Linear):
+        elif isinstance(m, nn.Linear) and m not in mlp:
             with torch.no_grad():
                 m.weight.normal_(0.0, cfg.MODEL.FC_INIT_STD, generator=generator)
             nn.init.zeros_(m.bias)
@@ -56,6 +69,26 @@ def init_weights(model, cfg, generator):
         for m in model.modules():
             if isinstance(m, ResBlock):
                 nn.init.zeros_(getattr(m.branch2, m.branch2.FINAL_CONV).weight)
+
+
+def xavier_uniform_(weight, generator):
+    """flax ``xavier_uniform`` of a ``(out, in)`` weight: U(±sqrt(6 / (in + out)))."""
+    bound = math.sqrt(6.0 / sum(weight.shape))
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=generator)
+
+
+def init_contrastive_weights(model, cfg, generator):
+    """``ContrastiveModel``: the backbone's own init (its head's MLP
+    Xavier-uniform), the predictors Xavier-uniform, the prototypes flax's
+    default ``lecun_normal`` (slowfast_tpu/models/contrastive.py:76-79)."""
+    backbone = model.backbone
+    init = init_mvit_weights if isinstance(backbone, MViT) else init_weights
+    init(backbone, cfg, generator)
+    init_weights(model.predictors, cfg, generator)
+    if hasattr(model, "swav_prototypes"):
+        w = model.swav_prototypes.weight
+        trunc_normal_(w, math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD, generator)
 
 
 # MSSeparateHead's LayerNorms: the last entry of each ``transforms.{i}``.
@@ -149,6 +182,8 @@ def build_model(cfg, device="cuda"):
                                   f"available: {sorted(MODEL_REGISTRY)}")
     model = MODEL_REGISTRY[name](cfg)
     init = init_mvit_weights if isinstance(model, (MViT, MaskMViT)) else init_weights
+    if isinstance(model, ContrastiveModel):
+        init = init_contrastive_weights
     init(model, cfg, torch.Generator().manual_seed(cfg.RNG_SEED))
     if cfg.MASK.ENABLE and cfg.MASK.SCALE_INIT_BY_DEPTH:
         scale_init_by_depth(model)

@@ -1,5 +1,6 @@
-"""Classification heads and the RoI head of detection (counterpart of
-slowfast_tpu/models/heads.py:29-290; reference head_helper.py:20-563).
+"""Classification heads, the RoI head of detection and the SSL MLP head
+(counterpart of slowfast_tpu/models/heads.py:29-290; reference
+head_helper.py:20-563).
 
 Training returns raw logits, with dropout drawn from the model's generator.
 Eval applies the activation; the ResNet and X3D heads apply it per position
@@ -15,6 +16,7 @@ from torch import nn
 
 from slowfast_tpu_torch.ops.roi_align import roi_align
 
+from .batchnorm import BatchNorm1D
 from .common import Conv3D, avg_pool3d, dropout, linear
 
 
@@ -32,12 +34,18 @@ def _activate(x, act_func):
 
 
 def _project(head, x):
-    """Dropout (training only), the projection in ``x``'s dtype and, in
-    eval, the activation per position averaged over the positions; returns
-    ``(B, num_classes)``."""
+    """Dropout (training only), ``detach_final_fc``, the projection in
+    ``x``'s dtype (a Linear, or the SSL ``MLPHead``) and, in eval, the
+    activation per position averaged over the positions; returns ``(B,
+    num_classes)``."""
     if head.training and head.dropout_rate > 0.0:
         x = dropout(x, head.dropout_rate, head.generator)
-    x = linear(x, head.projection, x.dtype)
+    if getattr(head, "detach_final_fc", False):
+        x = x.detach()
+    if isinstance(head.projection, MLPHead):
+        x = head.projection(x)
+    else:
+        x = linear(x, head.projection, x.dtype)
     if not head.training:
         x = _activate(x, head.act_func)
         if x.shape[1:4] != (1, 1, 1):
@@ -45,21 +53,62 @@ def _project(head, x):
     return x.reshape(x.shape[0], -1)
 
 
+class MLPHead(nn.Module):
+    """The SSL projector and predictor MLP (slowfast_tpu/models/heads.py:219,
+    reference head_helper.py:147-195): Linear, then ``num_layers - 1`` times
+    [BatchNorm1D under ``bn_on``] -> ReLU -> Linear, in an ``nn.Sequential``
+    named ``projection`` whose indices count the ReLUs, as the reference's
+    do. Under ``bn_on`` the Linears before the last have no bias. The
+    Linears run in ``dtype``, or, when it is None, in the promotion of the
+    input's dtype and fp32, as a flax ``Dense`` with no dtype does; the BNs
+    in fp32. Weights are Xavier-uniform, biases zero (``init_weights``)."""
+
+    def __init__(self, dim_in, dim_out, mlp_dim, num_layers, bn_on=False, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        layers = [nn.Linear(dim_in, mlp_dim, bias=not bn_on)]
+        for i in range(1, num_layers):
+            if bn_on:
+                layers.append(BatchNorm1D(mlp_dim))
+            layers.append(nn.ReLU())
+            last = i == num_layers - 1
+            layers.append(nn.Linear(mlp_dim, dim_out if last else mlp_dim,
+                                    bias=last or not bn_on))
+        self.projection = nn.Sequential(*layers)
+
+    def forward(self, x):
+        for layer in self.projection:
+            if isinstance(layer, nn.Linear):
+                dtype = self.dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+                x = linear(x, layer, dtype)
+            else:
+                x = layer(x)
+        return x
+
+
 class ResNetBasicHead(nn.Module):
-    """Per-pathway avg-pool -> concat -> dropout -> linear projection.
+    """Per-pathway avg-pool -> concat -> dropout -> ``detach_final_fc`` ->
+    linear projection, or, with ``mlp_layers`` > 1, the contrastive
+    ``MLPHead`` in the compute dtype ``dtype`` (slowfast_tpu/models/heads.py:29-91).
 
     ``pool_size[p] is None`` (or ``pool_size is None``) means global average
     pooling. The projection is named ``projection`` as in the reference.
     """
 
     def __init__(self, dim_in, num_classes, pool_size, dropout_rate=0.0,
-                 act_func="softmax"):
+                 act_func="softmax", detach_final_fc=False, mlp_layers=1, mlp_dim=2048,
+                 bn_mlp=False, dtype=torch.float32):
         super().__init__()
         _check_act(act_func)
         self.pool_size = pool_size
         self.dropout_rate = dropout_rate
         self.act_func = act_func
-        self.projection = nn.Linear(sum(dim_in), num_classes)
+        self.detach_final_fc = detach_final_fc
+        if mlp_layers > 1:
+            self.projection = MLPHead(sum(dim_in), num_classes, mlp_dim, mlp_layers,
+                                      bn_on=bn_mlp, dtype=dtype)
+        else:
+            self.projection = nn.Linear(sum(dim_in), num_classes)
         self.generator = None  # the model's, set by models.build.build_model
 
     def forward(self, xs):

@@ -210,11 +210,19 @@ class ResStage(nn.Module):
         for p in range(self.num_pathways):
             tks = temporal_kernel_schedule(temp_kernel_sizes[p], num_blocks[p],
                                            num_block_temp_kernel[p])
+            # The JAX package runs a narrow bottleneck stage T-folded, and
+            # its folded BN ignores sub_batchnorm's splits
+            # (slowfast_tpu/models/resnet.py:464-473).
+            block_norm = norm
+            if (dim_inner[p] < 32 and trans_func_name == "bottleneck_transform"
+                    and not self.nonlocal_inds[p]):
+                def block_norm(n, zero_init_gamma=False):
+                    return norm(n, zero_init_gamma, whole_batch=True)
             for i in range(num_blocks[p]):
                 self.add_module(f"pathway{p}_res{i}", ResBlock(
                     dim_in[p] if i == 0 else dim_out[p], dim_out[p], tks[i],
                     stride[p] if i == 0 else 1, trans_func_name, dim_inner[p],
-                    num_groups[p], norm, stride_1x1=stride_1x1,
+                    num_groups[p], block_norm, stride_1x1=stride_1x1,
                     dilation=dilation[p], zero_init_final_bn=zero_init_final_bn,
                     drop_connect_rate=drop_connect_rate, block_idx=i,
                 ))

@@ -11,13 +11,15 @@ class ResNetBasicStem(nn.Module):
     """Conv(Txkxk) -> BN -> ReLU -> MaxPool(1x3x3, stride 1,2,2, pad 0,1,1).
 
     The direct path of slowfast_tpu/models/stem.py:116-127; the T-folded
-    block-Toeplitz formulation there is a TPU layout workaround.
+    block-Toeplitz formulation there is a TPU layout workaround, whose BN
+    under ``sub_batchnorm`` takes the whole batch (an RGB stem of temporal
+    stride 1), as the port's does.
     """
 
     def __init__(self, dim_in, dim_out, kernel, stride, padding, norm):
         super().__init__()
         self.conv = Conv3D(dim_in, dim_out, kernel, stride, padding)
-        self.bn = norm(dim_out)
+        self.bn = norm(dim_out, whole_batch=dim_in < 32 and stride[0] == 1)
 
     def forward(self, x):
         x = F.relu(self.bn(self.conv(x)))

@@ -67,8 +67,17 @@ def _per_pathway(value):
 def _check_heads(cfg, detection=True):
     if cfg.DETECTION.ENABLE and not detection:
         raise NotImplementedError(f"{cfg.MODEL.MODEL_NAME} has no detection head")
-    if cfg.CONTRASTIVE.NUM_MLP_LAYERS > 1:
-        raise NotImplementedError("the MLP projection head is not ported yet")
+
+
+def _basic_head(cfg, dim_in, pool):
+    """The classification head, or the contrastive MLP projection under
+    ``CONTRASTIVE.NUM_MLP_LAYERS`` > 1 (slowfast_tpu/models/video_models.py:346-360)."""
+    c = cfg.CONTRASTIVE
+    return ResNetBasicHead(
+        dim_in=dim_in, num_classes=cfg.MODEL.NUM_CLASSES, pool_size=pool,
+        dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
+        detach_final_fc=cfg.MODEL.DETACH_FINAL_FC, mlp_layers=c.NUM_MLP_LAYERS,
+        mlp_dim=c.MLP_DIM, bn_mlp=c.BN_MLP or c.BN_SYNC_MLP, dtype=compute_dtype(cfg))
 
 
 def _roi_head(cfg, dim_in):
@@ -182,13 +191,7 @@ class SlowFast(nn.Module):
             [t // alpha // p0[0], crop // 32 // p0[1], crop // 32 // p0[2]],
             [t // p1[0], crop // 32 // p1[1], crop // 32 // p1[2]],
         ]
-        self.head = ResNetBasicHead(
-            dim_in=[w * 32, w * 32 // beta_inv],
-            num_classes=cfg.MODEL.NUM_CLASSES,
-            pool_size=pool,
-            dropout_rate=cfg.MODEL.DROPOUT_RATE,
-            act_func=cfg.MODEL.HEAD_ACT,
-        )
+        self.head = _basic_head(cfg, [w * 32, w * 32 // beta_inv], pool)
 
     def forward(self, xs, bboxes=None):
         xs = [x.to(self.dtype) for x in xs]
@@ -250,9 +253,7 @@ class ResNet(nn.Module):
         pool = None if (cfg.MULTIGRID.SHORT_CYCLE
                         or cfg.MODEL.MODEL_NAME == "ContrastiveModel") else [
             [t // pool1[0], crop // 32 // pool1[1], crop // 32 // pool1[2]]]
-        self.head = ResNetBasicHead(
-            dim_in=[w * 32], num_classes=cfg.MODEL.NUM_CLASSES, pool_size=pool,
-            dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT)
+        self.head = _basic_head(cfg, [w * 32], pool)
 
     def forward(self, xs, bboxes=None):
         xs = self.s2(self.s1([x.to(self.dtype) for x in xs]))

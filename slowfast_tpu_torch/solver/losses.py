@@ -5,7 +5,8 @@ Each takes ``(predictions, labels)`` and computes in fp32. For the
 cross-entropies labels are integer class ids or soft distributions (mixup's
 targets); for ``bce`` (on probabilities), ``bce_logit`` (on logits) and
 ``mse`` they are targets of the predictions' shape, such as multi-hot
-vectors. ``multi_mse`` takes lists of predictions and targets (each target
+vectors; ``contrastive_loss`` takes the SSL logits, positive first.
+``multi_mse`` takes lists of predictions and targets (each target
 optionally a ``(target, weight)`` pair) and returns the weighted sum and
 the list of the MSEs; the masked-pretraining recipes name it, though their
 train step scores with ``models.masked.masked_loss``, as the JAX package's
@@ -32,6 +33,14 @@ def cross_entropy(logits, labels, reduction="mean"):
     else:
         loss = -logp.gather(-1, labels.long()[..., None])[..., 0]
     return _reduce(loss, reduction)
+
+
+def contrastive_loss(logits, labels=None, reduction="mean"):
+    """Cross-entropy against index-0 targets, in fp32 or wider (slowfast_tpu/solver/losses.py:59,
+    reference losses.py:14-22): the positive sits in column 0. ``labels``
+    is ignored."""
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+    return _reduce(-logp[:, 0], reduction)
 
 
 def soft_cross_entropy(logits, labels, reduction="mean"):
@@ -77,7 +86,8 @@ def multi_mse(preds, labels, reduction="mean"):
 
 
 _LOSSES = {"cross_entropy": cross_entropy, "soft_cross_entropy": soft_cross_entropy,
-           "bce": bce, "bce_logit": bce_logit, "mse": mse, "multi_mse": multi_mse}
+           "bce": bce, "bce_logit": bce_logit, "mse": mse, "multi_mse": multi_mse,
+           "contrastive_loss": contrastive_loss}
 # Losses whose labels are targets of the predictions' shape: multi-label
 # training (slowfast_tpu/engine/steps.py:69).
 MULTI_LABEL_LOSSES = ("bce", "bce_logit")

@@ -10,6 +10,11 @@ its method:
 1. global-norm clip (``CLIP_GRAD_L2NORM``): the gradients are scaled by
    ``max_norm / norm`` only when ``norm >= max_norm``, with no epsilon, as
    ``optax.clip_by_global_norm`` does (``clip_grad_norm_`` adds 1e-6);
+1a. LARS (``SOLVER.LARS_ON``, :191 ``lars_adaptation``): on the raw
+   gradient of every parameter that is not a BN one and has ndim > 1,
+   ``g <- (g + wd * p) * 0.001 * |p| / (|g| + wd * |p| + 1e-8)`` in fp32
+   where both norms are nonzero, ``g`` as it is elsewhere. LARS absorbs the
+   weight decay: under it only BN parameters keep their coupled decay;
 2. ``sgd``: coupled weight decay ``g + wd * p``, then momentum
    (``optax.trace``: ``v = m * v + g`` from ``v = 0``, Nesterov returns
    ``g + m * v``; with ``DAMPENING`` the first step takes ``v = g`` and later
@@ -111,8 +116,6 @@ class _Chain:
     BUFFERS = ()
 
     def __init__(self, model, cfg):
-        if cfg.SOLVER.LARS_ON:
-            raise NotImplementedError("LARS is not ported yet")
         if cfg.SOLVER.CLIP_GRAD_VAL:
             raise NotImplementedError("SOLVER.CLIP_GRAD_VAL is not ported yet")
         self.max_norm = cfg.SOLVER.CLIP_GRAD_L2NORM
@@ -120,6 +123,13 @@ class _Chain:
         self.names = list(scales)
         named = dict(model.named_parameters())
         self.params = [named[n] for n in self.names]
+        # LARS-adapted parameters and their weight decay, which LARS takes
+        # over from the decay step (:306-313).
+        self.lars = []
+        if cfg.SOLVER.LARS_ON:
+            self.lars = [(i, scales[n][0]) for i, n in enumerate(self.names)
+                         if not _is_bn_param(n) and self.params[i].dim() > 1]
+            scales = {n: (wd if _is_bn_param(n) else 0.0, s) for n, (wd, s) in scales.items()}
         # Parameters that share (weight decay, LR scale) are updated together.
         self.groups = {}
         for i, name in enumerate(self.names):
@@ -137,7 +147,21 @@ class _Chain:
             coef = torch.where(norm < self.max_norm, torch.ones_like(norm),
                                self.max_norm / norm)
             torch._foreach_mul_(grads, coef)
+        self._lars(grads)
         return grads, norm
+
+    def _lars(self, grads, trust=0.001, eps=1e-8):
+        """LARS's trust ratio on ``grads`` in place (``lars_adaptation``)."""
+        if not self.lars:
+            return
+        idx = [i for i, _ in self.lars]
+        p_norms = torch._foreach_norm([self.params[i].float() for i in idx])
+        g_norms = torch._foreach_norm([grads[i] for i in idx])
+        for (i, wd), pn, gn in zip(self.lars, p_norms, g_norms):
+            ratio = trust * pn / (gn + wd * pn + eps)
+            keep = (pn == 0) | (gn == 0)
+            adapted = (grads[i] + wd * self.params[i].float()) * ratio
+            grads[i].copy_(torch.where(keep, grads[i], adapted))
 
     def _add_decay(self, tensors):
         """``t += wd * p`` for each parameter's tensor, by group."""

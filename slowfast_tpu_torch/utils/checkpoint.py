@@ -14,7 +14,10 @@ tables (``cls_token``, ``rel_pos_*``, ``pos_embed*``, layer-scale
 ``dec_pos_embed_*``) copied as they are. ``MaskMViT``'s heads map flax
 ``transforms_{i}_{j}`` / ``projections_{i}`` to ``transforms.{i}.{j}`` /
 ``projections.{i}``, the reference's ``nn.Sequential`` and ``nn.ModuleList``
-keys (slowfast_tpu/utils/checkpoint.py:329-345 maps them back).
+keys (slowfast_tpu/utils/checkpoint.py:329-345 maps them back); the SSL MLP
+heads' flax ``projection_{i}`` (Linears and 1-D BNs) map to
+``projection.{i}``, and ``ContrastiveModel``'s ``predictor_{i}`` to
+``predictors.{i}``.
 
 Train checkpoints follow the JAX package's path rules
 (slowfast_tpu/utils/checkpoint.py:35-76: ``OUTPUT_DIR/checkpoints/
@@ -51,6 +54,8 @@ _TABLE_PREFIXES = ("cls_token", "rel_pos_", "pos_embed", "gamma_", "mask_token",
                    "decoder_pos_embed", "dec_pos_embed_")
 _MODULE_NAMES = ((r"^blocks_(\d+)$", r"blocks.\1"),
                  (r"^layers_(\d+)$", r"layers.\1"),
+                 (r"^projection_(\d+)$", r"projection.\1"),
+                 (r"^predictor_(\d+)$", r"predictors.\1"),
                  (r"^transforms_(\d+)_(\d+)$", r"transforms.\1.\2"),
                  (r"^projections_(\d+)$", r"projections.\1"))
 
@@ -75,12 +80,19 @@ def _flatten(tree, prefix=()):
     return {prefix: tree}
 
 
+def _float(val):
+    """``val`` as a float32 array, or float64 if it is float64."""
+    val = np.asarray(val)
+    return val if val.dtype == np.float64 else val.astype(np.float32)
+
+
 def state_dict_from_jax(variables):
     """The port's ``state_dict`` from a JAX ``{"params", "batch_stats"}`` tree
-    of numpy arrays (or anything ``np.asarray`` takes)."""
+    of numpy arrays (or anything ``np.asarray`` takes), in float32 (float64
+    arrays stay float64)."""
     sd = {}
     for path, val in _flatten(variables["params"]).items():
-        val = np.asarray(val, np.float32)
+        val = _float(val)
         mods, leaf = _torch_path(path[:-1]), path[-1]
         if leaf == "kernel":
             if val.ndim == 5:
@@ -100,10 +112,28 @@ def state_dict_from_jax(variables):
         if leaf not in _STAT_LEAF:
             raise ValueError(f"unexpected batch statistic {path}")
         sd[".".join(mods + (_STAT_LEAF[leaf],))] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(val, np.float32)))
+            np.ascontiguousarray(_float(val)))
         sd.setdefault(".".join(mods + ("num_batches_tracked",)),
                       torch.zeros((), dtype=torch.long))
     return sd
+
+
+def ssl_state_from_jax(ssl_state):
+    """An ``SSLState.load_state_dict`` input from the JAX package's
+    ``ssl_state`` (slowfast_tpu/models/contrastive.py:123): the momentum
+    encoder's ``hist_params`` and the backbone's part of
+    ``hist_batch_stats`` as a backbone ``state_dict``, the queues and banks
+    as tensors, the pointer, fill count and step count as ints."""
+    out = {"ptr": int(ssl_state.get("ptr", 0)), "swav_filled": int(ssl_state.get("swav_filled", 0)),
+           "iter": int(ssl_state["iter"])}
+    for name in ("queue_x", "queue_swav", "memory", "knn_memory"):
+        if name in ssl_state:
+            out[name] = torch.from_numpy(np.array(_float(ssl_state[name])))
+    if "hist_params" in ssl_state:
+        stats = ssl_state.get("hist_batch_stats", {})
+        out["hist"] = state_dict_from_jax({"params": ssl_state["hist_params"],
+                                           "batch_stats": stats.get("backbone", {})})
+    return out
 
 
 def get_checkpoint_dir(path_to_job):
@@ -134,10 +164,12 @@ def is_checkpoint_epoch(cfg, cur_epoch):
     return (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
 
 
-def save_checkpoint(path_to_job, model, optimizer, epoch, cfg):
+def save_checkpoint(path_to_job, model, optimizer, epoch, cfg, ssl_state=None):
     """Write ``checkpoint_epoch_{epoch + 1:05d}.pyth`` atomically (a temporary
     file, then a rename, so auto-resume never sees a partial file); returns
-    its path. ``epoch`` is the 0-based epoch just completed."""
+    its path. ``epoch`` is the 0-based epoch just completed. An SSL run's
+    ``SSLState`` goes under its own key, ``ssl_state``, beside the model's
+    ``state_dict`` (slowfast_tpu/utils/checkpoint.py:146-147)."""
     os.makedirs(get_checkpoint_dir(path_to_job), exist_ok=True)
     path = get_path_to_checkpoint(path_to_job, epoch + 1, cfg.TASK)
     payload = {
@@ -146,6 +178,8 @@ def save_checkpoint(path_to_job, model, optimizer, epoch, cfg):
         "optimizer_state": optimizer.state_dict(),
         "cfg": cfg.dump(),
     }
+    if ssl_state is not None:
+        payload["ssl_state"] = ssl_state.state_dict()
     tmp = os.path.join(os.path.dirname(path), "." + os.path.basename(path) + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -185,12 +219,14 @@ def _load_pyth(path):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_train_checkpoint(cfg, model, optimizer):
+def load_train_checkpoint(cfg, model, optimizer, ssl_state=None):
     """Auto-resume or explicit init (slowfast_tpu/utils/checkpoint.py:654-677);
     returns the epoch to start from.
 
     With ``TRAIN.AUTO_RESUME`` and a checkpoint in ``OUTPUT_DIR`` the model
-    and optimizer resume, strictly, after its epoch; else
+    and optimizer resume, strictly, after its epoch, and so does
+    ``ssl_state`` (an ``SSLState``: the momentum encoder, queues, pointer,
+    banks and step count) when given; else
     ``TRAIN.CHECKPOINT_FILE_PATH`` (a ``.pyth``, or a caffe2 pickle under
     ``TRAIN.CHECKPOINT_TYPE caffe2``) initializes the model's weights through
     the partial load (``load_weights``) and training starts at epoch 0, as
@@ -201,6 +237,10 @@ def load_train_checkpoint(cfg, model, optimizer):
         ckpt = _load_pyth(path)
         model.load_state_dict(ckpt["model_state"], strict=True)
         optimizer.load_state_dict(ckpt["optimizer_state"])
+        if ssl_state is not None:
+            if "ssl_state" not in ckpt:
+                raise ValueError(f"{path} holds no SSL state to resume from")
+            ssl_state.load_state_dict(ckpt["ssl_state"])
         logger.info("Resumed from %s", path)
         return ckpt["epoch"] + 1
     if cfg.TRAIN.CHECKPOINT_FILE_PATH:

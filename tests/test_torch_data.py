@@ -327,9 +327,11 @@ def test_kinetics_retries_a_corrupt_file(corpus, tmp_path):
 
 
 def test_kinetics_unported_options_raise(corpus):
-    for extra in (["MODEL.MODEL_NAME", "ContrastiveModel"], ["TPU.UINT8_PIPELINE", "False"],
+    # The SSL items (ContrastiveModel, DATA.SSL_COLOR_JITTER) are ported:
+    # tests/test_torch_ssl_data.py.
+    for extra in (["TPU.UINT8_PIPELINE", "False"],
                   ["AUG.GEN_MASK_LOADER", "True", "MVIT.PATCH_2D", "True"],
-                  ["DATA.SSL_COLOR_JITTER", "True"]):
+                  ["DATA.LOADER_CHUNK_SIZE", "2"]):
         with pytest.raises(NotImplementedError):
             Kinetics(both_cfgs(corpus, extra)[1], "train")
 

@@ -348,9 +348,9 @@ def test_tester_matches_jax_test_meter(jax_side, tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    # Rev-MViT is ported (tests/test_torch_reversible.py); contrastive SSL,
-    # a model of its own, is not.
-    ["MODEL.MODEL_NAME", "ContrastiveModel"], ["MVIT.PATCH_2D", "True"],
+    # Rev-MViT and contrastive SSL are ported (tests/test_torch_reversible.py,
+    # tests/test_torch_contrastive.py); the pytorchvideo name PTVMViT is not.
+    ["MODEL.MODEL_NAME", "PTVMViT"], ["MVIT.PATCH_2D", "True"],
     ["MVIT.NORM", "batchnorm"],
 ])
 def test_unported_options_raise(opt):

@@ -186,14 +186,15 @@ def test_run_net_cli_runs_the_test(tmp_path):
 def test_run_net_refuses_training(tmp_path):
     """``run_net`` refuses to train on what the port lacks, before any
     step: a dataset it has not ported (ImageNet waits for the 2D patch stem)
-    and LARS."""
+    and the elementwise gradient clip (LARS is ported:
+    tests/test_torch_contrastive.py)."""
     with pytest.raises(NotImplementedError, match="dataset 'Imagenet' is not ported"):
         run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", "TRAIN.DATASET", "imagenet",
                       "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="LARS is not ported"):
+    with pytest.raises(NotImplementedError, match="CLIP_GRAD_VAL is not ported"):
         run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", *NARROW,
                       "TRAIN.ENABLE", "True", "TRAIN.DATASET", "syntheticvideo",
-                      "DATA.SYNTHETIC_SIZE", "2", "SOLVER.LARS_ON", "True",
+                      "DATA.SYNTHETIC_SIZE", "2", "SOLVER.CLIP_GRAD_VAL", "1.0",
                       "TEST.ENABLE", "False", "OUTPUT_DIR", str(tmp_path)])
 
 

@@ -214,8 +214,8 @@ def test_adamw_update_matches_optax_chain(variables):
 
 
 def test_unported_optimizers_raise(variables):
-    for extra in (["SOLVER.OPTIMIZING_METHOD", "lars"], ["SOLVER.LARS_ON", "True"],
-                  ["SOLVER.CLIP_GRAD_VAL", "1.0"]):
+    # SOLVER.LARS_ON is ported (tests/test_torch_contrastive.py).
+    for extra in (["SOLVER.OPTIMIZING_METHOD", "lars"], ["SOLVER.CLIP_GRAD_VAL", "1.0"]):
         with pytest.raises(NotImplementedError):
             toptim.construct_optimizer(port_model(variables), narrow_cfg(get_cfg, extra=extra))
 
@@ -230,8 +230,11 @@ def test_losses_match_jax():
             got = tlosses.get_loss_func(name)(torch.from_numpy(logits), torch.from_numpy(lab))
             want = jlosses.get_loss_func(name)(jnp.asarray(logits), jnp.asarray(lab))
             np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    got = tlosses.get_loss_func("contrastive_loss")(torch.from_numpy(logits))
+    want = jlosses.get_loss_func("contrastive_loss")(jnp.asarray(logits))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
     with pytest.raises(NotImplementedError):
-        tlosses.get_loss_func("contrastive_loss")
+        tlosses.get_loss_func("not_a_loss")
 
 
 # --- mixup, drop path, dropout, GELU ---------------------------------------
