@@ -263,7 +263,32 @@ Phases, each printing one JSON line:
               (TF32 off) vs CPU: loss within 1e-5, gradients within 1e-3
               relative L2; the reversible backward against the fallback on
               the card within the same limits.
- 30. kernels  one line per kernel with its launches on its path, error,
+ 30. multigrid_slice  run_net.main training
+              SLOWFAST_8x8_R50_stepwise_multigrid.yaml (both cycles) at full
+              width in bf16, TRAIN.BATCH_SIZE 8 on one GPU (the recipe's BN
+              splits), on 256 synthetic clips, the schedule shrunk to 6
+              epochs over the four long-cycle shapes: every step's (B, T,
+              crop) and BN splits equal MultigridSchedule's, each transition
+              carries the parameters and momentum bit for bit, the
+              preprocess kernel once a train, precise-BN and val batch; per
+              (B, T, crop) the step ms, clips/s and peak memory, and the LR
+              around each transition.
+ 31. imagenet_train_slice  (on a corpus of 192 JPEGs of 500 x 375 written
+              with cv2) run_net.main training ImageNet MViTv2-S
+              (configs/ImageNet/MVITv2_S.yaml, the 2D patch stem, 1,000
+              classes, mixup, RandAugment, erasing) at full width in bf16: 4
+              steps of 32 images and a val epoch, every flash call held; the
+              loader alone; the step alone; rows 6 and 7 at each block
+              shape (the first block's Nq 3,136, Nk 196) against their
+              plain versions, bounds and SDPA.
+ 32. in1k_maskfeat  run_net.main pretraining in1k_VIT_B_MaskFeat_PT.yaml
+              (2D MaskFeat, the loader's 14 x 14 masks) on the same corpus:
+              4 steps of 32 images, every flash call held; every
+              configs/ImageNet and in1k_* YAML built at full size.
+ 33. imagenet_fp32  one fp32 train step of the 2D MViTv2-S on 2 images,
+              card (TF32 off) vs CPU: loss within 1e-5, gradients within
+              1e-3 relative L2.
+ 34. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 Before the phases, one line per host library that the data path may use
 (cv2, PIL, sklearn): whether it imports, and its version.
@@ -4729,6 +4754,329 @@ def phase_ssl_fp32():
           f"ssl_fp32 fails: { {t: c['fails'] for t, c in cases.items()} }")
 
 
+MG_YAML = os.path.join(ROOT, "configs", "Kinetics", "SLOWFAST_8x8_R50_stepwise_multigrid.yaml")
+# One GPU's share of the recipe's 64 clips on 8 GPUs, so the BN splits are
+# the recipe's; the schedule shrunk to 6 epochs that visit the four
+# long-cycle shapes, each epoch one or more full short cycles of 256 clips.
+MG_OPTS = ["TRAIN.BATCH_SIZE", "8", "DATA.SYNTHETIC_SIZE", "256", "SOLVER.STEPS", "[0, 3]",
+           "SOLVER.LRS", "[1, 0.1]", "SOLVER.MAX_EPOCH", "4", "SOLVER.WARMUP_EPOCHS", "1.0"]
+IN1K_YAML = os.path.join(ROOT, "configs", "ImageNet", "MVITv2_S.yaml")
+IN1K_MASKFEAT_YAML = os.path.join(ROOT, "configs", "masked_ssl", "in1k_VIT_B_MaskFeat_PT.yaml")
+IN1K_IMAGES = 32  # one GPU's share of the recipes' 256
+IN1K_CORPUS = {"train": 4 * IN1K_IMAGES, "val": 2 * IN1K_IMAGES}
+
+
+def mg_expected_shapes(cfg):
+    """Per epoch of the shrunk multigrid schedule, the long-cycle (B, T, S),
+    the BN splits, the epoch's train batches ``[(B·fᵢ, crop)]`` (full short
+    cycles of the synthetic clips, then what still fits) and val batches,
+    from the port's ``MultigridSchedule`` on ``cfg`` (which it mutates);
+    and the schedule."""
+    from slowfast_tpu_torch.data.loader import short_cycle_batches
+    from slowfast_tpu_torch.utils.multigrid import MultigridSchedule
+
+    mg = MultigridSchedule()
+    cfg = mg.init_multigrid(cfg)
+    out = []
+    for epoch in range(cfg.SOLVER.MAX_EPOCH):
+        cfg, _ = mg.update_long_cycle(cfg, epoch)
+        crops = [int(round(f * cfg.MULTIGRID.DEFAULT_S))
+                 for f in cfg.MULTIGRID.SHORT_CYCLE_FACTORS] + [cfg.DATA.TRAIN_CROP_SIZE]
+        cycle = list(zip(short_cycle_batches(cfg, cfg.TRAIN.BATCH_SIZE), crops))
+        steps, pos = [], 0  # the epoch's batches: full short cycles of the clips
+        while pos + cycle[len(steps) % 3][0] <= cfg.DATA.SYNTHETIC_SIZE:
+            steps.append(cycle[len(steps) % 3])
+            pos += steps[-1][0]
+        out.append({"shape": (cfg.TRAIN.BATCH_SIZE, cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE),
+                    "splits": cfg.BN.NUM_SPLITS if cfg.BN.NORM_TYPE == "sub_batchnorm" else 1,
+                    "steps": steps,
+                    "val_batches": -(-cfg.DATA.SYNTHETIC_SIZE // cfg.TRAIN.BATCH_SIZE)})
+    return out, mg.schedule
+
+
+def phase_multigrid_slice():
+    """``run_net.main`` training ``SLOWFAST_8x8_R50_stepwise_multigrid.yaml``
+    at full width (R50, 400 classes, 32 frames at 224² by default) in bf16
+    with both cycles, ``TRAIN.BATCH_SIZE 8`` and ``NUM_GPUS 1``, on
+    synthetic video, the schedule shrunk to 6 epochs (``MG_OPTS``): the
+    (B, T, crop) of every step and its BN splits against
+    ``MultigridSchedule``'s; at each long-cycle transition the rebuilt
+    model and optimizer hold the old ones' parameters and momentum bit for
+    bit; per batch shape of each long-cycle shape the steps, p50 (after
+    the first) and fastest step ms to a synchronize, clips/s and the peak
+    memory a step; the LR around each
+    transition's first step; the preprocess kernel once a train, precise-BN
+    and val batch."""
+    import gc
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.engine import trainer
+    from slowfast_tpu_torch.models.batchnorm import BatchNorm3D
+
+    out_dir = os.path.join(OUT_DIR, "multigrid")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    expected, schedule = mg_expected_shapes(slowfast_cfg(["NUM_GPUS", "1"] + MG_OPTS, MG_YAML))
+    steps, builds, make_step = [], [], trainer.make_train_step
+
+    def recording_make_step(cfg, model, optimizer, generator):
+        if builds:  # a rebuild: the state carried bit for bit
+            old_model, old_opt = builds[-1]
+            params = dict(model.named_parameters())
+            same_params = all(torch.equal(p, params[n]) for n, p in old_model.named_parameters())
+            same_trace = all(torch.equal(a, b) for a, b in zip(old_opt.trace, optimizer.trace))
+            steps.append({"rebuild": True, "params_carried": same_params,
+                          "momentum_carried": same_trace and old_opt.count == optimizer.count,
+                          "momentum_norm": float(sum(t.float().norm() ** 2
+                                                     for t in optimizer.trace) ** 0.5)})
+        builds[:] = [(model, optimizer)]
+        splits = max(m.num_splits for m in model.modules() if isinstance(m, BatchNorm3D))
+        step = make_step(cfg, model, optimizer, generator)
+
+        def recorded(batch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            b, t, s = batch["inputs"][0].shape[:3]
+            steps.append({"shape": (b, t, s), "splits": splits, "epoch": int(batch["epoch_exact"]),
+                          "ms": ms, "loss": m["loss"].item(), "lr": m["lr"],
+                          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            return m
+
+        return recorded
+
+    argv = ["--cfg", MG_YAML, "--opts", "NUM_GPUS", "1", "TRAIN.DATASET", "syntheticvideo",
+            "TEST.ENABLE", "False", "OUTPUT_DIR", out_dir] + MG_OPTS
+    trainer.make_train_step = recording_make_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with removed_after(os.path.join(out_dir, "checkpoints")):
+            run_net.main(argv)
+    finally:
+        trainer.make_train_step = make_step
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    builds.clear()
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    rebuilds = [s for s in steps if "rebuild" in s]
+    runs = [s for s in steps if "rebuild" not in s]
+    check(all(np.isfinite(s["loss"]) for s in runs), f"non-finite loss: {runs}")
+    check(rebuilds and all(r["params_carried"] and r["momentum_carried"] and r["momentum_norm"] > 0
+                           for r in rebuilds), f"state not carried across a transition: {rebuilds}")
+    want = [(epoch, (b, e["shape"][1], crop), e["splits"])
+            for epoch, e in enumerate(expected) for b, crop in e["steps"]]
+    got = [(s["epoch"], s["shape"], s["splits"]) for s in runs]
+    check(got == want, f"multigrid steps {got} differ from the schedule's {want}")
+    # Per batch shape of each long-cycle shape (a short-cycle batch recurs
+    # under another long-cycle shape, with other BN splits): the first step
+    # includes cuDNN's choice of algorithms, so the p50 is of the others.
+    shapes = {}
+    for s in runs:
+        shapes.setdefault((expected[s["epoch"]]["shape"], s["shape"]), []).append(s)
+    per_shape = []
+    for (long_shape, shape), ss in shapes.items():
+        ms = [s["ms"] for s in ss]
+        p50 = statistics.median(ms[1:] or ms)
+        per_shape.append({"long_cycle": long_shape, "B": shape[0], "T": shape[1],
+                          "crop": shape[2], "steps": len(ss), "bn_splits": ss[0]["splits"],
+                          "step_p50_ms": p50, "step_min_ms": min(ms), "steps_ms": ms,
+                          "clips_per_s": shape[0] / p50 * 1e3,
+                          "max_memory_allocated": max(s["max_memory_allocated"] for s in ss)})
+    transitions, prev, rebuilt = [], None, False
+    for s in steps:
+        if "rebuild" in s:
+            rebuilt = True
+            continue
+        if rebuilt:
+            transitions.append({"epoch": s["epoch"], "long_cycle": expected[s["epoch"]]["shape"],
+                                "lr_before": prev["lr"], "lr_after": s["lr"]})
+            rebuilt = False
+        prev = s
+    vals = [s for s in logged if s["_type"] == "val_epoch"]
+    # Every epoch of this schedule evaluates and checkpoints: its precise BN
+    # takes the epoch's short-cycle batches again, and its val epoch.
+    val_batches = sum(e["val_batches"] for e in expected)
+    emit({"phase": "multigrid_slice", "schedule": schedule, "epochs": len(expected),
+          "steps": len(runs), "per_shape": per_shape, "transitions": transitions,
+          "rebuilds": rebuilds, "val_epochs": len(vals), "val_batches": val_batches,
+          "wall_s": wall,
+          "launches": launches})
+    check(len(vals) == len(expected), f"{len(vals)} val epochs")
+    check(only_launched(launches, (), 0)
+          and launches["preprocess_u8"] == 2 * len(runs) + val_batches, f"launches {launches}")
+    return {"launches": launches}
+
+
+@contextlib.contextmanager
+def imagenet_corpus():
+    """ImageNet's tree of ``IN1K_CORPUS`` JPEGs of 500 x 375 in 10 classes,
+    written with cv2 into a temporary directory that is removed after;
+    yields (directory, write seconds)."""
+    import tempfile
+
+    from slowfast_tpu_torch.data import synth_media
+
+    root = tempfile.mkdtemp(prefix="imagenet_corpus_")
+    try:
+        t0 = time.perf_counter()
+        synth_media.make_imagenet_corpus(root, IN1K_CORPUS, workers=os.cpu_count() or 1)
+        yield root, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def float_image_batch(cfg, n, seed):
+    """``n`` seeded normalized images (T = 1) on the card, and their labels."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    crop = cfg.DATA.TRAIN_CROP_SIZE
+    return {"inputs": [torch.randn((n, 1, crop, crop, 3), device="cuda", generator=gen)],
+            "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES, (n,), device="cuda",
+                                    generator=gen),
+            "epoch_exact": 0.5}
+
+
+def phase_imagenet_train_slice(corpus):
+    """``run_net.main`` training ImageNet MViTv2-S (``configs/ImageNet/
+    MVITv2_S.yaml``: the 2D patch stem, 224² images, 1,000 classes, the
+    recipe's mixup/cutmix, RandAugment, random erasing, AdamW and clip) at
+    full width and depth in bf16 on the JPEG corpus: 4 steps of 32 images
+    and a val epoch of 2 batches, every flash call held; the loader alone
+    per batch; the step alone (unheld, on images already on the card: p50,
+    images/s, peak memory); rows 6 and 7 at each block shape, the first
+    block's 2D one (Nq 3,136, Nk 196) among them, against their plain
+    versions, their bounds and SDPA."""
+    data = ["TRAIN.DATASET", "imagenet", "DATA.PATH_TO_DATA_DIR", corpus,
+            "TRAIN.BATCH_SIZE", str(IN1K_IMAGES)]
+    cfg = family_cfg(IN1K_YAML, data, "imagenet")
+    depth = cfg.MVIT.DEPTH
+    check(cfg.MVIT.PATCH_2D and cfg.MODEL.NUM_CLASSES == 1000 and cfg.MIXUP.ENABLE,
+          "the ImageNet recipe")
+    out_dir = os.path.join(OUT_DIR, "imagenet")
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_train(IN1K_YAML, data, out_dir)
+    launches, steps = run["launches"], run["steps"]
+    val_batches = IN1K_CORPUS["val"] // IN1K_IMAGES
+    check(len(steps) == 4 and all(s["clips"] == IN1K_IMAGES for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+          and launches["attention_flash"] == depth * (4 + val_batches)
+          and launches["attention_flash_bwd"] == depth * 4
+          and launches["preprocess_u8"] == 0, f"launches {launches}")
+    shadow = run["shadow"].check("imagenet train", depth * (4 + val_batches), depth * 4)
+    loader_ms = [loader_batch_ms(cfg) for _ in range(2)]
+    timing = timed_train_steps(cfg, float_image_batch(cfg, IN1K_IMAGES, 31), 5)
+    attn = attention_shape_times("imagenet_attn", capture_attention(cfg, IN1K_IMAGES, 32))
+    emit({"phase": "imagenet_train_slice", "steps": len(steps), "images_per_step": IN1K_IMAGES,
+          "per_step": steps,
+          "val_epoch": [s for s in run["logged"] if s["_type"] == "val_epoch"][-1],
+          "train_wall_s": run["wall_s"], "run_max_memory_allocated": run["max_memory_allocated"],
+          "loader_batch_ms": loader_ms,
+          "step_p50_ms": timing["step_p50_ms"], "steps_ms": timing["steps_ms"],
+          "max_memory_allocated": timing["max_memory_allocated"],
+          "train_images_per_s": IN1K_IMAGES / timing["step_p50_ms"] * 1e3,
+          "flash_shadow_checks": shadow, "attention": attn, "launches": launches})
+    return {"launches": launches, "attention": attn}
+
+
+def phase_imagenet_fp32():
+    """One train step of the full-width 2D MViTv2-S on 2 images, card vs
+    CPU on the same weights, fp32 with TF32 off: the loss within 1e-5, the
+    gradients within 1e-3 relative L2 (the structurally zero ones
+    excepted); the card's flash calls held, on the FMA kernels."""
+    from slowfast_tpu_torch.models.build import build_model
+
+    base = ["TPU.COMPUTE_DTYPE", "float32", "MIXUP.ENABLE", "False", "MVIT.DROPPATH_RATE", "0.0",
+            "MODEL.DROPOUT_RATE", "0.0"]
+    cfg = family_cfg(IN1K_YAML, base, "imagenet")
+    depth = cfg.MVIT.DEPTH
+    cpu_model = build_model(cfg, device="cpu")
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    image = torch.from_numpy(np.random.RandomState(33).randint(
+        0, 255, (2, 1, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE, 3)).astype(np.uint8))
+    label = torch.tensor([17, 901])
+    t0 = time.perf_counter()
+    want, want_grads, _ = train_one_step(cfg, cpu_model, image, label, 100.0)
+    cpu_s = time.perf_counter() - t0
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_launches()
+        with FlashShadow() as shadow:
+            got, grads, _ = train_one_step(cfg, model, image, label, 100.0)
+            torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    missing = [n for n, p in model.named_parameters() if p.requires_grad and (
+        n not in grads or (grads[n].abs().max().item() == 0.0
+                           and not structurally_zero(n, depth)))]
+    check(not missing, f"parameters with no or an all-zero gradient: {missing}")
+    names = [n for n in grads if not structurally_zero(n, depth)]
+    l2_err = rel_l2(grads, want_grads, names)
+    loss_err = abs(got["loss"] - want["loss"]) / want["loss"]
+    emit({"phase": "imagenet_fp32", "images": 2, "loss": got["loss"], "cpu_loss": want["loss"],
+          "loss_rel_err": loss_err, "grad_rel_l2_err": l2_err, "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+          "params_checked": len(names), "cpu_step_s": cpu_s,
+          "flash_shadow_checks": shadow.stats, "launches": launches})
+    check(loss_err <= 1e-5, f"loss {got['loss']} vs CPU {want['loss']}")
+    check(l2_err <= TRAIN_GRAD_L2_TOL, f"gradients differ by {l2_err} (L2)")
+    check(only_launched(launches, FP32_CORE_KEYS["flash"], depth), f"launches {launches}")
+    shadow.check("imagenet fp32", depth, depth, torch.float32)
+
+
+def phase_in1k_maskfeat(corpus):
+    """``run_net.main`` pretraining 2D MaskFeat (``in1k_VIT_B_MaskFeat_PT
+    .yaml``: ViT-B on 16² patches of 224² images, the loader's 2D masks at
+    the 14² grid, HOG targets) at full width in bf16 on the JPEG corpus: 4
+    steps of 32 images, no val epoch, every flash call held; the loader's
+    masked share; and every ``configs/ImageNet/*`` and ``in1k_*`` YAML
+    built at full size on the card's meta device (parameter counts)."""
+    import glob
+
+    from slowfast_tpu_torch.data import construct_loader
+    from slowfast_tpu_torch.models.build import MODEL_REGISTRY
+
+    data = ["TRAIN.DATASET", "imagenet", "DATA.PATH_TO_DATA_DIR", corpus,
+            "TRAIN.BATCH_SIZE", str(IN1K_IMAGES)]
+    cfg = family_cfg(IN1K_MASKFEAT_YAML, data, "in1k_maskfeat")
+    depth = max(cfg.MASK.PRETRAIN_DEPTH) + 1
+    out_dir = os.path.join(OUT_DIR, "in1k_maskfeat")
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        run = drive_train(IN1K_MASKFEAT_YAML, data, out_dir, expect_val=False)
+    launches, steps = run["launches"], run["steps"]
+    check(len(steps) == 4 and all(s["clips"] == IN1K_IMAGES for s in steps),
+          f"steps {[s['clips'] for s in steps]}")
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+          and launches["attention_flash"] == depth * 4
+          and launches["attention_flash_bwd"] == depth * 4, f"launches {launches}")
+    shadow = run["shadow"].check("in1k maskfeat", depth * 4, depth * 4)
+    meta = next(iter(construct_loader(cfg, "train", "cuda")))[4]
+    masks = meta["mask"]
+    check(masks.shape == (IN1K_IMAGES, 14, 14), f"loader masks {tuple(masks.shape)}")
+    builds = {}
+    for recipe in sorted(glob.glob(os.path.join(ROOT, "configs", "ImageNet", "*.yaml"))
+                         + glob.glob(os.path.join(ROOT, "configs", "masked_ssl", "in1k_*"))):
+        c = family_cfg(recipe, [], "in1k_maskfeat")
+        with torch.device("meta"):
+            model = MODEL_REGISTRY[c.MODEL.MODEL_NAME](c)
+        builds[os.path.relpath(recipe, ROOT)] = sum(p.numel() for p in model.parameters())
+    emit({"phase": "in1k_maskfeat", "steps": len(steps), "images_per_step": IN1K_IMAGES,
+          "per_step": steps, "train_wall_s": run["wall_s"],
+          "run_max_memory_allocated": run["max_memory_allocated"],
+          "masked_share": masks.float().mean().item(), "flash_shadow_checks": shadow,
+          "recipes_built": builds, "launches": launches})
+    check(len(builds) == 12, f"built {sorted(builds)}")
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -4778,13 +5126,22 @@ def main():
     family["rev_mvit"] = phase_rev_mvit_train_slice()
     phase_rev_mvit_memory()
     phase_rev_mvit_fp32()
+    family["multigrid"] = phase_multigrid_slice()
+    with imagenet_corpus() as (corpus, corpus_s):
+        emit({"phase": "imagenet_corpus", "images": IN1K_CORPUS, "size": [500, 375],
+              "write_s": corpus_s})
+        family["imagenet"] = phase_imagenet_train_slice(corpus)
+        family["in1k_maskfeat"] = phase_in1k_maskfeat(corpus)
+    phase_imagenet_fp32()
     # The preprocess kernel's launches are those of the SlowFast train run
     # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches), of
     # the one on decoded video (the same, with 2 val batches, and the test's
     # 8 batches), of the two masked pretraining runs (4 steps each), of the
     # fine-tune (4 steps and its val batch), of the linear probe (4 steps and
-    # its val batch; the SSL pretrains ship float pathways) and of Rev-MViT's
-    # run (4 steps, 4 val and 2 test batches).
+    # its val batch; the SSL pretrains ship float pathways), of Rev-MViT's
+    # run (4 steps, 4 val and 2 test batches) and of the multigrid run (its
+    # steps, its precise-BN batches and its val batches; ImageNet's items
+    # are float images, as in JAX).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
@@ -4792,7 +5149,7 @@ def main():
         "launches": sf_train["launches"]["preprocess_u8"]
         + (data_launches["preprocess_u8"] if data_launches else 0)
         + sum(family[k]["launches"]["preprocess_u8"]
-              for k in ("maskfeat", "mae", "finetune", "linear", "rev_mvit")),
+              for k in ("maskfeat", "mae", "finetune", "linear", "rev_mvit", "multigrid")),
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
@@ -4804,8 +5161,9 @@ def main():
     # ViT-B, MViTv2-L, MViT detection); the exact core runs on the model
     # path only under TPU.PALLAS_ATTENTION, so its launches are those of
     # phase mvit_train_fused's bf16 exact step. The masked pretraining runs
-    # (MaskFeat, MAE), the fine-tune and Rev-MViT's run (29 forwards and 16
-    # backwards a train step) count in the family's.
+    # (MaskFeat, MAE), the fine-tune, Rev-MViT's run (29 forwards and 16
+    # backwards a train step) and the ImageNet runs (MViTv2-S on the 2D
+    # stem, 2D MaskFeat) count in the family's.
     family_fwd = sum(f["launches"]["attention_flash"] for f in family.values())
     family_bwd = sum(f["launches"]["attention_flash_bwd"] for f in family.values())
     for core, source, replaces, n in (

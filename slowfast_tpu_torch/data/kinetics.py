@@ -13,7 +13,8 @@ Training samples the short-side jitter before decoding
 under ``AUG.ENABLE`` applies RandAugment, random erasing and ``NUM_SAMPLE``
 repeated augmentations of one decoded clip. Under ``AUG.GEN_MASK_LOADER``
 each clip (each repeat) also carries MaskFeat's mask, ``meta["mask"]``,
-drawn after the clip (``gen_mask``). A file that fails to decode is
+drawn after the clip (``gen_mask``). A short-cycle item crops at its
+position's size. A file that fails to decode is
 tried again, past half the retries with another random video (not in test).
 Each item draws from its own generators (``utils.sample_rngs``) in the JAX
 package's order, so seeding that package's ``random`` and ``np.random``
@@ -28,7 +29,8 @@ under cv2 the JAX package pre-crops nothing, and treats a frame that comes
 out at the crop's size as cropped; so does the port.
 
 ``Syntheticvideo`` clips are the same bytes as the JAX package's:
-``np.random.RandomState(index)`` frames, labels seeded by ``index //
+``np.random.RandomState(index)`` frames (at a short-cycle position's crop
+under multigrid), labels seeded by ``index //
 num_clips`` so every view of a video has one label; an item with repeated
 augmentation is ``NUM_SAMPLE`` copies of the clip. Its masks draw from
 ``utils.sample_rngs(RNG_SEED, epoch, index)``. Under
@@ -44,6 +46,7 @@ import numpy as np
 
 from slowfast_tpu_torch.utils import logging as logging_utils
 from . import decoder, transform, utils
+from .imagenet import maskfeat_mask
 from .rand_augment import rand_augment_transform
 from .random_erasing import RandomErasing
 
@@ -58,9 +61,6 @@ def _check_uint8(cfg):
     if not cfg.TPU.UINT8_PIPELINE and not _ssl(cfg):
         raise NotImplementedError("the port's loader ships uint8 clips only, and float "
                                   "pathways for ContrastiveModel")
-    if cfg.AUG.GEN_MASK_LOADER and cfg.MVIT.PATCH_2D:
-        raise NotImplementedError("loader masks of the 2D patch stem (MVIT.PATCH_2D, image "
-                                  "MaskFeat on ImageNet) are not ported yet")
 
 
 def gen_mask(cfg, rng, np_rng):
@@ -68,7 +68,10 @@ def gen_mask(cfg, rng, np_rng):
     (slowfast_tpu/data/kinetics.py:477, reference kinetics.py:470-504): a 2D
     block mask repeated over t (``AUG.MASK_TUBE``), whole frames
     (``AUG.MASK_FRAMES``, from ``np_rng``) or 3D blocks, about
-    ``AUG.MASK_RATIO`` of the window; blocks draw from ``rng``."""
+    ``AUG.MASK_RATIO`` of the window; blocks draw from ``rng``. The 2D patch
+    stem's is ``imagenet.maskfeat_mask``."""
+    if cfg.MVIT.PATCH_2D:
+        return maskfeat_mask(cfg, rng)
     win = cfg.AUG.MASK_WINDOW_SIZE
     ratio = cfg.AUG.MASK_RATIO
     max_block = cfg.AUG.MAX_MASK_PATCHES_PER_BLOCK
@@ -155,17 +158,21 @@ class Kinetics(utils.SeededDataset):
             return self.dummy_output
         return super().__getitem__(index)
 
-    def sample(self, index, rng, np_rng):
+    def sample(self, index, rng, np_rng, short_cycle_idx=None):
         """Item ``index`` drawing from ``rng`` (``random.Random``) and
         ``np_rng`` (``np.random.RandomState``): ``([clip], label, index,
         time, {})``, or lists of ``NUM_SAMPLE`` of each under repeated
-        augmentation."""
+        augmentation. At short-cycle position 0 or 1 the crop is
+        ``SHORT_CYCLE_FACTORS[i]·DEFAULT_S`` (slowfast_tpu/data/kinetics.py:107-130)."""
         cfg = self.cfg
         train = self.mode == "train"
         if self.mode in ("train", "val"):
             temporal_sample_index = spatial_sample_index = -1
             min_scale, max_scale = cfg.DATA.TRAIN_JITTER_SCALES
             crop_size = cfg.DATA.TRAIN_CROP_SIZE
+            if short_cycle_idx in (0, 1):
+                crop_size = int(round(cfg.MULTIGRID.SHORT_CYCLE_FACTORS[short_cycle_idx]
+                                      * cfg.MULTIGRID.DEFAULT_S))
             if cfg.MULTIGRID.DEFAULT_S > 0:
                 min_scale = int(round(float(min_scale) * crop_size / cfg.MULTIGRID.DEFAULT_S))
         else:
@@ -340,18 +347,23 @@ class Syntheticvideo(utils.SeededDataset):
         """Number of clips, as the JAX dataset counts them."""
         return self._size
 
-    def sample(self, index, rng, np_rng):
+    def sample(self, index, rng, np_rng, short_cycle_idx=None):
         cfg = self.cfg
         crop = cfg.DATA.TRAIN_CROP_SIZE if self.mode in ("train", "val") else (
             cfg.DATA.TEST_CROP_SIZE)
-        rng = np.random.RandomState(index)
-        frames = rng.randint(0, 255, (cfg.DATA.NUM_FRAMES, crop, crop, 3), np.uint8)
+        if short_cycle_idx in (0, 1) and cfg.MULTIGRID.DEFAULT_S > 0:
+            crop = int(round(cfg.MULTIGRID.SHORT_CYCLE_FACTORS[short_cycle_idx]
+                             * cfg.MULTIGRID.DEFAULT_S))
+        # The frames and boxes from their own generator; the masks from the
+        # sample's (``rng`` is the JAX package's ``random``).
+        frame_rng = np.random.RandomState(index)
+        frames = frame_rng.randint(0, 255, (cfg.DATA.NUM_FRAMES, crop, crop, 3), np.uint8)
         if cfg.DETECTION.ENABLE:
-            n = int(rng.randint(1, 6))
-            xy1 = rng.rand(n, 2) * (crop / 2)
-            wh = rng.rand(n, 2) * (crop / 2) + 2.0
+            n = int(frame_rng.randint(1, 6))
+            xy1 = frame_rng.rand(n, 2) * (crop / 2)
+            wh = frame_rng.rand(n, 2) * (crop / 2) + 2.0
             boxes = np.concatenate([xy1, xy1 + wh], axis=1).astype(np.float32)
-            labels = (rng.rand(n, cfg.MODEL.NUM_CLASSES) < 0.2).astype(np.float32)
+            labels = (frame_rng.rand(n, cfg.MODEL.NUM_CLASSES) < 0.2).astype(np.float32)
             meta = {"boxes": boxes, "ori_boxes": boxes / crop,
                     "metadata": [[index, 900 + index]] * n}
             return [frames], labels, index, np.zeros((1,)), meta

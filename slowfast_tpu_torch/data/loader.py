@@ -12,7 +12,14 @@ split is shuffled per epoch with ``np.random.RandomState(RNG_SEED +
 epoch).permutation`` and drops its last partial batch, as the JAX
 ``ShardedLoader`` does; val and test keep their order and their last batch.
 ``set_epoch`` also tells the dataset the epoch, from which each sample
-seeds its generators.
+seeds its generators. Under ``MULTIGRID.SHORT_CYCLE`` the train loader's
+batches cycle through three shapes (``short_cycle_batches``): the shuffled
+order is cut into batches of ``[B·f₀, B·f₁, B]`` items, each item an
+``(index, cycle position)`` pair that the dataset crops at
+``SHORT_CYCLE_FACTORS[i]·DEFAULT_S`` (the full crop at position 2); the
+epoch ends at the first batch that the order cannot fill. ``len`` counts
+batches of ``B``, as the JAX ``ShardedLoader`` does (:182-186), so an
+epoch's ``epoch_exact`` reaches about 0.43 before the next epoch starts.
 """
 
 import os
@@ -24,6 +31,7 @@ import torch
 
 from .ava_dataset import Ava
 from .charades import Charades
+from .imagenet import Imagenet
 from .kinetics import Kinetics, Syntheticvideo
 from .ssv2 import Ssv2
 
@@ -31,7 +39,7 @@ from .ssv2 import Ssv2
 # (slowfast_tpu/data/kinetics.py:612, charades.py:147, ssv2.py:151).
 DATASET_REGISTRY = {"Syntheticvideo": Syntheticvideo, "Kinetics": Kinetics,
                     "Ptvkinetics": Kinetics, "Charades": Charades, "Ptvcharades": Charades,
-                    "Ssv2": Ssv2, "Ptvssv2": Ssv2, "Ava": Ava}
+                    "Ssv2": Ssv2, "Ptvssv2": Ssv2, "Ava": Ava, "Imagenet": Imagenet}
 PREFETCH = 2  # batches in the making beyond the one being consumed
 # Per-clip box counts are padded up to one of these (multiples of the last
 # beyond it), so a detection step sees a few shapes only.
@@ -131,15 +139,26 @@ def multiple_samples_collate(samples):
     return collate([flat for s in samples for flat in zip(*s)])
 
 
+def short_cycle_batches(cfg, batch_size):
+    """The short cycle's batch sizes, ``[B·f₀, B·f₁, B]`` with ``fᵢ =
+    round((TRAIN_CROP_SIZE / (SHORT_CYCLE_FACTORS[i]·DEFAULT_S))²)``
+    (slowfast_tpu/data/loader.py:155-175)."""
+    factors = [int(round((float(cfg.DATA.TRAIN_CROP_SIZE) / (f * cfg.MULTIGRID.DEFAULT_S)) ** 2))
+               for f in cfg.MULTIGRID.SHORT_CYCLE_FACTORS]
+    return [batch_size * factors[0], batch_size * factors[1], batch_size]
+
+
 class Loader:
     """Batches of a dataset, inputs placed on ``device``.
 
     ``shuffle`` reorders the dataset every epoch (``set_epoch``) from
     ``seed + epoch``; ``drop_last`` drops the last partial batch.
+    ``cycle_batches`` (the short cycle's three batch sizes) makes each
+    batch a list of ``(index, cycle position)`` items.
     """
 
     def __init__(self, dataset, batch_size, device, num_workers=1, shuffle=False,
-                 drop_last=False, seed=0, collate_fn=collate):
+                 drop_last=False, seed=0, collate_fn=collate, cycle_batches=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -148,6 +167,7 @@ class Loader:
         self.drop_last = drop_last
         self.seed = seed
         self.collate_fn = collate_fn
+        self.cycle_batches = cycle_batches
         self.epoch = 0
 
     def set_epoch(self, epoch):
@@ -162,8 +182,15 @@ class Loader:
     def _indices(self):
         n, bs = len(self.dataset), self.batch_size
         order = (np.random.RandomState(self.seed + self.epoch).permutation(n)
-                 if self.shuffle else np.arange(n))
-        return [order[b * bs:(b + 1) * bs] for b in range(len(self))]
+                 if self.shuffle else np.arange(n)).tolist()
+        if self.cycle_batches is None:
+            return [order[b * bs:(b + 1) * bs] for b in range(len(self))]
+        batches, pos = [], 0
+        while pos + self.cycle_batches[len(batches) % 3] <= n:
+            cycle = len(batches) % 3
+            batches.append([(i, cycle) for i in order[pos:pos + self.cycle_batches[cycle]]])
+            pos += self.cycle_batches[cycle]
+        return batches
 
     def _to_device(self, x):
         t = torch.from_numpy(x)
@@ -181,7 +208,7 @@ class Loader:
                     idx = next(batches, None)
                     if idx is None:
                         break
-                    window.append([pool.submit(self.dataset.__getitem__, int(i)) for i in idx])
+                    window.append([pool.submit(self.dataset.__getitem__, i) for i in idx])
                 if not window:
                     return
                 inputs, labels, index, times, meta = self.collate_fn(
@@ -206,9 +233,17 @@ def construct_loader(cfg, split, device="cuda"):
     else:
         dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
     train = split == "train"
-    if train and cfg.MULTIGRID.SHORT_CYCLE:
-        raise NotImplementedError("multigrid short cycles are not ported yet")
     dataset = build_dataset(dataset_name, cfg, split)
+    cycle_batches = None
+    if train and cfg.MULTIGRID.SHORT_CYCLE:
+        if not isinstance(dataset, (Kinetics, Syntheticvideo)):
+            # slowfast_tpu/data/charades.py:101, ssv2.py:102 (ROADMAP Queue 3).
+            raise NotImplementedError(
+                f"{type(dataset).__name__} has no short-cycle items: the JAX package's "
+                f"{type(dataset).__name__}.__getitem__ takes an int index and fails on the "
+                "loader's (index, cycle) pairs; train with MULTIGRID.SHORT_CYCLE False (the "
+                "long cycle runs)")
+        cycle_batches = short_cycle_batches(cfg, batch_size)
     if cfg.DETECTION.ENABLE:
         collate_fn = detection_collate
     elif train and cfg.MODEL.MODEL_NAME == "ContrastiveModel":
@@ -218,7 +253,8 @@ def construct_loader(cfg, split, device="cuda"):
     else:
         collate_fn = collate
     return Loader(dataset, batch_size, device, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
-                  shuffle=train, drop_last=train, seed=cfg.RNG_SEED, collate_fn=collate_fn)
+                  shuffle=train, drop_last=train, seed=cfg.RNG_SEED, collate_fn=collate_fn,
+                  cycle_batches=cycle_batches)
 
 
 def shuffle_dataset(loader, cur_epoch):

@@ -10,6 +10,9 @@ csvs list ``path label`` for the first ``n`` videos of each split, label
 ``make_ava_corpus``: AVA's layout on JPEG frames at 30 fps (455 x 256 by
 default, AVA's frames at short side 256), with every file the AVA dataset
 and ``AVAMeter`` read, in the formats of the AVA v2.2 release.
+
+``make_imagenet_corpus``: ImageNet's directory tree, ``<split>/<class>/
+<image>.JPEG``, seeded random JPEGs of ImageNet's typical 500 x 375.
 """
 
 import os
@@ -123,3 +126,26 @@ def make_ava_corpus(root, num_videos=4, secs=range(902, 918), size=(455, 256),
             f.write("\n".join(lines) + "\n")
     return ["AVA.FRAME_DIR", frame_dir, "AVA.FRAME_LIST_DIR", list_dir,
             "AVA.ANNOTATION_DIR", ann_dir]
+
+
+def make_imagenet_corpus(root, splits, num_classes=10, size=(500, 375), seed=0, workers=1):
+    """Write ``n`` JPEGs for each ``split: n`` of ``splits`` under
+    ``root/<split>/n{class:08d}/``, image ``i`` in class ``i % num_classes``
+    (``workers`` threads); returns ``root``."""
+    import cv2
+
+    w, h = size
+    jobs = []
+    for s_i, (split, n) in enumerate(sorted(splits.items())):
+        for c in range(min(num_classes, n)):
+            os.makedirs(os.path.join(root, split, f"n{c:08d}"), exist_ok=True)
+        jobs += [(os.path.join(root, split, f"n{i % num_classes:08d}", f"{split}_{i:06d}.JPEG"),
+                  seed + 100_000 * s_i + i) for i in range(n)]
+
+    def write(job):
+        path, s = job
+        cv2.imwrite(path, (np.random.RandomState(s).rand(h, w, 3) * 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(write, jobs))
+    return root

@@ -32,7 +32,8 @@ def sample_seed(seed, epoch, index):
 
 class SeededDataset:
     """A dataset whose item ``index`` draws from ``sample_rngs(cfg.RNG_SEED,
-    epoch, index)``; the loader sets the epoch (``set_epoch``)."""
+    epoch, index)``; the loader sets the epoch (``set_epoch``). A short-cycle
+    item ``(index, cycle position)`` is sampled with ``short_cycle_idx``."""
 
     epoch = 0
 
@@ -40,6 +41,10 @@ class SeededDataset:
         self.epoch = epoch
 
     def __getitem__(self, index):
+        if isinstance(index, tuple):
+            index, cycle = index
+            return self.sample(index, *sample_rngs(self.cfg.RNG_SEED, self.epoch, index),
+                               short_cycle_idx=cycle)
         return self.sample(index, *sample_rngs(self.cfg.RNG_SEED, self.epoch, index))
 
 

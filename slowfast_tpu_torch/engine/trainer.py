@@ -15,6 +15,16 @@ never runs a val epoch: the reconstruction objective has no val protocol
 (slowfast_tpu/engine/trainer.py:426-430). ``ContrastiveModel`` trains
 through ``train_ssl``: the SSL step on two views a clip, the SSL state in
 the checkpoint, and a kNN probe instead of the val epoch.
+
+Multigrid (``MULTIGRID.LONG_CYCLE``, ``MULTIGRID.SHORT_CYCLE``,
+slowfast_tpu/engine/trainer.py:316-398): ``MultigridSchedule`` rewrites the
+solver's steps and epochs at the start; each epoch takes its long-cycle
+shape (B, T, S) and BN mode, and on a change the model is rebuilt for it
+with the parameters, BN buffers, optimizer state and generator of the one
+before, the loaders, step and meters anew. The LR stays continuous, as it
+follows ``epoch_exact``. The short cycle is the train loader's. The eval
+and checkpoint cadences follow the schedule. Precise BN runs on the train
+loader, short cycle and all.
 """
 
 import math
@@ -26,13 +36,14 @@ from slowfast_tpu_torch.data import construct_loader, shuffle_dataset
 from slowfast_tpu_torch.engine.precise_bn import compute_precise_bn_stats
 from slowfast_tpu_torch.engine.ssl_steps import knn_eval, make_ssl_train_step, ssl_batch
 from slowfast_tpu_torch.engine.steps import make_eval_step, make_train_step
-from slowfast_tpu_torch.models.build import build_model, resolve_device
+from slowfast_tpu_torch.models.build import build_model, resolve_device, set_generator
 from slowfast_tpu_torch.models.contrastive import init_ssl_state
 from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 from slowfast_tpu_torch.utils import checkpoint as cu
 from slowfast_tpu_torch.utils import logging as logging_utils
 from slowfast_tpu_torch.utils.meters import AVAMeter, EpochTimer, TrainMeter, ValMeter
 from slowfast_tpu_torch.utils.metrics import topks_correct
+from slowfast_tpu_torch.utils.multigrid import MultigridSchedule
 
 logger = logging_utils.get_logger(__name__)
 
@@ -40,7 +51,6 @@ logger = logging_utils.get_logger(__name__)
 def _check_supported(cfg):
     unported = {
         "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
-        "MULTIGRID": cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
         "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
         "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
     }
@@ -193,26 +203,44 @@ def train(cfg, device="cuda"):
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         return train_ssl(cfg, device)
 
+    multigrid = None
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        multigrid = MultigridSchedule()
+        cfg = multigrid.init_multigrid(cfg)
+        if cfg.MULTIGRID.LONG_CYCLE:
+            cfg, _ = multigrid.update_long_cycle(cfg, cur_epoch=0)
+    schedule = multigrid.schedule if multigrid is not None else None
+
     model = build_model(cfg, device)
     optimizer = construct_optimizer(model, cfg)
     start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
+    mix_generator = torch.Generator().manual_seed(cfg.RNG_SEED)
 
-    train_loader = construct_loader(cfg, "train", device)
-    val_loader = construct_loader(cfg, "val", device)
-    step_fn = make_train_step(cfg, model, optimizer,
-                              torch.Generator().manual_seed(cfg.RNG_SEED))
-    eval_fn = make_eval_step(cfg, model)
-    if cfg.DETECTION.ENABLE:
-        train_meter = AVAMeter(len(train_loader), cfg, mode="train")
-        val_meter = AVAMeter(len(val_loader), cfg, mode="val")
-        val_meter.set_video_idx_to_name(getattr(val_loader.dataset, "_video_idx_to_name", None))
-    else:
-        train_meter = TrainMeter(len(train_loader), cfg)
-        val_meter = ValMeter(len(val_loader), cfg)
+    def build_trainer():
+        train_loader = construct_loader(cfg, "train", device)
+        val_loader = construct_loader(cfg, "val", device)
+        step_fn = make_train_step(cfg, model, optimizer, mix_generator)
+        if cfg.DETECTION.ENABLE:
+            train_meter = AVAMeter(len(train_loader), cfg, mode="train")
+            val_meter = AVAMeter(len(val_loader), cfg, mode="val")
+            val_meter.set_video_idx_to_name(
+                getattr(val_loader.dataset, "_video_idx_to_name", None))
+        else:
+            train_meter = TrainMeter(len(train_loader), cfg)
+            val_meter = ValMeter(len(val_loader), cfg)
+        return train_loader, val_loader, step_fn, make_eval_step(cfg, model), train_meter, val_meter
+
+    train_loader, val_loader, step_fn, eval_fn, train_meter, val_meter = build_trainer()
     epoch_timer = EpochTimer()
 
     logger.info("Start epoch: %d", start_epoch + 1)
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if schedule is not None:
+            cfg, changed = multigrid.update_long_cycle(cfg, cur_epoch)
+            if changed:
+                model, optimizer = carry_over(cfg, model, optimizer, device)
+                train_loader, val_loader, step_fn, eval_fn, train_meter, val_meter = (
+                    build_trainer())
         shuffle_dataset(train_loader, cur_epoch)
         epoch_timer.epoch_tic()
         train_epoch(train_loader, step_fn, train_meter, cur_epoch, cfg)
@@ -220,8 +248,8 @@ def train(cfg, device="cuda"):
         logger.info("Epoch %d takes %.2fs. Epochs from %d to %d take %.2fs in average.",
                     cur_epoch + 1, epoch_timer.last_epoch_time(), start_epoch + 1,
                     cur_epoch + 1, epoch_timer.avg_epoch_time())
-        is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch)
-        is_eval = is_eval_epoch(cfg, cur_epoch) and not cfg.MASK.ENABLE
+        is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch, schedule)
+        is_eval = is_eval_epoch(cfg, cur_epoch, schedule) and not cfg.MASK.ENABLE
         # Precise BN before the checkpoint and the val epoch (reference
         # train_net.py:698-710).
         if cfg.BN.USE_PRECISE_STATS and (is_checkp or is_eval):
@@ -235,8 +263,26 @@ def train(cfg, device="cuda"):
     return model
 
 
-def is_eval_epoch(cfg, cur_epoch):
-    """(reference misc.is_eval_epoch :200-219, without multigrid)"""
+def carry_over(cfg, model, optimizer, device):
+    """The model of ``cfg``'s new long-cycle shape (its head's pooling and
+    BN splits) holding ``model``'s parameters, BN buffers and generator, and
+    an optimizer on it holding ``optimizer``'s state."""
+    new = build_model(cfg, device)
+    new.load_state_dict(model.state_dict(), strict=True)
+    generator = next((m.generator for m in model.modules()
+                      if getattr(m, "generator", None) is not None), None)
+    if generator is not None:
+        set_generator(new, generator)
+    new_optimizer = construct_optimizer(new, cfg)
+    new_optimizer.load_state_dict(optimizer.state_dict())
+    return new, new_optimizer
+
+
+def is_eval_epoch(cfg, cur_epoch, multigrid_schedule=None):
+    """Eval cadence, multigrid-aware (slowfast_tpu/engine/trainer.py:466-479)."""
     if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
         return True
+    hit = cu.multigrid_period_hit(cfg, cur_epoch, multigrid_schedule)
+    if hit is not None:
+        return hit
     return (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0

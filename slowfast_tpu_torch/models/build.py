@@ -187,7 +187,11 @@ def build_model(cfg, device="cuda"):
     init(model, cfg, torch.Generator().manual_seed(cfg.RNG_SEED))
     if cfg.MASK.ENABLE and cfg.MASK.SCALE_INIT_BY_DEPTH:
         scale_init_by_depth(model)
-    model = model.to(device=device, memory_format=torch.channels_last_3d)
+    model = model.to(device=device)
+    with torch.no_grad():  # channels_last_3d for the 5-D conv kernels only
+        for t in list(model.parameters()) + list(model.buffers()):
+            if t.dim() == 5:
+                t.data = t.data.contiguous(memory_format=torch.channels_last_3d)
     set_generator(model, torch.Generator(device=device).manual_seed(cfg.RNG_SEED))
     return model
 

@@ -184,6 +184,25 @@ class Conv3D(nn.Module):
         return to_nthwc(y)
 
 
+class Conv2D(nn.Module):
+    """2D conv on NHWC inputs (the image patch stem): the weight fp32 in
+    torch layout (O, I, kh, kw), cast to the input dtype at each call, and
+    the conv on the ``channels_last`` view of the input."""
+
+    def __init__(self, dim_in, dim_out, kernel, stride=(1, 1), padding=(0, 0), bias=False):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, *kernel))
+        self.bias = nn.Parameter(torch.zeros(dim_out)) if bias else None
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
 def round_width(width, multiplier, min_width=1, divisor=1):
     """X3D/MViT width rounding (reference slowfast/models/utils.py:10-25)."""
     if not multiplier:

@@ -39,7 +39,7 @@ from slowfast_tpu_torch.ops.hog import hog_features
 from .attention import MultiScaleBlock
 from .common import layer_norm, linear
 from .mvit import (_check_supported, feature_geometry, get_3d_sincos_pos_embed,
-                   mvit_block_schedule, sep_pos_table)
+                   mvit_block_schedule, patch_stride, sep_pos_table)
 from .stem import PatchEmbed
 from .video_models import compute_dtype
 
@@ -124,9 +124,9 @@ class MaskMViT(nn.Module):
         self.cls_on = m.CLS_EMBED_ON
         s = int(self.cls_on)
         dim = m.EMBED_DIM
-        ps = list(m.PATCH_STRIDE)
-        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], dim, m.PATCH_KERNEL, ps,
-                                      m.PATCH_PADDING)
+        ps = patch_stride(cfg)
+        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], dim, m.PATCH_KERNEL,
+                                      m.PATCH_STRIDE, m.PATCH_PADDING, conv_2d=m.PATCH_2D)
         T0, H0, W0 = (cfg.DATA.NUM_FRAMES // ps[0], cfg.DATA.TRAIN_CROP_SIZE // ps[1],
                       cfg.DATA.TRAIN_CROP_SIZE // ps[2])
         self.patch_dims = [T0, H0, W0]
@@ -385,7 +385,7 @@ class MaskMViT(nn.Module):
         """Patchified pixels (masked.py:426-448); under
         ``MASK.TIME_STRIDE_LOSS`` of the temporally strided frames."""
         B, T, H, W, C = x_raw.shape
-        pt, ph, pw = self.cfg.MVIT.PATCH_STRIDE
+        pt, ph, pw = patch_stride(self.cfg)
         frames = x_raw.detach().float()
         if self.cfg.MASK.TIME_STRIDE_LOSS:
             patches = frames[:, ::pt][:, :T0].reshape(B, T0, H0, ph, W0, pw, C)

@@ -10,8 +10,9 @@ residual pooling, the adaptive KV-stride schedule), optionally each run
 under ``torch.utils.checkpoint`` (``MODEL.ACT_CHECKPOINT``), then the final
 norm with the cls row or the mean of the tokens, and the transformer head,
 or the RoI head of detection; or Rev-MViT's reversible encoder
-(``models/reversible.py``) with its stream fusion. The 2D patch stem raises
-``NotImplementedError``.
+(``models/reversible.py``) with its stream fusion. Under ``MVIT.PATCH_2D``
+(images, ``T = 1``) the stem patchifies each frame in 2D and the patch
+stride is ``[1] + PATCH_STRIDE`` (slowfast_tpu/models/mvit.py:177-215).
 """
 
 import numpy as np
@@ -99,9 +100,16 @@ def feature_geometry(schedule, thw, depth):
     return size, acc
 
 
+def patch_stride(cfg):
+    """The (t, h, w) patch stride: ``[1] + MVIT.PATCH_STRIDE`` for the 2D
+    stem (``MVIT.PATCH_2D``), else ``MVIT.PATCH_STRIDE``."""
+    ps = list(cfg.MVIT.PATCH_STRIDE)
+    return [1] + ps if cfg.MVIT.PATCH_2D else ps
+
+
 def maskfeat_feature_size(cfg):
-    """H (= W) of the deepest ``MASK.PRETRAIN_DEPTH`` feature grid
-    (slowfast_tpu/models/mvit.py:100)."""
+    """H (= W) of the deepest ``MASK.PRETRAIN_DEPTH`` feature grid, the
+    geometry of the 2D MaskFeat masks (slowfast_tpu/models/mvit.py:100)."""
     size = cfg.DATA.TRAIN_CROP_SIZE // cfg.MVIT.PATCH_STRIDE[-2]
     grid, _ = feature_geometry(mvit_block_schedule(cfg), [1, size, size],
                                max(cfg.MASK.PRETRAIN_DEPTH))
@@ -150,12 +158,6 @@ def get_3d_sincos_pos_embed(embed_dim, grid_size, t_size, cls_token=False):
 
 def _check_supported(cfg):
     m = cfg.MVIT
-    unported = {
-        "MVIT.PATCH_2D (the 2D patch stem)": m.PATCH_2D,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"MViT with {name} is not ported yet")
     if m.NORM != "layernorm":
         # The reference raises on any other norm too.
         raise NotImplementedError(f"MViT supports MVIT.NORM 'layernorm' only, not {m.NORM!r}")
@@ -182,7 +184,7 @@ class MViT(nn.Module):
         _check_supported(cfg)
         self.dtype = compute_dtype(cfg)
         m = cfg.MVIT
-        ps = list(m.PATCH_STRIDE)
+        ps = patch_stride(cfg)
         dim = m.EMBED_DIM
         self.cls_on = m.CLS_EMBED_ON
         self.use_mean_pooling = m.USE_MEAN_POOLING
@@ -190,8 +192,8 @@ class MViT(nn.Module):
         self.act_checkpoint = cfg.MODEL.ACT_CHECKPOINT
         self.dropout_rate = m.DROPOUT_RATE
         self.generator = None  # the model's, set by models.build.build_model
-        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], dim,
-                                      m.PATCH_KERNEL, ps, m.PATCH_PADDING)
+        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], dim, m.PATCH_KERNEL,
+                                      m.PATCH_STRIDE, m.PATCH_PADDING, conv_2d=m.PATCH_2D)
         # The training grid (slowfast_tpu/models/mvit.py:184-188).
         self.patch_dims = [cfg.DATA.NUM_FRAMES // ps[0], cfg.DATA.TRAIN_CROP_SIZE // ps[1],
                            cfg.DATA.TRAIN_CROP_SIZE // ps[2]]

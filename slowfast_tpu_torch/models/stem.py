@@ -4,7 +4,7 @@ slowfast_tpu/models/stem.py; reference stem_helper.py)."""
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv3D, max_pool3d
+from .common import Conv2D, Conv3D, max_pool3d
 
 
 class ResNetBasicStem(nn.Module):
@@ -66,20 +66,30 @@ class VideoModelStem(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """MViT patchification: one ``Conv3D`` with bias on NTHWC input
-    (slowfast_tpu/models/stem.py:220, reference stem_helper.py:288-320).
+    """MViT patchification: one ``Conv3D`` with bias on NTHWC input, or under
+    ``conv_2d`` (``MVIT.PATCH_2D``) one ``Conv2D`` with bias on each frame
+    as an image, with the (h, w) tail of the kernel, stride and padding
+    (a 2-length image spec or a 3-length one) (slowfast_tpu/models/stem.py:220,
+    reference stem_helper.py:288-320).
 
-    Returns ``(tokens (B, T'*H'*W', C), [T', H', W'])``. The 2D (image) stem
-    is not ported yet.
+    Returns ``(tokens (B, T'*H'*W', C), [T', H', W'])``; the 2D stem keeps
+    every frame, T' = T.
     """
 
     def __init__(self, dim_in=3, dim_out=768, kernel=(1, 16, 16), stride=(1, 4, 4),
                  padding=(1, 7, 7), conv_2d=False):
         super().__init__()
+        self.conv_2d = conv_2d
         if conv_2d:
-            raise NotImplementedError("the 2D patch stem is not ported yet")
-        self.proj = Conv3D(dim_in, dim_out, kernel, stride, padding, bias=True)
+            self.proj = Conv2D(dim_in, dim_out, kernel[-2:], stride[-2:], padding[-2:],
+                               bias=True)
+        else:
+            self.proj = Conv3D(dim_in, dim_out, kernel, stride, padding, bias=True)
 
     def forward(self, x):
+        if self.conv_2d:
+            B, T = x.shape[:2]
+            x = self.proj(x.reshape(B * T, *x.shape[2:]))
+            return x.reshape(B, -1, x.shape[-1]), [T, *x.shape[1:3]]
         x = self.proj(x)
         return x.reshape(x.shape[0], -1, x.shape[-1]), list(x.shape[1:4])

@@ -110,12 +110,13 @@ class FuseFastToSlow(nn.Module):
     """Time-strided conv on the fast pathway, concatenated onto the slow one
     (reference video_model_builder.py:112-169)."""
 
-    def __init__(self, dim_in, fusion_conv_channel_ratio, fusion_kernel, alpha, norm):
+    def __init__(self, dim_in, fusion_conv_channel_ratio, fusion_kernel, alpha, norm,
+                 whole_batch=False):
         super().__init__()
         dim_fuse = dim_in * fusion_conv_channel_ratio
         self.conv_f2s = Conv3D(dim_in, dim_fuse, (fusion_kernel, 1, 1),
                                (alpha, 1, 1), (fusion_kernel // 2, 0, 0))
-        self.bn = norm(dim_fuse)
+        self.bn = norm(dim_fuse, whole_batch=whole_batch)
 
     def forward(self, xs):
         x_s, x_f = xs
@@ -152,13 +153,21 @@ class SlowFast(nn.Module):
             padding=[[tk[0][0][0] // 2, 3, 3], [tk[0][1][0] // 2, 3, 3]],
             norm=norm,
         )
-        self.s1_fuse = FuseFastToSlow(w // beta_inv, **fuse)
-
         # Per-stage channels (reference :246-367): the slow input includes
         # the fused fast channels; fast channels are slow / beta_inv.
         ins = [w, w * 4, w * 8, w * 16]
         outs = [w * 4, w * 8, w * 16, w * 32]
         inners = [dim_inner, dim_inner * 2, dim_inner * 4, dim_inner * 8]
+        # The JAX package runs a fast stage of inner width under 32 T-folded,
+        # and the fuse after it (after the stem for the first stage) in that
+        # layout, whose BN ignores sub_batchnorm's splits
+        # (slowfast_tpu/models/video_models.py:169-183; ROADMAP Queue 3).
+        can_fold = (cfg.RESNET.TRANS_FUNC == "bottleneck_transform"
+                    and not cfg.MODEL.ACT_CHECKPOINT)
+        folded = [can_fold and inners[i] // beta_inv < 32
+                  and not (cfg.NONLOCAL.LOCATION[i][-1] if len(cfg.NONLOCAL.LOCATION[i]) > 1
+                           else []) for i in range(4)]
+        self.s1_fuse = FuseFastToSlow(w // beta_inv, **fuse, whole_batch=folded[0])
         for i in range(4):
             stage = ResStage(
                 dim_in=[ins[i] + ins[i] // out_dim_ratio, ins[i] // beta_inv],
@@ -179,7 +188,8 @@ class SlowFast(nn.Module):
             )
             self.add_module(f"s{i + 2}", stage)
             if i < 3:
-                self.add_module(f"s{i + 2}_fuse", FuseFastToSlow(outs[i] // beta_inv, **fuse))
+                self.add_module(f"s{i + 2}_fuse", FuseFastToSlow(outs[i] // beta_inv, **fuse,
+                                                                 whole_batch=folded[i]))
 
         if cfg.DETECTION.ENABLE:
             self.head = _roi_head(cfg, [w * 32, w * 32 // beta_inv])

@@ -97,6 +97,8 @@ def state_dict_from_jax(variables):
         if leaf == "kernel":
             if val.ndim == 5:
                 val = val.transpose(4, 3, 0, 1, 2)
+            elif val.ndim == 4:  # the 2D patch stem: (kh, kw, C, D) -> (D, C, kh, kw)
+                val = val.transpose(3, 2, 0, 1)
             elif val.ndim == 2:
                 val = val.T
             else:
@@ -157,10 +159,28 @@ def has_checkpoint(path_to_job, task=""):
     return get_last_checkpoint(path_to_job, task) is not None
 
 
-def is_checkpoint_epoch(cfg, cur_epoch):
-    """Checkpoint cadence (reference checkpoint.py:92-110, without multigrid)."""
+def multigrid_period_hit(cfg, cur_epoch, multigrid_schedule):
+    """Under a long-cycle schedule: whether ``cur_epoch`` is on the cadence
+    of ``MULTIGRID.EVAL_FREQ`` a shape, counted back from the shape's last
+    epoch (so that epoch always is); None without a schedule."""
+    if multigrid_schedule is None:
+        return None
+    prev_epoch = 0
+    for s in multigrid_schedule:
+        if cur_epoch < s[-1]:
+            period = max((s[-1] - prev_epoch) // cfg.MULTIGRID.EVAL_FREQ + 1, 1)
+            return (s[-1] - 1 - cur_epoch) % period == 0
+        prev_epoch = s[-1]
+    return None
+
+
+def is_checkpoint_epoch(cfg, cur_epoch, multigrid_schedule=None):
+    """Checkpoint cadence, multigrid-aware (slowfast_tpu/utils/checkpoint.py:61-75)."""
     if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
         return True
+    hit = multigrid_period_hit(cfg, cur_epoch, multigrid_schedule)
+    if hit is not None:
+        return hit
     return (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
 
 

@@ -508,12 +508,26 @@ def test_recipe_builds_at_full_size(recipe):
 
 @pytest.mark.parametrize("recipe", ["in1k_VIT_B_MaskFeat_PT.yaml", "in1k_VIT_L_MaskFeat_PT.yaml"])
 def test_patch_2d_recipes_refuse(recipe):
+    """The 2D patch recipes no longer refuse (the 2D stem is ported,
+    tests/test_torch_imagenet.py): ``MaskMViT`` builds at full size on the
+    meta device with a 2D stem and the 14² grid, and a ``Syntheticvideo``
+    item carries the JAX package's 2D mask at that grid."""
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(CONFIGS, "masked_ssl", recipe))
-    with pytest.raises(NotImplementedError, match="PATCH_2D"):
-        tmasked.MaskMViT(cfg)
-    with pytest.raises(NotImplementedError, match="PATCH_2D"):
-        tkinetics.Syntheticvideo(cfg, "train")
+    with torch.device("meta"):
+        model = tmasked.MaskMViT(cfg)
+    assert model.patch_embed.proj.weight.shape[1:] == (3, 16, 16)
+    assert model.patch_dims == [1, 14, 14]
+    jcfg = jax_get_cfg()
+    jcfg.merge_from_file(os.path.join(CONFIGS, "masked_ssl", recipe))
+    cfg.merge_from_list(["DATA.TRAIN_CROP_SIZE", "224"])
+    seed = tkinetics.utils.sample_seed(cfg.RNG_SEED, 0, 3)
+    random.seed(seed)
+    np.random.seed(seed)
+    want = jkinetics.gen_mask(jcfg)
+    got = tkinetics.Syntheticvideo(cfg, "train")[3][4]["mask"]
+    assert got.shape == (14, 14)
+    np.testing.assert_array_equal(got, want)
 
 
 # --- loader masks ---------------------------------------------------------------------

@@ -348,9 +348,11 @@ def test_tester_matches_jax_test_meter(jax_side, tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    # Rev-MViT and contrastive SSL are ported (tests/test_torch_reversible.py,
-    # tests/test_torch_contrastive.py); the pytorchvideo name PTVMViT is not.
-    ["MODEL.MODEL_NAME", "PTVMViT"], ["MVIT.PATCH_2D", "True"],
+    # Rev-MViT, contrastive SSL and the 2D patch stem are ported
+    # (tests/test_torch_reversible.py, tests/test_torch_contrastive.py,
+    # tests/test_torch_imagenet.py); the pytorchvideo name PTVMViT is not,
+    # nor are the head activation and the norm that the reference refuses.
+    ["MODEL.MODEL_NAME", "PTVMViT"], ["MODEL.HEAD_ACT", "tanh"],
     ["MVIT.NORM", "batchnorm"],
 ])
 def test_unported_options_raise(opt):

@@ -379,10 +379,16 @@ def test_recipe_builds_at_full_size():
 
 
 def test_cls_token_and_2d_patch_refused():
+    """A cls token is refused, as in the reference; the 2D patch stem is
+    ported (tests/test_torch_imagenet.py) and builds the reversible trunk on
+    one image's token grid."""
     with pytest.raises(AssertionError):
         tmvit.MViT(make_cfg(get_cfg, ["MVIT.CLS_EMBED_ON", "True"]))
-    with pytest.raises(NotImplementedError):
-        tmvit.MViT(make_cfg(get_cfg, ["MVIT.PATCH_2D", "True"]))
+    model = tmvit.MViT(make_cfg(get_cfg, ["MVIT.PATCH_2D", "True", "DATA.NUM_FRAMES", "1",
+                                          "MVIT.PATCH_KERNEL", "[7, 7]",
+                                          "MVIT.PATCH_STRIDE", "[4, 4]",
+                                          "MVIT.PATCH_PADDING", "[3, 3]"]))
+    assert model.patch_embed.proj.weight.dim() == 4 and model.patch_dims[0] == 1
 
 
 def test_init_of_the_fusions_follows_jax():

@@ -185,11 +185,12 @@ def test_run_net_cli_runs_the_test(tmp_path):
 
 def test_run_net_refuses_training(tmp_path):
     """``run_net`` refuses to train on what the port lacks, before any
-    step: a dataset it has not ported (ImageNet waits for the 2D patch stem)
-    and the elementwise gradient clip (LARS is ported:
+    step: a dataset it has not ported (every dataset of the JAX package is
+    ported since ImageNet, tests/test_torch_imagenet.py; UCF-101 is in
+    neither) and the elementwise gradient clip (LARS is ported:
     tests/test_torch_contrastive.py)."""
-    with pytest.raises(NotImplementedError, match="dataset 'Imagenet' is not ported"):
-        run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", "TRAIN.DATASET", "imagenet",
+    with pytest.raises(NotImplementedError, match="dataset 'Ucf101' is not ported"):
+        run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", "TRAIN.DATASET", "ucf101",
                       "TRAIN.ENABLE", "True", "OUTPUT_DIR", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="CLIP_GRAD_VAL is not ported"):
         run_net_main(["--device", "cpu", "--cfg", YAML, "--opts", *NARROW,

@@ -453,7 +453,7 @@ def test_training_records_no_kernel_launch_on_the_cpu(trained):
 def test_unported_training_options_raise(tmp_path):
     from slowfast_tpu_torch.engine.trainer import train
 
-    for extra in (["MULTIGRID.LONG_CYCLE", "True"], ["TENSORBOARD.ENABLE", "True"]):
+    for extra in (["DATA.LOADER_CHUNK_SIZE", "4"], ["TENSORBOARD.ENABLE", "True"]):
         cfg = assert_and_infer_cfg(narrow_cfg(get_cfg, extra=extra + ["OUTPUT_DIR", str(tmp_path)]))
         with pytest.raises(NotImplementedError):
             train(cfg, device="cpu")
