@@ -288,7 +288,24 @@ Phases, each printing one JSON line:
  33. imagenet_fp32  one fp32 train step of the 2D MViTv2-S on 2 images,
               card (TF32 off) vs CPU: loss within 1e-5, gradients within
               1e-3 relative L2.
- 34. kernels  one line per kernel with its launches on its path, error,
+ 34. ddp_slice  the data-parallel path (utils/distributed.py,
+              utils/multiprocessing.py) on SLOWFAST_4x16_R50 at full width
+              with BN.NORM_TYPE sync_batchnorm, one rank over NCCL (one card
+              holds one rank): three fp32 steps (TF32 off) in a group of one,
+              each against the same step from the same state with no group
+              (loss within 1e-5, gradients within 1e-4 relative L2); the
+              bf16 step of 16 clips with no group, with the group and with
+              no group again (p50 ms, peak memory, the profiler's device time
+              and NCCL kernels, the collectives a step calls and the host
+              time of one); then
+              the launcher's rank entry (utils.multiprocessing.run, what each
+              spawned rank runs) on run_net's config: one epoch of 4 steps,
+              precise BN, a val epoch and the checkpoint, and a second run
+              resumed from that checkpoint through TRAIN.CHECKPOINT_FILE_PATH
+              (CHECKPOINT_EPOCH_RESET False): epoch 2 only, the optimizer
+              state bit-equal to the checkpoint's; the preprocess kernel
+              once a train, precise-BN and val batch.
+ 35. kernels  one line per kernel with its launches on its path, error,
               times and bound.
 Before the phases, one line per host library that the data path may use
 (cv2, PIL, sklearn): whether it imports, and its version.
@@ -398,11 +415,16 @@ def device_ms(fn, iters=25):
 
 
 def slowfast_cfg(extra, yaml=YAML, out_dir=OUT_DIR):
+    """``yaml`` with ``extra``, on one process and one card (``NUM_GPUS 1``,
+    ``NUM_SHARDS 1``: the recipes' 8 ranks a host, and Rev-MViT's 16 hosts,
+    would need the launcher and as many cards; ``run_net`` sets
+    ``NUM_SHARDS`` from ``--num_shards`` as well)."""
     from slowfast_tpu_torch.config import assert_and_infer_cfg, get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(yaml)
-    cfg.merge_from_list(["TRAIN.ENABLE", "False", "OUTPUT_DIR", out_dir] + list(extra))
+    cfg.merge_from_list(["TRAIN.ENABLE", "False", "NUM_GPUS", "1", "NUM_SHARDS", "1",
+                         "OUTPUT_DIR", out_dir] + list(extra))
     return assert_and_infer_cfg(cfg)
 
 
@@ -5077,6 +5099,332 @@ def phase_in1k_maskfeat(corpus):
     return {"launches": launches}
 
 
+# ddp_slice: each fp32 step in a group of one against the same step, from
+# the same state, with no group. The global BN averages the ranks' moments,
+# so one rank's forward is one process's; the max-pool backward's atomics
+# still order sums anew (ROADMAP Queue 3 #2). Run free, this random-weight
+# step drifts from itself: 4e-2 and 1.3 relative L2 at its second and third
+# steps between two runs with no group.
+DDP_LOSS_TOL = 1e-5
+DDP_GRAD_TOL = 1e-4
+DDP_OPTS = ["BN.NORM_TYPE", "sync_batchnorm"]
+
+
+@contextlib.contextmanager
+def process_group(cfg):
+    """``cfg``'s job as a NCCL group of one rank on this card, its ranks
+    meeting through a file of their own."""
+    import tempfile
+
+    from slowfast_tpu_torch.utils import distributed as du
+
+    rendezvous = tempfile.mkdtemp(prefix="ddp_rendezvous_")
+    cfg.INIT_METHOD = "file://" + os.path.join(rendezvous, "store")
+    du.init_distributed(cfg, 0, "cuda")
+    try:
+        yield
+    finally:
+        du.destroy()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+class DdpStepper:
+    """One model and optimizer on the card that take ``make_train_step``
+    steps with no process group or in a group of one."""
+
+    def __init__(self, cfg, state=None):
+        from slowfast_tpu_torch.engine.steps import make_train_step
+        from slowfast_tpu_torch.models.build import build_model
+        from slowfast_tpu_torch.solver.optimizer import construct_optimizer
+
+        self.cfg = cfg
+        self.model = build_model(cfg, device="cuda")
+        if state is not None:
+            self.model.load_state_dict(state, strict=True)
+        self.opt = construct_optimizer(self.model, cfg)
+        self.grads, update = [], self.opt.step
+
+        def recording(lr):
+            if self.record:
+                self.grads.append({n: p.grad.detach().cpu().clone()
+                                   for n, p in self.model.named_parameters()})
+            return update(lr)
+
+        self.record = False
+        self.opt.step = recording
+        self.step = make_train_step(cfg, self.model, self.opt)
+
+    def steps_from(self, batches, starts, grouped):
+        """A step on each batch from its start (``(model state, optimizer
+        state)``; None: where the step before left it): each step's loss,
+        its gradients (on the CPU) and the start it took."""
+        self.grads, self.record, losses, taken = [], True, [], []
+        with process_group(self.cfg) if grouped else contextlib.nullcontext():
+            for batch, start in zip(batches, starts):
+                if start is not None:
+                    self.model.load_state_dict(start[0], strict=True)
+                    self.opt.load_state_dict(start[1])
+                taken.append(({k: v.detach().cpu().clone()
+                               for k, v in self.model.state_dict().items()},
+                              self.opt.state_dict()))
+                losses.append(self.step(batch)["loss"].item())
+        self.record = False
+        return losses, self.grads, taken
+
+    def timed(self, batch, grouped, steps=4):
+        """Host ms of ``steps`` bf16 steps (each to a synchronize) after one
+        untimed step, the peak memory, and one profiled step."""
+        with process_group(self.cfg) if grouped else contextlib.nullcontext():
+            self.step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                self.step(batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile_step(self.step, batch, steps=1)
+            if grouped:
+                prof["all_reduce_host"] = all_reduce_host_us()
+        return {"step_p50_ms": statistics.median(ms), "step_ms": ms,
+                "max_memory_allocated": peak, **prof}
+
+
+def all_reduce_host_us(calls=200, channels=512, busy_ms=50.0):
+    """What one BN's all-reduce (``2 · channels`` fp32 values) costs the
+    host in the current group: microseconds a call, the calls queued back
+    to back on an idle card and timed to a synchronize; and the ms one call
+    holds the host while the card still runs ``busy_ms`` of earlier work (a
+    sleep kernel): about ``busy_ms`` if the call waits for the card."""
+    import torch.distributed as dist
+
+    x = torch.zeros(2 * channels, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    per_call_us = (time.perf_counter() - t0) / calls * 1e6
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(int(busy_ms * 1.98e6))  # cycles at the 1.98 GHz boost clock
+    end.record()
+    t0 = time.perf_counter()
+    dist.all_reduce(x)
+    held_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {"per_call_us": per_call_us, "busy_card_ms": start.elapsed_time(end),
+            "host_held_ms": held_ms}
+
+
+def profile_step(step, batch, steps=1):
+    """Device time a step of ``step`` on ``batch`` (torch.profiler): per
+    step, the kernels' ms by category (``profile_eval.CATEGORIES``, NCCL's
+    collectives first), the NCCL kernels' count (NCCL launches none for an
+    in-place collective of one rank) and the collectives the host called."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from slowfast_tpu_torch.profile_eval import category
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+    by_cat, nccl, calls = {}, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            cat = category(e.name)
+            by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+            nccl += cat == "nccl"
+        elif e.name.startswith("nccl:"):
+            calls += 1
+    return {"kernel_ms": sum(by_cat.values()), "by_category_ms": by_cat,
+            "nccl_kernels": nccl / steps, "collective_calls": calls / steps}
+
+
+def launcher_train(argv, out_dir, on_load=None):
+    """``run_net``'s config of ``argv`` trained by the launcher's rank entry
+    (``utils.multiprocessing.run``, what each spawned rank runs) as rank 0
+    of a NCCL group of one; every step timed to a synchronize, and
+    ``on_load(epoch, optimizer)`` told what the checkpoint load gave.
+    Returns the steps, the kernel counts and the logged stats."""
+    import tempfile
+
+    from slowfast_tpu_torch.config import assert_and_infer_cfg
+    from slowfast_tpu_torch.engine import trainer
+    from slowfast_tpu_torch.utils.multiprocessing import run
+    from slowfast_tpu_torch.utils.parser import load_config, parse_args
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rendezvous = tempfile.mkdtemp(prefix="ddp_rendezvous_")
+    args = parse_args(["--cfg", YAML, "--init_method",
+                       "file://" + os.path.join(rendezvous, "store"), "--opts", *argv,
+                       "OUTPUT_DIR", out_dir])
+    cfg = assert_and_infer_cfg(load_config(args, YAML))
+    steps, make_step, load = [], trainer.make_train_step, trainer.cu.load_train_checkpoint
+
+    def timed_make_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                          "clips": batch["labels"].shape[0]})
+            return m
+
+        return timed
+
+    def reporting_load(cfg, model, optimizer, *a):
+        epoch = load(cfg, model, optimizer, *a)
+        if on_load is not None:
+            on_load(epoch, optimizer)
+        return epoch
+
+    trainer.make_train_step, trainer.cu.load_train_checkpoint = timed_make_step, reporting_load
+    reset_launches()
+    try:
+        run(0, trainer.train, cfg, "cuda")
+    finally:
+        trainer.make_train_step, trainer.cu.load_train_checkpoint = make_step, load
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    launches = read_launches()
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    return {"cfg": cfg, "steps": steps, "launches": launches, "logged": logged}
+
+
+def phase_ddp_slice():
+    """The data-parallel path on SlowFast 4x16 R50 at full width, one rank
+    over NCCL (``BN.NORM_TYPE sync_batchnorm``): the fp32 steps in a group
+    of one against no group, the bf16 step's cost with the group, and the
+    launcher's rank entry training, checkpointing and resuming."""
+    from slowfast_tpu_torch.models.build import build_model
+
+    t_phase = time.perf_counter()
+    parts = {}
+    # 1. fp32, TF32 off: three steps with no group, each again from the
+    # same start in the group and with no group (the card's own spread).
+    cfg = slowfast_cfg(DDP_OPTS + ["TPU.COMPUTE_DTYPE", "float32", "MODEL.DROPOUT_RATE", "0.0",
+                                   "TRAIN.BATCH_SIZE", "2"])
+    model = build_model(cfg, device="cpu")
+    randomize_bn(model, 5)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    crop = cfg.DATA.TRAIN_CROP_SIZE
+    batches = [{"inputs": [torch.randint(0, 256, (2, cfg.DATA.NUM_FRAMES, crop, crop, 3),
+                                         dtype=torch.uint8, device="cuda", generator=gen)],
+                "labels": torch.tensor([17, 305], device="cuda"), "epoch_exact": 0.5 * i}
+               for i in range(3)]
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        stepper = DdpStepper(cfg, state)
+        plain_loss, plain_grads, starts = stepper.steps_from(batches, [None] * 3, False)
+        group_loss, group_grads, _ = stepper.steps_from(batches, starts, True)
+        again_loss, again_grads, _ = stepper.steps_from(batches, starts, False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del stepper, starts
+    names = list(plain_grads[0])
+    fp32 = {"loss": group_loss, "plain_loss": plain_loss,
+            "loss_rel_err": [abs(g - p) / abs(p) for g, p in zip(group_loss, plain_loss)],
+            "grad_rel_l2": [rel_l2(g, p, names) for g, p in zip(group_grads, plain_grads)],
+            "plain_again_loss_rel_err": [abs(a - p) / abs(p)
+                                         for a, p in zip(again_loss, plain_loss)],
+            "plain_again_grad_rel_l2": [rel_l2(a, p, names)
+                                        for a, p in zip(again_grads, plain_grads)]}
+    parts["fp32_s"] = time.perf_counter() - t_phase
+
+    # 2. The bf16 step of 16 clips on one model: no group, the group, no
+    # group again.
+    t0 = time.perf_counter()
+    cfg16 = slowfast_cfg(DDP_OPTS + ["TPU.COMPUTE_DTYPE", "bfloat16",
+                                     "TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS)])
+    batch = {"inputs": [torch.randint(0, 256, (CNN_TRAIN_CLIPS, cfg16.DATA.NUM_FRAMES, crop,
+                                               crop, 3), dtype=torch.uint8, device="cuda",
+                                      generator=gen)],
+             "labels": torch.randint(0, cfg16.MODEL.NUM_CLASSES, (CNN_TRAIN_CLIPS,),
+                                     device="cuda", generator=gen), "epoch_exact": 0.5}
+    stepper = DdpStepper(cfg16)
+    timing = {mode: stepper.timed(batch, mode == "group")
+              for mode in ("plain", "group", "plain_again")}
+    del stepper
+    torch.cuda.empty_cache()
+    plain_ms = statistics.mean([timing["plain"]["step_p50_ms"],
+                                timing["plain_again"]["step_p50_ms"]])
+    plain_kernel_ms = statistics.mean([timing["plain"]["kernel_ms"],
+                                       timing["plain_again"]["kernel_ms"]])
+    parts["bf16_s"] = time.perf_counter() - t0
+
+    # 3. The launcher's rank entry: an epoch and its checkpoint, then a run
+    # resumed from that checkpoint through TRAIN.CHECKPOINT_FILE_PATH.
+    base = ["NUM_GPUS", "1", *DDP_OPTS, "TRAIN.DATASET", "syntheticvideo",
+            "DATA.SYNTHETIC_SIZE", str(4 * CNN_TRAIN_CLIPS), "TRAIN.BATCH_SIZE",
+            str(CNN_TRAIN_CLIPS), "TEST.ENABLE", "False"]
+    t0 = time.perf_counter()
+    first = launcher_train(base + ["SOLVER.MAX_EPOCH", "1"], os.path.join(OUT_DIR, "ddp"))
+    ckpt = os.path.join(OUT_DIR, "ddp", "checkpoints", "checkpoint_epoch_00001.pyth")
+    check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    loaded = {}
+
+    def on_load(epoch, optimizer):
+        loaded.update(epoch=epoch, state=optimizer.state_dict())
+
+    resumed = launcher_train(base + ["SOLVER.MAX_EPOCH", "2", "TRAIN.CHECKPOINT_FILE_PATH", ckpt],
+                             os.path.join(OUT_DIR, "ddp_resumed"), on_load)
+    opt_equal = (loaded["state"]["count"] == saved["optimizer_state"]["count"] and all(
+        torch.equal(loaded["state"]["trace"][n], t)
+        for n, t in saved["optimizer_state"]["trace"].items()))
+    ckpt_bytes = os.path.getsize(ckpt)
+    parts["launcher_s"] = time.perf_counter() - t0
+    for path in (ckpt, os.path.join(OUT_DIR, "ddp_resumed", "checkpoints",
+                                    "checkpoint_epoch_00002.pyth")):
+        if os.path.exists(path):
+            os.remove(path)  # weights and momentum: too large to keep among the run's files
+    epochs = {name: [s["epoch"] for s in run["logged"] if s["_type"] == "train_epoch"]
+              for name, run in (("first", first), ("resumed", resumed))}
+    launches = {k: first["launches"][k] + resumed["launches"][k] for k in first["launches"]}
+    row = {"phase": "ddp_slice", "world_size": 1, "backend": first["cfg"].DIST_BACKEND,
+           "norm_type": first["cfg"].BN.NORM_TYPE, "fp32": fp32,
+           "bf16_step": {"clips": CNN_TRAIN_CLIPS, **timing,
+                         "group_over_plain_ms": timing["group"]["step_p50_ms"] - plain_ms,
+                         "group_over_plain_kernel_ms": timing["group"]["kernel_ms"]
+                         - plain_kernel_ms},
+           "launcher": {"steps": [s["ms"] for s in first["steps"]],
+                        "resumed_steps": [s["ms"] for s in resumed["steps"]],
+                        "step_p50_ms": statistics.median(
+                            s["ms"] for s in first["steps"] + resumed["steps"]),
+                        "epochs": epochs, "resumed_start_epoch": loaded["epoch"],
+                        "saved_epoch": saved["epoch"], "optimizer_bit_equal": opt_equal,
+                        "val_epochs": [s["epoch"] for s in resumed["logged"]
+                                       if s["_type"] == "val_epoch"],
+                        "checkpoint_bytes": ckpt_bytes},
+           "launches": launches, "phase_s": time.perf_counter() - t_phase, **parts}
+    emit(row)
+    check(all(e <= DDP_LOSS_TOL for e in fp32["loss_rel_err"]), f"fp32 losses: {fp32}")
+    check(all(e <= DDP_GRAD_TOL for e in fp32["grad_rel_l2"]), f"fp32 gradients: {fp32}")
+    check(all(np.isfinite(s["loss"]) and s["clips"] == CNN_TRAIN_CLIPS
+              for s in first["steps"] + resumed["steps"]) and len(first["steps"]) == 4
+          and len(resumed["steps"]) == 4, f"launcher steps: {first['steps']}, "
+                                          f"{resumed['steps']}")
+    check(epochs == {"first": ["1/1"], "resumed": ["2/2"]}, f"epochs {epochs}")
+    check(loaded["epoch"] == saved["epoch"] + 1 == 1 and opt_equal,
+          f"resume: epoch {loaded['epoch']}, optimizer equal {opt_equal}")
+    for run in (first, resumed):
+        check(run["launches"]["preprocess_u8"] == 4 + 4 + 4 and only_launched(
+            run["launches"], (), 0), f"launches {run['launches']}: 4 steps + 4 precise-BN "
+                                     "batches + 4 val batches expected, no attention kernel")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -5133,6 +5481,7 @@ def main():
         family["imagenet"] = phase_imagenet_train_slice(corpus)
         family["in1k_maskfeat"] = phase_in1k_maskfeat(corpus)
     phase_imagenet_fp32()
+    ddp = phase_ddp_slice()
     # The preprocess kernel's launches are those of the SlowFast train run
     # on synthetic video (4 steps, 4 precise-BN batches, 4 val batches), of
     # the one on decoded video (the same, with 2 val batches, and the test's
@@ -5141,7 +5490,8 @@ def main():
     # its val batch; the SSL pretrains ship float pathways), of Rev-MViT's
     # run (4 steps, 4 val and 2 test batches) and of the multigrid run (its
     # steps, its precise-BN batches and its val batches; ImageNet's items
-    # are float images, as in JAX).
+    # are float images, as in JAX), and of the data-parallel runs (the
+    # launcher's two runs: 4 steps, 4 precise-BN and 4 val batches each).
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
@@ -5149,7 +5499,8 @@ def main():
         "launches": sf_train["launches"]["preprocess_u8"]
         + (data_launches["preprocess_u8"] if data_launches else 0)
         + sum(family[k]["launches"]["preprocess_u8"]
-              for k in ("maskfeat", "mae", "finetune", "linear", "rev_mvit", "multigrid")),
+              for k in ("maskfeat", "mae", "finetune", "linear", "rev_mvit", "multigrid"))
+        + ddp["launches"]["preprocess_u8"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],

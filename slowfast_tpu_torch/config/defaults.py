@@ -434,7 +434,10 @@ _C.OUTPUT_DIR = "."
 _C.RNG_SEED = 1
 _C.LOG_PERIOD = 10
 _C.LOG_MODEL_INFO = True
-_C.DIST_BACKEND = "nccl"  # inert on TPU; kept for config compatibility
+_C.DIST_BACKEND = "nccl"  # the process group's backend on the cards (gloo on the CPU)
+# Where the ranks of a multi-process job meet (torch.distributed init method;
+# run_net's --init_method sets it).
+_C.INIT_METHOD = "tcp://localhost:9999"
 
 # ---------------------------------------------------------------------------
 # Benchmark options (reference defaults.py:917-926)

@@ -96,9 +96,6 @@ class Kinetics(utils.SeededDataset):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown split {mode!r}")
         _check_uint8(cfg)
-        if cfg.DATA.LOADER_CHUNK_SIZE > 0:
-            raise NotImplementedError("Kinetics with DATA.LOADER_CHUNK_SIZE (chunked csv) is "
-                                      "not ported yet")
         self.cfg = cfg
         self.mode = mode
         self._num_retries = num_retries
@@ -122,13 +119,21 @@ class Kinetics(utils.SeededDataset):
                     decoder.BACKEND, cfg.DATA.DECODING_BACKEND)
 
     def _construct_loader(self):
+        """The csv's clips; a chunked train csv (``DATA.LOADER_CHUNK_SIZE``)
+        keeps only its rows ``[SKIP_ROWS, SKIP_ROWS + LOADER_CHUNK_SIZE)``
+        (slowfast_tpu/data/kinetics.py:59-72), the trainer moving
+        ``SKIP_ROWS`` each epoch."""
         cfg = self.cfg
         path_to_file = os.path.join(cfg.DATA.PATH_TO_DATA_DIR, f"{self.mode}.csv")
         if not os.path.exists(path_to_file):
             raise FileNotFoundError(f"{path_to_file} not found")
+        chunk = cfg.DATA.LOADER_CHUNK_SIZE if self.mode == "train" else 0
+        skip = cfg.DATA.SKIP_ROWS if chunk > 0 else 0
         self._path_to_videos, self._labels, self._spatial_temporal_idx = [], [], []
         with open(path_to_file) as f:
-            for line in f:
+            for row, line in enumerate(f):
+                if chunk > 0 and not skip <= row < skip + chunk:
+                    continue
                 line = line.strip()
                 if not line:
                     continue

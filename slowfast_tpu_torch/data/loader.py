@@ -20,6 +20,16 @@ order is cut into batches of ``[B·f₀, B·f₁, B]`` items, each item an
 epoch ends at the first batch that the order cannot fill. ``len`` counts
 batches of ``B``, as the JAX ``ShardedLoader`` does (:182-186), so an
 epoch's ``epoch_exact`` reaches about 0.43 before the next epoch starts.
+
+Under a process group of W ranks every batch size is the global batch's,
+and each rank loads its part of every global batch in the JAX package's
+layout (slowfast_tpu/data/loader.py:192-213 and ``shard_batch``): shard
+``s`` of ``NUM_SHARDS`` takes ``batch[s::NUM_SHARDS]``, and within the
+shard, GPU ``g`` the ``g``-th contiguous chunk (``rank_rows``). Val and
+test keep their order; their last partial batch is padded to a multiple
+of W by repeating its last item (slowfast_tpu/parallel/mesh.py:252
+``pad_batch_for_mesh``), and ``meta["num_real"]`` counts the rank's real
+rows, which come first.
 """
 
 import os
@@ -28,6 +38,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from slowfast_tpu_torch.utils import distributed as du
 
 from .ava_dataset import Ava
 from .charades import Charades
@@ -139,6 +151,17 @@ def multiple_samples_collate(samples):
     return collate([flat for s in samples for flat in zip(*s)])
 
 
+def rank_rows(batch, rank, world, num_shards):
+    """Rank ``rank``'s rows of a global ``batch`` (a list) on ``world``
+    ranks over ``num_shards`` hosts: the host's strided part, then the
+    rank's contiguous chunk of it."""
+    gpus = world // num_shards
+    shard, gpu = divmod(rank, gpus)
+    host = batch[shard::num_shards]
+    per = len(host) // gpus
+    return host[gpu * per:(gpu + 1) * per]
+
+
 def short_cycle_batches(cfg, batch_size):
     """The short cycle's batch sizes, ``[B·f₀, B·f₁, B]`` with ``fᵢ =
     round((TRAIN_CROP_SIZE / (SHORT_CYCLE_FACTORS[i]·DEFAULT_S))²)``
@@ -154,11 +177,18 @@ class Loader:
     ``shuffle`` reorders the dataset every epoch (``set_epoch``) from
     ``seed + epoch``; ``drop_last`` drops the last partial batch.
     ``cycle_batches`` (the short cycle's three batch sizes) makes each
-    batch a list of ``(index, cycle position)`` items.
+    batch a list of ``(index, cycle position)`` items. ``batch_size`` and
+    ``cycle_batches`` are global: with ``world`` > 1 this loader yields
+    rank ``rank``'s rows of each (``rank_rows``), the last partial batch
+    padded for every rank.
     """
 
     def __init__(self, dataset, batch_size, device, num_workers=1, shuffle=False,
-                 drop_last=False, seed=0, collate_fn=collate, cycle_batches=None):
+                 drop_last=False, seed=0, collate_fn=collate, cycle_batches=None,
+                 rank=0, world=1, num_shards=1):
+        if world > 1 and (batch_size % world or world % num_shards):
+            raise ValueError(f"the global batch of {batch_size} does not split over "
+                             f"{world} ranks on {num_shards} hosts")
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -168,6 +198,7 @@ class Loader:
         self.seed = seed
         self.collate_fn = collate_fn
         self.cycle_batches = cycle_batches
+        self.rank, self.world, self.num_shards = rank, world, num_shards
         self.epoch = 0
 
     def set_epoch(self, epoch):
@@ -179,7 +210,8 @@ class Loader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _indices(self):
+    def _global_batches(self):
+        """The global batches of the epoch, lists of items."""
         n, bs = len(self.dataset), self.batch_size
         order = (np.random.RandomState(self.seed + self.epoch).permutation(n)
                  if self.shuffle else np.arange(n)).tolist()
@@ -192,6 +224,20 @@ class Loader:
             pos += self.cycle_batches[cycle]
         return batches
 
+    def _indices(self):
+        """This rank's items of each global batch."""
+        return [items for items, _ in self._rank_batches()]
+
+    def _rank_batches(self):
+        """This rank's ``(items, real item count)`` of each global batch."""
+        out = []
+        for batch in self._global_batches():
+            n = len(batch)
+            batch = batch + batch[-1:] * (-n % self.world)
+            rows = rank_rows(list(range(len(batch))), self.rank, self.world, self.num_shards)
+            out.append(([batch[i] for i in rows], sum(i < n for i in rows)))
+        return out
+
     def _to_device(self, x):
         t = torch.from_numpy(x)
         if self.device.type == "cuda":
@@ -199,20 +245,24 @@ class Loader:
         return t.to(self.device)
 
     def __iter__(self):
-        batches = iter(self._indices())
+        batches = iter(self._rank_batches())
         pool = ThreadPoolExecutor(self.num_workers)
         window = deque()
         try:
             while True:
                 while len(window) <= PREFETCH:
-                    idx = next(batches, None)
+                    idx, num_real = next(batches, (None, 0))
                     if idx is None:
                         break
-                    window.append([pool.submit(self.dataset.__getitem__, i) for i in idx])
+                    window.append(([pool.submit(self.dataset.__getitem__, i) for i in idx],
+                                   num_real))
                 if not window:
                     return
+                futures, num_real = window.popleft()
                 inputs, labels, index, times, meta = self.collate_fn(
-                    [f.result() for f in window.popleft()])
+                    [f.result() for f in futures])
+                if self.world > 1:
+                    meta["num_real"] = num_real
                 meta = {k: self._to_device(v) if k in DEVICE_META else v
                         for k, v in meta.items()}
                 if isinstance(inputs, tuple):  # SSL views
@@ -254,7 +304,8 @@ def construct_loader(cfg, split, device="cuda"):
         collate_fn = collate
     return Loader(dataset, batch_size, device, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
                   shuffle=train, drop_last=train, seed=cfg.RNG_SEED, collate_fn=collate_fn,
-                  cycle_batches=cycle_batches)
+                  cycle_batches=cycle_batches, rank=du.get_rank(), world=du.get_world_size(),
+                  num_shards=cfg.NUM_SHARDS)
 
 
 def shuffle_dataset(loader, cur_epoch):

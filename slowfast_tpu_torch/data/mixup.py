@@ -4,11 +4,12 @@ reference slowfast/datasets/mixup.py, timm-derived).
 The random draws and the mixing are split: ``mix_draws`` takes the batch's
 choices (mix or not, cutmix or mixup, the two Beta draws and the box
 centre) from a CPU ``torch.Generator``, as Python numbers, so the step needs
-no host read-back; ``mix_with`` is the pure mixing given those draws. The
+no host read-back; ``mix_with`` is the mixing given those draws. The
 box arithmetic is float32, as the JAX package's traced version is, so the
 same draws give the same box and the same λ. The batch is mixed with its
 flip (sample i with sample B-1-i); labels become one-hot with label
-smoothing.
+smoothing. Under a process group the flip is the global batch's: each
+rank mixes with the flipped rows of its mirror rank (``mirror_rows``).
 """
 
 import math
@@ -16,6 +17,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from slowfast_tpu_torch.utils import distributed as du
 
 
 def convert_to_one_hot(targets, num_classes, label_smoothing=0.0):
@@ -78,6 +81,13 @@ def _rand_bbox(height, width, lam, cy, cx):
     return y1, y2, x1, x2
 
 
+def mirror_rows(inputs, labels):
+    """The rows that pair with this rank's: the flipped inputs and labels
+    of rank ``W - 1 - rank`` (one process: the batch's own flip)."""
+    got = du.exchange_with(list(inputs) + [labels], du.get_world_size() - 1 - du.get_rank())
+    return [x.flip(0) for x in got[:-1]], got[-1].flip(0)
+
+
 def mix_with(inputs, labels, num_classes, use_mix, use_cutmix, lam_mix, lam_cut,
              cy, cx, label_smoothing=0.1):
     """Mix NTHWC pathway tensors and integer labels with given draws.
@@ -85,16 +95,17 @@ def mix_with(inputs, labels, num_classes, use_mix, use_cutmix, lam_mix, lam_cut,
     Returns ``(mixed_inputs, soft_labels)``: the inputs in their own dtype
     (the blend is computed in fp32 and rounded once, which is what the JAX
     step's fp32 blend becomes at the model's first cast), the labels fp32.
+    Row i of the global batch mixes with row G-1-i (``mirror_rows``).
     """
+    flipped_inputs, flipped_labels = mirror_rows(inputs, labels)
     H, W = inputs[-1].shape[2], inputs[-1].shape[3]
     y1, y2, x1, x2 = _rand_bbox(H, W, lam_cut, cy, cx)
     lam_cut_adj = np.float32(1.0) - np.float32((y2 - y1) * (x2 - x1)) / np.float32(H * W)
     lam = float(lam_cut_adj if use_cutmix else np.float32(lam_mix)) if use_mix else 1.0
 
-    def mix_one(x):
+    def mix_one(x, flipped):
         if not use_mix:
             return x
-        flipped = x.flip(0)
         if use_cutmix:
             h, w = x.shape[2], x.shape[3]
             sy, sx = np.float32(h / H), np.float32(w / W)
@@ -106,8 +117,9 @@ def mix_with(inputs, labels, num_classes, use_mix, use_cutmix, lam_mix, lam_cut,
         return (x.float() * lam + flipped.float() * (1.0 - lam)).to(x.dtype)
 
     y1h = convert_to_one_hot(labels, num_classes, label_smoothing)
-    soft = y1h * lam + y1h.flip(0) * (1.0 - lam)
-    return [mix_one(x) for x in inputs], soft
+    soft = y1h * lam + convert_to_one_hot(flipped_labels, num_classes, label_smoothing) * (
+        1.0 - lam)
+    return [mix_one(x, f) for x, f in zip(inputs, flipped_inputs)], soft
 
 
 def mixup_batch(generator, inputs, labels, num_classes, mixup_alpha=0.8,

@@ -9,6 +9,18 @@ global-norm clip and the optimizer's update; the eval step runs under
 padded boxes, and the loss is masked to the real boxes. Under
 ``MASK.ENABLE`` (MaskFeat, MAE) the model makes its own targets from the
 clips and the loader's mask, and the loss is ``masked_loss``.
+
+Under a process group each rank steps on its part of the global batch and
+the step computes what the JAX package's step computes on the whole of it
+(slowfast_tpu/engine/steps.py:54-202): the BNs take global statistics
+(``models/batchnorm.py``); after the backward every gradient is replaced
+by its mean over the ranks, before the clip and the update; a loss that
+divides by a count of the data (the real boxes of a detection batch, the
+masked positions of MaskFeat and MAE) divides by the global count and is
+scaled by the world size, so that the mean of the gradients is the global
+loss's; mixup pairs row i of the global batch with row G-1-i, so each rank
+mixes with the flipped rows of its mirror rank, with the same draws on
+every rank.
 """
 
 import torch
@@ -19,6 +31,7 @@ from slowfast_tpu_torch.models.video_models import compute_dtype
 from slowfast_tpu_torch.ops.preprocess import device_preprocess
 from slowfast_tpu_torch.solver.losses import MULTI_LABEL_LOSSES, get_loss_func
 from slowfast_tpu_torch.solver.lr_policy import make_epoch_lr_fn
+from slowfast_tpu_torch.utils import distributed as du
 from slowfast_tpu_torch.utils.metrics import topks_correct
 
 
@@ -40,22 +53,23 @@ def maybe_device_preprocess(cfg, inputs):
     )
 
 
-def masked_detection_loss(loss_fun, preds, labels, box_mask):
+def masked_detection_loss(loss_fun, preds, labels, box_mask, count=lambda n: n):
     """The detection loss over the real boxes only
     (slowfast_tpu/engine/steps.py:99-116): ``preds`` ``(B*M, K)``, ``labels``
     ``(B, M, K)`` targets (or ``(B, M)`` class ids), ``box_mask`` ``(B, M)``.
     A per-(box, class) loss (``bce``) is summed and divided by
     ``max(mask.sum() * K, 1)``; a per-box loss (cross-entropy) by
-    ``max(mask.sum(), 1)``."""
+    ``max(mask.sum(), 1)``. ``count`` maps the box count to the one to
+    divide by (the global one under a process group)."""
     mask = box_mask.reshape(-1).float()
     per_elem = loss_fun(preds, labels.reshape(preds.shape[0], *labels.shape[2:]),
                         reduction="none")
     if per_elem.dim() == 2:
         per_elem = per_elem * mask[:, None]
-        denom = torch.clamp(mask.sum() * preds.shape[-1], min=1.0)
+        denom = torch.clamp(count(mask.sum()) * preds.shape[-1], min=1.0)
     else:
         per_elem = per_elem * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = torch.clamp(count(mask.sum()), min=1.0)
     return per_elem.sum() / denom
 
 
@@ -90,6 +104,7 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
 
     def step(batch):
         model.train()
+        world = du.get_world_size()
         inputs = maybe_device_preprocess(cfg, batch["inputs"])
         labels = batch["labels"]
         loss_labels = labels
@@ -102,14 +117,16 @@ def make_train_step(cfg, model, optimizer, mix_generator=None):
             p.grad = None
         if detection:
             preds = model(inputs, batch["boxes"])
-            loss = masked_detection_loss(loss_fun, preds, loss_labels, batch["box_mask"])
+            loss = masked_detection_loss(loss_fun, preds, loss_labels, batch["box_mask"],
+                                         du.global_count) * world
         elif masked:
             preds, targets = model(inputs, mask=batch.get("mask"))
-            loss = masked_loss(preds, targets)
+            loss = masked_loss(preds, targets, du.global_count) * world
         else:
             preds = model(inputs)
             loss = loss_fun(preds, loss_labels)
         loss.backward()
+        du.all_reduce_grads([p for p in model.parameters() if p.requires_grad])
         lr = lr_fn(batch["epoch_exact"])
         grad_norm = optimizer.step(lr)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}

@@ -6,7 +6,11 @@ per-clip predictions are ensembled per video by ``TestMeter``, which logs
 ``test_final`` with ``top1_acc``/``top5_acc``, or with ``map`` for
 multi-label data (``DATA.MULTI_LABEL``). Detection (``DETECTION.ENABLE``)
 scores the predictions of every real box with ``AVAMeter`` and returns
-``{"map": ...}``.
+``{"map": ...}``. Over several ranks each tests its part of every batch;
+the real rows' predictions, labels and clip ids are gathered each
+iteration (the detections at the end), so every rank's meter sees every
+view, and the master logs. MAE's reconstruction renders
+(``VIS_MASK.ENABLE``) are not ported: asking for them raises.
 """
 
 import pickle
@@ -17,6 +21,7 @@ from slowfast_tpu_torch.engine.steps import make_eval_step
 from slowfast_tpu_torch.engine.trainer import detection_preds
 from slowfast_tpu_torch.models.build import build_model, resolve_device
 from slowfast_tpu_torch.utils import checkpoint as cu
+from slowfast_tpu_torch.utils import distributed as du
 from slowfast_tpu_torch.utils import logging as logging_utils
 from slowfast_tpu_torch.utils.meters import AVAMeter, TestMeter
 
@@ -25,8 +30,11 @@ logger = logging_utils.get_logger(__name__)
 
 def perform_test(test_loader, eval_fn, test_meter):
     test_meter.iter_tic()
-    for cur_iter, (inputs, labels, video_idx, _, _) in enumerate(test_loader):
+    for cur_iter, (inputs, labels, video_idx, _, meta) in enumerate(test_loader):
+        n = meta.get("num_real", len(labels))
         preds = eval_fn({"inputs": inputs}).float().cpu().numpy()
+        preds, labels, video_idx = (du.all_gather_unaligned(x[:n])
+                                    for x in (preds, labels, video_idx))
         test_meter.iter_toc()
         test_meter.update_stats(preds, labels, video_idx)
         test_meter.log_iter_stats(cur_iter)
@@ -45,6 +53,12 @@ def test(cfg, device="cuda"):
             "TEST.ENABLE after an SSL pretrain (ContrastiveModel) has no test protocol: "
             "the pretrain is judged by its kNN probe and by linear_*/finetune_* transfer; "
             "set TEST.ENABLE False")
+    if cfg.VIS_MASK.ENABLE and cfg.MASK.ENABLE and cfg.MASK.MAE_ON:
+        # slowfast_tpu/engine/tester.py:89-93 renders them in place of the
+        # metrics (ROADMAP Queue 1 #10).
+        raise NotImplementedError("VIS_MASK.ENABLE (MAE's reconstruction renders) is not "
+                                  "ported yet; set VIS_MASK.ENABLE False")
+    du.check_world(cfg)
     device = resolve_device(device)
     logging_utils.setup_logging(cfg.OUTPUT_DIR)
     logger.info("Test with config:")
@@ -66,9 +80,9 @@ def perform_detection_test(test_loader, eval_fn, meter):
     predictions into ``meter``; returns the mAP."""
     meter.iter_tic()
     for cur_iter, (inputs, _, _, _, meta) in enumerate(test_loader):
-        preds = detection_preds(eval_fn, inputs, meta)
+        detections = detection_preds(eval_fn, inputs, meta)
         meter.iter_toc()
-        meter.update_stats(preds, meta["ori_boxes"], meta["metadata"])
+        meter.update_stats(*detections)
         meter.log_iter_stats(None, cur_iter)
         meter.iter_tic()
     return meter.finalize_metrics()
@@ -97,7 +111,7 @@ def test_one(cfg, device):
         output_dir=cfg.OUTPUT_DIR,
     )
     perform_test(test_loader, eval_fn, test_meter)
-    if cfg.TEST.SAVE_RESULTS_PATH:
+    if cfg.TEST.SAVE_RESULTS_PATH and du.is_master_proc():
         with open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:
             pickle.dump([test_meter.video_preds, test_meter.video_labels], f)
     return dict(test_meter.stats)

@@ -16,6 +16,21 @@ never runs a val epoch: the reconstruction objective has no val protocol
 through ``train_ssl``: the SSL step on two views a clip, the SSL state in
 the checkpoint, and a kNN probe instead of the val epoch.
 
+Multi-process (``utils/multiprocessing.launch_job``): each rank trains on
+its part of every global batch (``data/loader.py``) with the step's
+reductions (``engine/steps.py``); the metrics read back every
+``LOG_PERIOD`` steps are averaged over the ranks there, the val epoch's
+counts summed and its predictions gathered, and only the master logs and
+writes checkpoints, which every rank passes a barrier after. The job's
+rank count must be the process group's (``NUM_SHARDS · NUM_GPUS``).
+``ContrastiveModel`` trains on one rank only: its SSL state's collectives
+are not ported (ROADMAP Queue 1).
+
+Chunked csvs (``DATA.LOADER_CHUNK_SIZE``, slowfast_tpu/engine/trainer.py:
+371-381): from the second epoch on, each epoch moves ``DATA.SKIP_ROWS`` to
+its chunk, ``epoch % ceil(LOADER_CHUNK_OVERALL_SIZE / LOADER_CHUNK_SIZE)``
+chunks in, and rebuilds the train loader on those rows.
+
 Multigrid (``MULTIGRID.LONG_CYCLE``, ``MULTIGRID.SHORT_CYCLE``,
 slowfast_tpu/engine/trainer.py:316-398): ``MultigridSchedule`` rewrites the
 solver's steps and epochs at the start; each epoch takes its long-cycle
@@ -30,6 +45,7 @@ loader, short cycle and all.
 import math
 import pprint
 
+import numpy as np
 import torch
 
 from slowfast_tpu_torch.data import construct_loader, shuffle_dataset
@@ -40,6 +56,7 @@ from slowfast_tpu_torch.models.build import build_model, resolve_device, set_gen
 from slowfast_tpu_torch.models.contrastive import init_ssl_state
 from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 from slowfast_tpu_torch.utils import checkpoint as cu
+from slowfast_tpu_torch.utils import distributed as du
 from slowfast_tpu_torch.utils import logging as logging_utils
 from slowfast_tpu_torch.utils.meters import AVAMeter, EpochTimer, TrainMeter, ValMeter
 from slowfast_tpu_torch.utils.metrics import topks_correct
@@ -51,21 +68,41 @@ logger = logging_utils.get_logger(__name__)
 def _check_supported(cfg):
     unported = {
         "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
-        "DATA.LOADER_CHUNK_SIZE (chunked csv)": cfg.DATA.LOADER_CHUNK_SIZE > 0,
         "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
     }
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"training with {name} is not ported yet")
+    du.check_world(cfg)
+    if cfg.MODEL.MODEL_NAME == "ContrastiveModel" and du.get_world_size() > 1:
+        raise NotImplementedError(
+            "ContrastiveModel on more than one rank: the SSL state's collectives (MoCo's key "
+            "gather, SimCLR's global negatives, SwAV's Sinkhorn sums, the memory bank's "
+            "indices) are not ported yet (ROADMAP Queue 1); train on NUM_GPUS 1")
+
+
+def reduce_metrics(pending):
+    """The device metrics of ``pending`` steps averaged over the ranks, in
+    one all-reduce (one process: as they are)."""
+    if du.get_world_size() == 1 or not pending:
+        return
+    keys = [k for k in ("loss", "top1_err", "top5_err") if k in pending[0][1]]
+    flat = torch.stack([m[k].float() for _, m, _ in pending for k in keys])
+    du.all_reduce([flat], "mean")
+    for i, (_, m, _) in enumerate(pending):
+        m.update({k: flat[i * len(keys) + j] for j, k in enumerate(keys)})
 
 
 def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg):
     """One training epoch of ``step_fn`` on ``make_batch(cur_iter, item)``
-    for each loader item, the metrics read back every ``LOG_PERIOD`` steps."""
+    for each loader item, the metrics read back every ``LOG_PERIOD`` steps
+    (averaged over the ranks)."""
     log_period = max(int(cfg.LOG_PERIOD), 1)
-    pending = []  # (cur_iter, device metrics, batch size)
+    world = du.get_world_size()
+    pending = []  # (cur_iter, device metrics, global batch size)
 
     def flush():
+        reduce_metrics(pending)
         for it, m, bs in pending:
             loss = float(m["loss"])
             if math.isnan(loss):  # reference misc.check_nan_losses
@@ -83,7 +120,7 @@ def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg):
         meter.data_toc()
         batch = make_batch(cur_iter, item)
         m = step_fn(batch)
-        pending.append((cur_iter, m, len(item[2])))
+        pending.append((cur_iter, m, len(item[2]) * world))
         meter.iter_toc()
         if (cur_iter + 1) % log_period == 0:
             flush()
@@ -113,30 +150,40 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
 
 def detection_preds(eval_fn, inputs, meta):
     """The eval step's predictions of the real boxes of a detection batch,
-    in the order of its ``ori_boxes`` and ``metadata`` rows."""
+    with the batch's ``ori_boxes`` and ``metadata`` rows, in their order;
+    the boxes of a padded batch's repeated clips dropped."""
     preds = eval_fn({"inputs": inputs, "boxes": meta["boxes"]}).float().cpu().numpy()
-    return preds[meta["box_mask"].reshape(-1).cpu().numpy() > 0]
+    preds = preds[meta["box_mask"].reshape(-1).cpu().numpy() > 0]
+    keep = meta["ori_boxes"][:, 0] < meta.get("num_real", len(meta["boxes"]))
+    return preds[keep], meta["ori_boxes"][keep], meta["metadata"][keep]
 
 
 def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
     """One val epoch on the eval step; returns the ``val_epoch`` stats (with
     ``multi_label``, the mAP of the epoch's predictions; with an
-    ``AVAMeter``, the AVA mAP of its detections)."""
+    ``AVAMeter``, the AVA mAP of its detections). Over several ranks the
+    real rows of every rank count: the top-k counts are summed, the
+    predictions gathered."""
+    world = du.get_world_size()
     meter.iter_tic()
     for cur_iter, (inputs, labels, _, _, meta) in enumerate(val_loader):
         if isinstance(meter, AVAMeter):
-            meter.update_stats(detection_preds(eval_fn, inputs, meta), meta["ori_boxes"],
-                               meta["metadata"])
+            meter.update_stats(*detection_preds(eval_fn, inputs, meta))
             meter.iter_toc()
             meter.log_iter_stats(cur_epoch, cur_iter)
             meter.iter_tic()
             continue
-        preds = eval_fn({"inputs": inputs}).float().cpu()
+        n_real = meta.get("num_real", len(labels))
+        preds, labels = eval_fn({"inputs": inputs}).float().cpu()[:n_real], labels[:n_real]
         if multi_label:
-            meter.update_predictions(preds.numpy(), labels)
+            meter.update_predictions(du.all_gather_unaligned(preds.numpy()),
+                                     du.all_gather_unaligned(labels))
         else:
             k1, k5 = topks_correct(preds, torch.from_numpy(labels), (1, 5))
             b = preds.shape[0]
+            if world > 1:
+                counts = torch.tensor([float(k1), float(k5), float(b)], dtype=torch.float64)
+                k1, k5, b = du.all_reduce([counts], "sum")[0].tolist()
             meter.update_stats((1.0 - float(k1) / b) * 100.0, (1.0 - float(k5) / b) * 100.0, b)
         meter.iter_toc()
         meter.log_iter_stats(cur_epoch, cur_iter)
@@ -144,6 +191,27 @@ def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
     stats = meter.log_epoch_stats(cur_epoch)
     meter.reset()
     return stats
+
+
+def setup_rank(cfg):
+    """What every rank does first: the master's logging, numpy's global
+    seed (slowfast_tpu/engine/trainer.py:309), the config logged."""
+    logging_utils.setup_logging(cfg.OUTPUT_DIR)
+    np.random.seed(cfg.RNG_SEED)
+    logger.info("Train with config:")
+    logger.info(pprint.pformat(cfg.to_dict()))
+
+
+def rotate_chunk(cfg, cur_epoch):
+    """Move ``DATA.SKIP_ROWS`` to ``cur_epoch``'s chunk of the train csv
+    (slowfast_tpu/engine/trainer.py:371-381); returns whether the train
+    loader must be rebuilt."""
+    if cur_epoch == 0 or cfg.DATA.LOADER_CHUNK_SIZE <= 0:
+        return False
+    num_chunks = math.ceil(cfg.DATA.LOADER_CHUNK_OVERALL_SIZE / cfg.DATA.LOADER_CHUNK_SIZE)
+    cfg.DATA.SKIP_ROWS = cur_epoch % num_chunks * cfg.DATA.LOADER_CHUNK_SIZE
+    logger.info("chunked loader: skip_rows %d", cfg.DATA.SKIP_ROWS)
+    return True
 
 
 def train_ssl(cfg, device):
@@ -197,9 +265,7 @@ def train(cfg, device="cuda"):
     (for ``ContrastiveModel``, ``train_ssl``'s ``(model, ssl_state)``)."""
     _check_supported(cfg)
     device = resolve_device(device)
-    logging_utils.setup_logging(cfg.OUTPUT_DIR)
-    logger.info("Train with config:")
-    logger.info(pprint.pformat(cfg.to_dict()))
+    setup_rank(cfg)
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         return train_ssl(cfg, device)
 
@@ -235,6 +301,8 @@ def train(cfg, device="cuda"):
 
     logger.info("Start epoch: %d", start_epoch + 1)
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if rotate_chunk(cfg, cur_epoch):
+            train_loader = construct_loader(cfg, "train", device)
         if schedule is not None:
             cfg, changed = multigrid.update_long_cycle(cfg, cur_epoch)
             if changed:
@@ -259,6 +327,7 @@ def train(cfg, device="cuda"):
             cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg)
         if is_eval:
             eval_epoch(val_loader, eval_fn, val_meter, cur_epoch, cfg.DATA.MULTI_LABEL)
+            du.barrier()
     logger.info("training done")
     return model
 

@@ -11,6 +11,8 @@ dtype.
 import torch
 from torch import nn
 
+from slowfast_tpu_torch.utils import distributed as du
+
 from .common import sum_dtype
 
 
@@ -31,6 +33,20 @@ class BatchNorm3D(nn.Module):
     its own statistics, and the splits' statistics are merged into the
     batch's for the running ones, as the JAX package folds
     ``aggregate_sub_bn_stats`` into every update (batchnorm.py:82-104).
+
+    Under a process group a training forward takes its statistics over the
+    global batch, as every BN of the JAX package does under the mesh,
+    whatever ``BN.NORM_TYPE`` says (slowfast_tpu/models/batchnorm.py:1-20):
+    each rank's fp32 mean and mean square are averaged over the ranks by an
+    all-reduce whose backward reduces the gradients too, and the running
+    variance's unbiased correction counts the global batch. The loader
+    gives every rank the same number of rows, so the mean of the ranks'
+    means is the global mean, and one rank computes exactly what one
+    process does. ``num_splits`` splits the global batch: over W ranks,
+    when W divides it each rank holds whole splits and normalizes them
+    alone; when it divides W each split spans ``W / num_splits``
+    consecutive ranks, which reduce among themselves; the running
+    statistics merge every split's over the world.
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, frozen=False,
@@ -50,23 +66,13 @@ class BatchNorm3D(nn.Module):
 
     def forward(self, x):
         if self.training and not self.frozen:
-            s = self.num_splits
-            if s > 1 and x.shape[0] % s == 0:
-                return self._split_forward(x, s)
-            dims = tuple(range(x.dim() - 1))
-            x32 = x.to(sum_dtype(x.dtype))
-            mean = x32.mean(dims)
-            var = x32.square().mean(dims) - mean.square()
-            inv = torch.reciprocal(torch.sqrt(var + self.eps))
-            self._track(x, mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-            inv = torch.reciprocal(torch.sqrt(var + self.eps))
+            return self._train_forward(x)
+        inv = torch.reciprocal(torch.sqrt(self.running_var + self.eps))
         a = (self.weight * inv).to(x.dtype)
-        b = (self.bias - mean * self.weight * inv).to(x.dtype)
+        b = (self.bias - self.running_mean * self.weight * inv).to(x.dtype)
         return x * a + b
 
-    def _split_forward(self, x, s):
+    def _split_forward(self, x, s, ranks=1):
         xs = x.reshape(s, x.shape[0] // s, *x.shape[1:])
         dims = tuple(range(1, xs.dim() - 1))
         xs32 = xs.to(sum_dtype(x.dtype))
@@ -77,14 +83,51 @@ class BatchNorm3D(nn.Module):
         b = (self.bias - mean_s * self.weight * inv_s).to(x.dtype)
         view = (s,) + (1,) * (xs.dim() - 2) + (x.shape[-1],)
         y = (xs * a.view(view) + b.view(view)).reshape(x.shape)
-        mean = mean_s.mean(0)
-        self._track(x, mean, (var_s + mean_s.square()).mean(0) - mean.square())
+        self._track(x, *self._world_moments(mean_s.mean(0), (var_s + mean_s.square()).mean(0)),
+                    ranks)
         return y
 
-    def _track(self, x, mean, var):
-        """The running statistics' update from a training batch's."""
+    def _train_forward(self, x):
+        """The training forward: statistics over the global batch (this
+        rank's batch when no process group runs)."""
+        world, s = du.get_world_size(), self.num_splits
+        if s > 1 and s % world == 0:
+            local = s // world
+            if x.shape[0] % local == 0:
+                return self._split_forward(x, local, world)
+        elif world % s:
+            raise ValueError(f"BN.NUM_SPLITS {s} splits a global batch over {world} ranks "
+                             "unevenly: one must divide the other")
+        size = world // s if world % s == 0 else world
+        dims = tuple(range(x.dim() - 1))
+        x32 = x.to(sum_dtype(x.dtype))
+        moments = torch.cat([x32.mean(dims), x32.square().mean(dims)])
+        moments = du.all_reduce_sum_autograd(moments, du.rank_group(size)) / size
+        mean, sq = moments.chunk(2)
+        var = sq - mean.square()
+        inv = torch.reciprocal(torch.sqrt(var + self.eps))
+        if size < world:  # each split's statistics, merged over the world
+            self._track(x, *self._world_moments(mean, sq), world)
+        else:
+            self._track(x, mean, var, world)
+        a = (self.weight * inv).to(x.dtype)
+        b = (self.bias - mean * self.weight * inv).to(x.dtype)
+        return x * a + b
+
+    @staticmethod
+    def _world_moments(mean, sq):
+        """The mean and variance of equal parts from their means and mean
+        squares, averaged over the ranks under a process group."""
         with torch.no_grad():
-            n = x.numel() / x.shape[-1]
+            moments = du.all_reduce([torch.cat([mean, sq]).detach()], "mean")[0]
+            mean, sq = moments.chunk(2)
+            return mean, sq - mean.square()
+
+    def _track(self, x, mean, var, ranks=1):
+        """The running statistics' update from a training batch's, on
+        ``ranks`` equal batches like ``x``."""
+        with torch.no_grad():
+            n = x.numel() / x.shape[-1] * ranks
             unbiased = var * (n / max(n - 1.0, 1.0))
             if self.precise_sums is not None:
                 self.precise_sums[0].add_(mean)
@@ -116,6 +159,11 @@ class BatchNorm1D(nn.Module):
     def forward(self, x):
         x = x.to(sum_dtype(x.dtype))
         if self.training:
+            if du.get_world_size() > 1:
+                raise NotImplementedError(
+                    "BatchNorm1D (the SSL MLP heads' BN) takes per-rank statistics; its "
+                    "global statistics over several ranks come with the SSL collectives "
+                    "(ROADMAP Queue 1)")
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
             var = torch.clamp(x.square().mean(dims) - mean.square(), min=0.0)

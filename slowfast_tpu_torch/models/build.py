@@ -5,7 +5,8 @@ reference slowfast/models/build.py).
 package's distributions (not its bits) from a ``torch.Generator`` seeded by
 ``cfg.RNG_SEED``, and moves it to the device, with its 5-D (conv) weights in
 ``channels_last_3d``. Drop path and dropout draw from one generator on the
-model's device, also seeded by ``cfg.RNG_SEED``.
+model's device, seeded by ``cfg.RNG_SEED`` plus the process's rank, so the
+ranks of a multi-process job draw different masks.
 """
 
 import torch
@@ -13,6 +14,8 @@ from torch import nn
 
 import math
 import re
+
+from slowfast_tpu_torch.utils.distributed import get_rank
 
 from .common import Conv3D, msra_fill_, trunc_normal_
 from .contrastive import ContrastiveModel
@@ -192,7 +195,7 @@ def build_model(cfg, device="cuda"):
         for t in list(model.parameters()) + list(model.buffers()):
             if t.dim() == 5:
                 t.data = t.data.contiguous(memory_format=torch.channels_last_3d)
-    set_generator(model, torch.Generator(device=device).manual_seed(cfg.RNG_SEED))
+    set_generator(model, torch.Generator(device=device).manual_seed(cfg.RNG_SEED + get_rank()))
     return model
 
 

@@ -396,13 +396,16 @@ class MaskMViT(nn.Module):
         return _norm_pixels(patches) if self.cfg.MASK.NORM_PRED_PIXEL else patches
 
 
-def masked_loss(preds, labels):
+def masked_loss(preds, labels, count=lambda n: n):
     """The mask-weighted MSE over ``(pred, (target, mask))`` pairs, in fp32
     (slowfast_tpu/models/masked.py:576): per depth, the per-position mean
     square error summed over the masked positions and divided by
-    ``max(mask.sum(), 1)``; averaged over the depths."""
+    ``max(mask.sum(), 1)``; averaged over the depths. ``count`` maps the
+    depths' stacked mask sums to the ones to divide by (the global ones
+    under a process group)."""
+    counts = count(torch.stack([torch.sum(mask) for _, (_, mask) in zip(preds, labels)]))
     total = 0.0
-    for pred, (target, mask) in zip(preds, labels):
+    for pred, (target, mask), n in zip(preds, labels, counts):
         err = torch.mean(torch.square(pred.float() - target), dim=-1)
-        total = total + torch.sum(err * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total = total + torch.sum(err * mask) / torch.clamp(n, min=1.0)
     return total / len(preds)

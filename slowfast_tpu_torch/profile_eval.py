@@ -40,6 +40,7 @@ from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 
 # First match wins; names are CUDA kernel names as the profiler reports them.
 CATEGORIES = [
+    ("nccl", r"nccl"),  # the process group's collectives
     ("attention_bwd", r"attention_bwd|exact_bwd|flash_bwd|fused_bwd|sum_slices"),
     ("attention_core", r"pooled_attention|exact_fwd|flash_fwd|pack_tiles"),
     ("preprocess", r"preprocess_u8"),

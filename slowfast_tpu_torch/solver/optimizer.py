@@ -7,8 +7,10 @@ package derives from its flax tree, so the partition rules apply to them as
 they are. Each update is the optax chain ``construct_optimizer`` builds for
 its method:
 
-1. global-norm clip (``CLIP_GRAD_L2NORM``): the gradients are scaled by
-   ``max_norm / norm`` only when ``norm >= max_norm``, with no epsilon, as
+1. the clip: ``CLIP_GRAD_VAL`` clamps each gradient entry to ``[-v, v]``
+   (``optax.clip``, :300) and then takes the place of the global-norm clip
+   (``CLIP_GRAD_L2NORM``), which scales the gradients by ``max_norm /
+   norm`` only when ``norm >= max_norm``, with no epsilon, as
    ``optax.clip_by_global_norm`` does (``clip_grad_norm_`` adds 1e-6);
 1a. LARS (``SOLVER.LARS_ON``, :191 ``lars_adaptation``): on the raw
    gradient of every parameter that is not a BN one and has ndim > 1,
@@ -116,8 +118,7 @@ class _Chain:
     BUFFERS = ()
 
     def __init__(self, model, cfg):
-        if cfg.SOLVER.CLIP_GRAD_VAL:
-            raise NotImplementedError("SOLVER.CLIP_GRAD_VAL is not ported yet")
+        self.max_value = cfg.SOLVER.CLIP_GRAD_VAL
         self.max_norm = cfg.SOLVER.CLIP_GRAD_L2NORM
         scales = build_param_scales(model, cfg)
         self.names = list(scales)
@@ -143,7 +144,10 @@ class _Chain:
         grads = [p.grad.float() if p.grad is not None
                  else torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         norm = get_grad_norm(grads)
-        if self.max_norm:
+        if self.max_value:
+            torch._foreach_clamp_min_(grads, -self.max_value)
+            torch._foreach_clamp_max_(grads, self.max_value)
+        elif self.max_norm:
             coef = torch.where(norm < self.max_norm, torch.ones_like(norm),
                                self.max_norm / norm)
             torch._foreach_mul_(grads, coef)

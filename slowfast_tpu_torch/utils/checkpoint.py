@@ -27,7 +27,15 @@ reference ``.pyth`` format, a ``torch.save`` of ``{"epoch", "model_state",
 through its ``load_torch_checkpoint_dict``. The JAX package's own pickled
 checkpoints are not read here.
 
-Fine-tuning loads (``TRAIN.CHECKPOINT_FILE_PATH``, test checkpoints) are
+In a multi-process job only the master writes a checkpoint, and every
+rank passes a barrier after it, so that none reads one half written.
+
+A port checkpoint in ``TRAIN.CHECKPOINT_FILE_PATH`` resumes the run it
+came from unless ``TRAIN.CHECKPOINT_EPOCH_RESET``: the model, the
+optimizer (and an SSL state) and the epoch after the saved one, as the
+JAX package does for its own checkpoints
+(slowfast_tpu/utils/checkpoint.py:665-675). Other fine-tuning loads
+(``TRAIN.CHECKPOINT_FILE_PATH`` otherwise, test checkpoints) are
 partial, as the JAX package's import of a ``.pyth`` is
 (slowfast_tpu/utils/checkpoint.py:500-607): ``load_state_dict_partial``
 copies what fits by name and shape, inflates 2D kernels, resizes pos-embed
@@ -44,6 +52,7 @@ import zipfile
 import numpy as np
 import torch
 
+from . import distributed as du
 from .logging import get_logger
 
 logger = get_logger(__name__)
@@ -189,9 +198,17 @@ def save_checkpoint(path_to_job, model, optimizer, epoch, cfg, ssl_state=None):
     file, then a rename, so auto-resume never sees a partial file); returns
     its path. ``epoch`` is the 0-based epoch just completed. An SSL run's
     ``SSLState`` goes under its own key, ``ssl_state``, beside the model's
-    ``state_dict`` (slowfast_tpu/utils/checkpoint.py:146-147)."""
-    os.makedirs(get_checkpoint_dir(path_to_job), exist_ok=True)
+    ``state_dict`` (slowfast_tpu/utils/checkpoint.py:146-147). Only the
+    master writes; every rank returns after the write."""
     path = get_path_to_checkpoint(path_to_job, epoch + 1, cfg.TASK)
+    if du.is_master_proc():
+        _write_checkpoint(path, model, optimizer, epoch, cfg, ssl_state)
+    du.barrier()
+    return path
+
+
+def _write_checkpoint(path, model, optimizer, epoch, cfg, ssl_state):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "epoch": epoch,
         "model_state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -203,7 +220,6 @@ def save_checkpoint(path_to_job, model, optimizer, epoch, cfg, ssl_state=None):
     tmp = os.path.join(os.path.dirname(path), "." + os.path.basename(path) + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)
-    return path
 
 
 class _PlainUnpickler(pickle.Unpickler):
@@ -246,26 +262,55 @@ def load_train_checkpoint(cfg, model, optimizer, ssl_state=None):
     With ``TRAIN.AUTO_RESUME`` and a checkpoint in ``OUTPUT_DIR`` the model
     and optimizer resume, strictly, after its epoch, and so does
     ``ssl_state`` (an ``SSLState``: the momentum encoder, queues, pointer,
-    banks and step count) when given; else
-    ``TRAIN.CHECKPOINT_FILE_PATH`` (a ``.pyth``, or a caffe2 pickle under
-    ``TRAIN.CHECKPOINT_TYPE caffe2``) initializes the model's weights through
-    the partial load (``load_weights``) and training starts at epoch 0, as
-    the JAX package does for a file that is not its own.
+    banks and step count) when given. Else a port train checkpoint in
+    ``TRAIN.CHECKPOINT_FILE_PATH`` (``own_train_checkpoint``) resumes the
+    same way unless ``TRAIN.CHECKPOINT_EPOCH_RESET``, as the JAX package
+    resumes its own (slowfast_tpu/utils/checkpoint.py:665-675; under
+    ``TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN`` its weights load partially and
+    the optimizer stays fresh). Any other file there (a ``.pyth``, or a
+    caffe2 pickle under ``TRAIN.CHECKPOINT_TYPE caffe2``), or a port
+    checkpoint with the key set, initializes the model's weights through
+    the partial load (``load_weights``) at epoch 0.
     """
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR, cfg.TASK):
         path = get_last_checkpoint(cfg.OUTPUT_DIR, cfg.TASK)
-        ckpt = _load_pyth(path)
-        model.load_state_dict(ckpt["model_state"], strict=True)
-        optimizer.load_state_dict(ckpt["optimizer_state"])
-        if ssl_state is not None:
-            if "ssl_state" not in ckpt:
-                raise ValueError(f"{path} holds no SSL state to resume from")
-            ssl_state.load_state_dict(ckpt["ssl_state"])
-        logger.info("Resumed from %s", path)
-        return ckpt["epoch"] + 1
-    if cfg.TRAIN.CHECKPOINT_FILE_PATH:
-        load_weights(cfg, model, cfg.TRAIN.CHECKPOINT_FILE_PATH, checkpoint_type(cfg))
-    return 0
+        return _resume(path, _load_pyth(path), model, optimizer, ssl_state)
+    path = cfg.TRAIN.CHECKPOINT_FILE_PATH
+    ckpt = None
+    if path and not cfg.TRAIN.CHECKPOINT_EPOCH_RESET:
+        ckpt = own_train_checkpoint(path, cfg)
+    if ckpt is not None and not cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN:
+        return _resume(path, ckpt, model, optimizer, ssl_state)
+    if path:
+        load_weights(cfg, model, path, checkpoint_type(cfg))
+    # Renamed weights of a port checkpoint load as JAX loads them:
+    # partially, with a fresh optimizer, at the epoch after the
+    # checkpoint's (slowfast_tpu/utils/checkpoint.py:200-210).
+    return 0 if ckpt is None else ckpt["epoch"] + 1
+
+
+def own_train_checkpoint(path, cfg):
+    """The checkpoint at ``path`` if this package wrote it in training (a
+    ``.pyth`` whose optimizer state is the port's, with its step
+    ``count``), else None."""
+    if checkpoint_type(cfg) != "pytorch" or not zipfile.is_zipfile(path):
+        return None
+    ckpt = _load_pyth(path)
+    own = isinstance(ckpt, dict) and "count" in ckpt.get("optimizer_state", {})
+    return ckpt if own else None
+
+
+def _resume(path, ckpt, model, optimizer, ssl_state=None):
+    """The model (strictly), optimizer and ``ssl_state`` of ``ckpt``, read
+    from ``path``; returns the epoch after its own."""
+    model.load_state_dict(ckpt["model_state"], strict=True)
+    optimizer.load_state_dict(ckpt["optimizer_state"])
+    if ssl_state is not None:
+        if "ssl_state" not in ckpt:
+            raise ValueError(f"{path} holds no SSL state to resume from")
+        ssl_state.load_state_dict(ckpt["ssl_state"])
+    logger.info("Resumed from %s", path)
+    return ckpt["epoch"] + 1
 
 
 def load_test_checkpoint(cfg, model):

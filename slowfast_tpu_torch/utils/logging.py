@@ -1,13 +1,17 @@
 """Logging utilities (counterpart of slowfast_tpu/utils/logging.py).
 
 Logs go to stdout and ``stdout.log`` in the output dir; machine-readable
-stats are emitted as ``json_stats:`` lines (and ``json_stats.log``).
+stats are emitted as ``json_stats:`` lines (and ``json_stats.log``). In a
+multi-process job only the master (rank 0) logs and writes these files;
+the other ranks print warnings and errors only.
 """
 
 import json
 import logging
 import os
 import sys
+
+from .distributed import is_master_proc
 
 _FORMAT = "[%(asctime)s][%(levelname)s] %(filename)s: %(lineno)3d: %(message)s"
 
@@ -21,7 +25,9 @@ def setup_logging(output_dir=None):
         h.close()
     formatter = logging.Formatter(_FORMAT, datefmt="%m/%d %H:%M:%S")
     handlers = [logging.StreamHandler(stream=sys.stdout)]
-    if output_dir:
+    if not is_master_proc():
+        logger.setLevel(logging.WARNING)
+    elif output_dir:
         handlers.append(logging.FileHandler(os.path.join(output_dir, "stdout.log")))
     for h in handlers:
         h.setFormatter(formatter)
@@ -33,7 +39,10 @@ def get_logger(name):
 
 
 def log_json_stats(stats, output_dir=None):
-    """Log a dict as a single ``json_stats:`` line (+ json_stats.log file)."""
+    """Log a dict as a single ``json_stats:`` line (+ json_stats.log file),
+    on the master only."""
+    if not is_master_proc():
+        return
     stats = {k: round(v, 5) if isinstance(v, float) else v for k, v in stats.items()}
     line = "json_stats: {:s}".format(json.dumps(stats, sort_keys=True))
     get_logger(__name__).info(line)

@@ -8,7 +8,10 @@ as ``json_stats`` with the JAX meters' keys (``train_iter``,
 ensembling into per-video scores and the final top-k accuracies, or for
 multi-label data the mean average precision (``get_map``, numpy only); and
 ``AVAMeter``, which gathers the detections of an AVA epoch and scores them
-with ``ava_eval`` (mAP at IoU 0.5).
+with ``ava_eval`` (mAP at IoU 0.5). Over several ranks the numbers come
+in already reduced (``engine/trainer.py``, ``engine/tester.py``);
+``AVAMeter`` gathers every rank's detections before it scores them, and
+only the master logs.
 """
 
 import datetime
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from . import ava_eval
+from .distributed import all_gather_unaligned
 from .logging import get_logger, log_json_stats
 
 logger = get_logger(__name__)
@@ -263,9 +267,9 @@ class EpochTimer:
 
 
 def gather_ragged_across_hosts(x):
-    """Every process's rows of a ragged array (AVA's detections), in process
+    """Every rank's rows of a ragged array (AVA's detections), in rank
     order (slowfast_tpu/utils/meters.py:21): with one process, ``x``."""
-    return x
+    return all_gather_unaligned(x)
 
 
 class AVAMeter:

@@ -3,6 +3,8 @@ slowfast_tpu/utils/parser.py, the reference CLI contract).
 
 ``--cfg`` takes one or more yaml files and ``--opts`` trailing KEY VALUE
 pairs. ``--device`` picks the torch device, ``cuda`` unless asked otherwise.
+``--shard_id``, ``--num_shards`` and ``--init_method`` set the job's hosts
+and where its ranks meet (``NUM_SHARDS``, ``SHARD_ID``, ``INIT_METHOD``).
 """
 
 import argparse
@@ -20,6 +22,25 @@ def parse_args(argv=None):
         "--device",
         help="Torch device to run on (default: cuda).",
         default="cuda",
+        type=str,
+    )
+    parser.add_argument(
+        "--shard_id",
+        help="Index of this host among NUM_SHARDS hosts.",
+        default=0,
+        type=int,
+    )
+    parser.add_argument(
+        "--num_shards",
+        help="Total number of hosts of the job.",
+        default=1,
+        type=int,
+    )
+    parser.add_argument(
+        "--init_method",
+        help="Where the ranks meet (torch.distributed init method): tcp://host:port "
+             "or file:///path.",
+        default="tcp://localhost:9999",
         type=str,
     )
     parser.add_argument(
@@ -47,6 +68,9 @@ def load_config(args, path_to_config=None):
         cfg.merge_from_file(path_to_config)
     if args.opts is not None:
         cfg.merge_from_list(args.opts)
+    cfg.NUM_SHARDS = args.num_shards
+    cfg.SHARD_ID = args.shard_id
+    cfg.INIT_METHOD = args.init_method
     if cfg.OUTPUT_DIR:
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     return cfg

@@ -329,9 +329,8 @@ def test_kinetics_retries_a_corrupt_file(corpus, tmp_path):
 def test_kinetics_unported_options_raise(corpus):
     # The SSL items (ContrastiveModel, DATA.SSL_COLOR_JITTER) are ported:
     # tests/test_torch_ssl_data.py; the 2D patch stem's loader masks too:
-    # tests/test_torch_imagenet.py.
-    for extra in (["TPU.UINT8_PIPELINE", "False"],
-                  ["DATA.LOADER_CHUNK_SIZE", "2"]):
+    # tests/test_torch_imagenet.py; chunked csvs: tests/test_torch_ddp_misc.py.
+    for extra in (["TPU.UINT8_PIPELINE", "False"],):
         with pytest.raises(NotImplementedError):
             Kinetics(both_cfgs(corpus, extra)[1], "train")
 

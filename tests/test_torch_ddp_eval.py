@@ -1,0 +1,191 @@
+"""Evaluation, meters and the launcher under data parallelism, on 2 gloo
+ranks on the CPU.
+
+The val and test loaders keep their order and pad their last partial
+batch for the ranks (repeating its last item, as the JAX package's
+``pad_batch_for_mesh``); the pad is dropped before the counts are summed
+and the predictions gathered. So the same eval step gives the same
+results on 2 ranks as in one process, here on batches whose last one is
+padded:
+
+* ``AVAMeter``: the val epoch of a small AVA corpus (7 keyframes, batches
+  of 4; the last rank holds 1 real clip and a pad), the detections
+  gathered from both ranks: the same rows and the same mAP;
+* ``ValMeter``: a val epoch of 9 synthetic clips in batches of 4: the same
+  top-1 and top-5 errors;
+* ``TestMeter``: the 3-view test of 3 synthetic videos in batches of 4:
+  the same per-video scores and accuracies.
+
+The eval step is a fixed function of the batch (no model), so the results
+compare exactly. Also: ``ContrastiveModel`` refuses to train on 2 ranks
+(its SSL collectives are not ported), and a rank that raises makes the
+whole launch raise while the other waits in a collective.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ddp_harness import launch
+
+pytest.importorskip("cv2")
+AVA_YAML = os.path.join(os.path.dirname(__file__), "..", "configs", "AVA",
+                        "SLOWFAST_32x2_R50_SHORT.yaml")
+AVA_SMALL = ["DATA.NUM_FRAMES", "8", "DATA.SAMPLING_RATE", "2", "DATA.TRAIN_CROP_SIZE", "24",
+             "DATA.TEST_CROP_SIZE", "28", "DATA.TRAIN_JITTER_SCALES", "[26, 36]",
+             "MODEL.NUM_CLASSES", "6", "TRAIN.BATCH_SIZE", "4", "AVA.FULL_TEST_ON_VAL", "True"]
+SYNTHETIC = ["TRAIN.DATASET", "syntheticvideo", "TEST.DATASET", "syntheticvideo",
+             "DATA.NUM_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "16", "DATA.TEST_CROP_SIZE", "16",
+             "MODEL.NUM_CLASSES", "6", "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "4",
+             "TEST.NUM_ENSEMBLE_VIEWS", "3", "TEST.NUM_SPATIAL_CROPS", "1"]
+WEIGHTS = np.random.RandomState(0).normal(0.0, 1.0, (4, 6))
+
+
+def detection_eval(batch):
+    """Box scores: a fixed function of each padded box."""
+    boxes = batch["boxes"].reshape(-1, 4).double()
+    return torch.sigmoid(boxes @ torch.from_numpy(WEIGHTS) / 10.0)
+
+
+def clip_eval(batch):
+    """Class scores: a fixed function of each clip's mean colour."""
+    x = batch["inputs"][0].double().mean(dim=(1, 2, 3))
+    return x @ torch.from_numpy(WEIGHTS[:3])
+
+
+def evaluate(ava_opts, out_dir, device="cpu"):
+    """The AVA val mAP (with the detections it scored), the synthetic val
+    epoch's errors and the 3-view test on this process's group; saves them
+    to ``out_dir/rank{r}.pt``."""
+    from slowfast_tpu_torch.config import get_cfg
+    from slowfast_tpu_torch.data import construct_loader
+    from slowfast_tpu_torch.engine.tester import perform_test
+    from slowfast_tpu_torch.engine.trainer import eval_epoch, train
+    from slowfast_tpu_torch.utils import distributed as du
+    from slowfast_tpu_torch.utils import meters
+
+    world = du.get_world_size()
+    out = {}
+    cfg = get_cfg()
+    cfg.merge_from_file(AVA_YAML)
+    cfg.merge_from_list(AVA_SMALL + list(ava_opts) + ["NUM_GPUS", str(world),
+                                                      "OUTPUT_DIR", out_dir])
+    loader = construct_loader(cfg, "val", device)
+    meter = meters.AVAMeter(len(loader), cfg, mode="val")
+    meter.set_video_idx_to_name(loader.dataset._video_idx_to_name)
+    scored, evaluate_ava = [], meters.ava_eval.evaluate_ava
+
+    def recording(preds, boxes, metadata, *args, **kwargs):
+        scored.append((preds, boxes, metadata))
+        return evaluate_ava(preds, boxes, metadata, *args, **kwargs)
+
+    meters.ava_eval.evaluate_ava = recording
+    try:
+        out["ava"] = eval_epoch(loader, detection_eval, meter, 0)["map"], scored[0]
+    finally:
+        meters.ava_eval.evaluate_ava = evaluate_ava
+
+    cfg = get_cfg()
+    cfg.merge_from_list(SYNTHETIC + ["DATA.SYNTHETIC_SIZE", "9", "NUM_GPUS", str(world),
+                                     "OUTPUT_DIR", out_dir])
+    val = eval_epoch(construct_loader(cfg, "val", device), clip_eval, meters.ValMeter(3, cfg), 0)
+    out["val"] = {k: val[k] for k in ("top1_err", "top5_err")}
+
+    cfg.DATA.SYNTHETIC_SIZE = 3
+    loader = construct_loader(cfg, "test", device)
+    test_meter = meters.TestMeter(3, 3, 6)
+    perform_test(loader, clip_eval, test_meter)
+    out["test"] = test_meter.stats, test_meter.video_preds, test_meter.clip_count
+    out["batches"] = [meta.get("num_real", len(labels))
+                      for _, labels, _, _, meta in loader]
+
+    if world > 1:
+        cfg = get_cfg()
+        cfg.merge_from_list(["MODEL.MODEL_NAME", "ContrastiveModel", "NUM_GPUS", str(world),
+                             "OUTPUT_DIR", out_dir])
+        try:
+            train(cfg, device)
+        except NotImplementedError as e:
+            out["ssl"] = str(e)
+    torch.save(out, os.path.join(out_dir, f"rank{du.get_rank()}.pt"))
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    from slowfast_tpu_torch.data.synth_media import make_ava_corpus
+
+    root = tmp_path_factory.mktemp("eval")
+    ava = make_ava_corpus(str(root / "ava"), num_videos=2, secs=range(902, 906), size=(40, 32),
+                          num_classes=6, seed=1)
+    launch(root, evaluate, ava, str(root))
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    one_dir = root / "one"
+    one_dir.mkdir()
+    evaluate(ava, str(one_dir))
+    return ranks, torch.load(one_dir / "rank0.pt", weights_only=False)
+
+
+def test_padded_batches_give_each_rank_its_real_rows(results):
+    ranks, one = results
+    # 9 test clips in batches of 4: the last holds 1 real clip and a pad.
+    assert one["batches"] == [4, 4, 1]
+    assert [r["batches"] for r in ranks] == [[2, 2, 1], [2, 2, 0]]
+
+
+def test_ava_meter_scores_the_gathered_detections_as_one_process(results):
+    ranks, one = results
+    want_map, want = one["ava"]
+    assert want_map > 0.0
+    for r in ranks:
+        got_map, got = r["ava"]
+        assert got_map == pytest.approx(want_map, rel=1e-12)
+        np.testing.assert_array_equal(detection_rows(*got), detection_rows(*want))
+
+
+def detection_rows(preds, ori_boxes, metadata):
+    """Each scored box as ``[video, sec, box, scores]``, sorted (a box's
+    first column, its clip's place in its batch, differs by rank)."""
+    rows = np.concatenate([metadata, ori_boxes[:, 1:], preds], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def test_val_meter_counts_the_real_rows_of_every_rank(results):
+    ranks, one = results
+    for r in ranks:
+        assert r["val"] == one["val"]
+
+
+def test_test_meter_ensembles_every_view_as_one_process(results):
+    ranks, one = results
+    stats, preds, counts = one["test"]
+    assert np.all(counts == 3)
+    for r in ranks:
+        assert r["test"][0] == stats
+        np.testing.assert_array_equal(r["test"][1], preds)
+        np.testing.assert_array_equal(r["test"][2], counts)
+
+
+def test_contrastive_training_on_two_ranks_raises(results):
+    ranks, _ = results
+    for r in ranks:
+        assert "ContrastiveModel on more than one rank" in r["ssl"]
+        assert "Queue 1" in r["ssl"]
+
+
+def fail_on_rank_one(device):
+    from slowfast_tpu_torch.utils import distributed as du
+
+    if du.get_rank() == 1:
+        raise ValueError("rank 1 fails")
+    du.barrier()  # rank 0 waits for a rank that never comes
+
+
+def test_a_rank_that_raises_fails_the_launch(tmp_path):
+    """The launch raises rather than hangs: ``spawn`` re-raises the first
+    error a rank ends with (rank 1's, or rank 0's lost peer) and stops the
+    other rank."""
+    with pytest.raises(torch.multiprocessing.ProcessRaisedException,
+                       match="rank 1 fails|Connection closed by peer|Connection reset"):
+        launch(tmp_path, fail_on_rank_one)

@@ -214,8 +214,9 @@ def test_adamw_update_matches_optax_chain(variables):
 
 
 def test_unported_optimizers_raise(variables):
-    # SOLVER.LARS_ON is ported (tests/test_torch_contrastive.py).
-    for extra in (["SOLVER.OPTIMIZING_METHOD", "lars"], ["SOLVER.CLIP_GRAD_VAL", "1.0"]):
+    # SOLVER.LARS_ON is ported (tests/test_torch_contrastive.py), and so is
+    # SOLVER.CLIP_GRAD_VAL (tests/test_torch_ddp_misc.py).
+    for extra in (["SOLVER.OPTIMIZING_METHOD", "lars"],):
         with pytest.raises(NotImplementedError):
             toptim.construct_optimizer(port_model(variables), narrow_cfg(get_cfg, extra=extra))
 
@@ -453,7 +454,8 @@ def test_training_records_no_kernel_launch_on_the_cpu(trained):
 def test_unported_training_options_raise(tmp_path):
     from slowfast_tpu_torch.engine.trainer import train
 
-    for extra in (["DATA.LOADER_CHUNK_SIZE", "4"], ["TENSORBOARD.ENABLE", "True"]):
+    # Chunked csvs (DATA.LOADER_CHUNK_SIZE) are ported: tests/test_torch_ddp_misc.py.
+    for extra in (["TENSORBOARD.ENABLE", "True"],):
         cfg = assert_and_infer_cfg(narrow_cfg(get_cfg, extra=extra + ["OUTPUT_DIR", str(tmp_path)]))
         with pytest.raises(NotImplementedError):
             train(cfg, device="cpu")
