@@ -236,6 +236,34 @@ Phases, each printing one JSON line:
               steps after the first (clips/s) and the run's peak memory; SwAV's prototype
               rows of unit length after each step and unmoved in epoch 0
               but for the renormalization.
+ 24e. ssl_ddp  (after ssl_family, on the same corpus) the SSL collectives
+              under data parallelism, one NCCL rank: MoCo_SlowR50_8x8.yaml
+              (the multi-view queue), SimCLR_SlowR50_8x8.yaml and
+              SwAV_Slow_R50_8x8.yaml at full width, per recipe an fp32 step
+              (TF32 off) on 4 clips in a group of one against the same step
+              from the same state with no group: loss within 1e-5,
+              gradients within 1e-4 relative L2, the queue rows, pointer,
+              bank rows and momentum encoder equal; the bf16 MoCo step of
+              16 clips with no group, the group and no group again (p50 ms,
+              clips/s, peak memory); then the launcher's rank entry
+              (utils.multiprocessing.run) on run_net's MoCo config: one
+              epoch of 4 steps of 8 decoded clips, the kNN probe and the
+              checkpoint, and a second run that auto-resumes from it (its
+              model and SSL state bit-equal to the first run's end) and
+              trains epoch 2.
+ 24f. ptv_recipes  run_net.main training
+              configs/Kinetics/pytorchvideo/SLOWFAST_4x16_R50.yaml
+              (Ptvkinetics, PTVSlowFast) as shipped, TensorBoard on, at full
+              width in bf16 on the corpus: 4 steps of 16 clips, the recipe's
+              precise BN over the 4 train batches and a val epoch, row 1
+              once per train, precise-BN and val batch, the JAX trainer's
+              scalar tags in one event file; the same with
+              TPU.UINT8_PIPELINE False (float pathways normalized on the
+              host, no row-1 launch), and the host's normalization within
+              1e-6 of row 1's output on the same clips; every
+              configs/Kinetics/pytorchvideo YAML built at full size on the
+              card; one bf16 forward of the PTVMViT model (4 clips) with
+              every flash call held against flash_plain.
  26a. ssl_fp32  one MoCo step on 2 clips and one BYOL step on 4 (its MLPs'
               BNs are degenerate on 2) at full width in fp32, card (TF32
               off) vs CPU from the same weights, SSL state
@@ -307,8 +335,12 @@ Phases, each printing one JSON line:
               once a train, precise-BN and val batch.
  35. kernels  one line per kernel with its launches on its path, error,
               times and bound.
-Before the phases, one line per host library that the data path may use
-(cv2, PIL, sklearn): whether it imports, and its version.
+Before the phases, one line per host library that the data path and the
+trainer may use (cv2, PIL, sklearn, tensorboard, matplotlib): whether it
+imports, and its version. On the H100 hosts this runs on, tensorboard
+imports and matplotlib does not, so ptv_recipes runs the recipe's
+TensorBoard as shipped (scalars only; the confusion-matrix and histogram
+figures need matplotlib and stay on the CPU tests).
 The last line is {"ok": true, "device": {...}}. Any failed check raises, and
 the script exits non-zero without printing that line.
 """
@@ -517,7 +549,7 @@ def phase_host_libs():
     """Whether each host library of the data path imports, one line each."""
     import importlib
 
-    for name in ("cv2", "PIL", "sklearn"):
+    for name in ("cv2", "PIL", "sklearn", "tensorboard", "matplotlib"):
         try:
             module = importlib.import_module(name)
         except ImportError as e:
@@ -5425,6 +5457,361 @@ def phase_ddp_slice():
     return row
 
 
+# --- SSL under data parallelism, and the pytorchvideo recipes -----------------------
+
+SSL_DDP_RECIPES = ("moco", "simclr", "swav")
+SSL_DDP_CLIPS = 4  # the fp32 steps' clips (the MLP heads' BN needs more than 2)
+SSL_DDP_TIMED_CLIPS = 16
+SSL_DDP_LAUNCHER_CLIPS = 8
+
+
+def ssl_group_step(cfg, state, ssl0, batch, grouped):
+    """One fp32 SSL step (TF32 off) of ``cfg`` on the card from ``state``
+    and ``ssl0``, its draws from a generator seeded anew, in a NCCL group
+    of one or with no group: the loss, the gradients (on the CPU) and the
+    SSL state after it."""
+    model, opt, ssl, step = ssl_setup(cfg, "cuda", 1, generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    model.load_state_dict(state, strict=True)
+    ssl.load_state_dict(ssl0)
+    step.keep_grads = True
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with process_group(cfg) if grouped else contextlib.nullcontext():
+            loss = step(batch)["loss"].item()
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    grads = {n: g.cpu() for n, g in step.last_grads.items()}
+    out = (loss, grads, ssl.state_dict())
+    del model, opt, ssl, step
+    return out
+
+
+def ssl_state_diff(got, want):
+    """Per part of two ``SSLState.state_dict()``s: whether it is equal, and
+    the largest absolute difference of a tensor part."""
+    out = {}
+    for k, v in want.items():
+        if isinstance(v, dict):
+            diffs = [(got[k][n].double() - t.double()).abs().max().item() for n, t in v.items()
+                     if t.is_floating_point()]
+            out[k] = {"equal": all(torch.equal(got[k][n], t) for n, t in v.items()),
+                      "max_abs_diff": max(diffs, default=0.0)}
+        elif isinstance(v, torch.Tensor):
+            out[k] = {"equal": torch.equal(got[k], v),
+                      "max_abs_diff": (got[k].double() - v.double()).abs().max().item()}
+        else:
+            out[k] = {"equal": got[k] == v, "value": v}
+    return out
+
+
+def ssl_timed(cfg, batch, grouped, steps=4):
+    """Host ms of ``steps`` bf16 SSL steps (each to a synchronize) after one
+    untimed step, past MoCo's warm-up, and the peak memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, ssl, step = ssl_setup(cfg, "cuda", 1, first_iter=1,
+                                      generator=torch.Generator(device="cuda"))
+    with process_group(cfg) if grouped else contextlib.nullcontext():
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, ssl, step
+    p50 = statistics.median(ms)
+    return {"step_ms": ms, "step_p50_ms": p50,
+            "clips_per_s": batch["index"].shape[0] / p50 * 1e3, "max_memory_allocated": peak}
+
+
+def launcher_ssl(argv, out_dir, on_load=None):
+    """``run_net``'s SSL config of ``argv`` (the MoCo recipe) trained by the
+    launcher's rank entry (``utils.multiprocessing.run``) as rank 0 of a
+    NCCL group of one; ``on_load(model, ssl)`` sees what the checkpoint
+    load gave. Returns the config, the trained model and SSL state, the
+    launches and the logged stats."""
+    import tempfile
+
+    from slowfast_tpu_torch.config import assert_and_infer_cfg
+    from slowfast_tpu_torch.engine import trainer
+    from slowfast_tpu_torch.utils.multiprocessing import run
+    from slowfast_tpu_torch.utils.parser import load_config, parse_args
+
+    rendezvous = tempfile.mkdtemp(prefix="ddp_rendezvous_")
+    args = parse_args(["--cfg", SSL_YAML["moco"], "--init_method",
+                       "file://" + os.path.join(rendezvous, "store"), "--opts", *argv,
+                       "OUTPUT_DIR", out_dir])
+    cfg = assert_and_infer_cfg(load_config(args, SSL_YAML["moco"]))
+    load = trainer.cu.load_train_checkpoint
+
+    def reporting_load(cfg, model, optimizer, ssl=None):
+        epoch = load(cfg, model, optimizer, ssl)
+        if on_load is not None:
+            on_load(model, ssl)
+        return epoch
+
+    trainer.cu.load_train_checkpoint = reporting_load
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        model, ssl = run(0, trainer.train, cfg, "cuda")
+    finally:
+        trainer.cu.load_train_checkpoint = load
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    launches = read_launches()
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        logged = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    return {"cfg": cfg, "model": model, "ssl": ssl, "launches": launches, "logged": logged,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_ssl_ddp(corpus):
+    """The SSL collectives under data parallelism, one NCCL rank (one card
+    holds one rank), at full width: MoCo (MoCo_SlowR50_8x8.yaml, the
+    multi-view queue), SimCLR and SwAV (their MLP heads' BN). Per recipe an
+    fp32 step (TF32 off) in a group of one against the same step from the
+    same state with no group: loss within 1e-5, gradients within 1e-4
+    relative L2, the queue rows, pointer, bank rows and momentum encoder
+    equal. The bf16 MoCo step of 16 clips with and without the group: p50
+    ms, clips/s, peak memory. Then the launcher's rank entry on run_net's
+    MoCo config over the mp4 corpus: one epoch of 4 steps of 8 clips, the
+    kNN probe and the checkpoint, and a second run that auto-resumes from
+    it, its model and SSL state bit-equal to the first run's end."""
+    import tempfile
+
+    from slowfast_tpu_torch.utils import checkpoint as cu
+
+    t_phase = time.perf_counter()
+    fp32 = {}
+    for t in SSL_DDP_RECIPES:
+        cfg = family_cfg(SSL_YAML[t], ["TPU.COMPUTE_DTYPE", "float32",
+                                       "TRAIN.BATCH_SIZE", str(SSL_DDP_CLIPS)], "ssl_ddp")
+        model, _, ssl, _ = ssl_setup(cfg, "cpu", 1)
+        randomize_bn(model, 5)
+        if ssl.hist is not None:
+            ssl.hist.load_state_dict(model.backbone.state_dict())
+        state, ssl0 = {k: v.clone() for k, v in model.state_dict().items()}, ssl.state_dict()
+        del model, ssl
+        batch = ssl_float_batch(cfg, SSL_DDP_CLIPS, 9)
+        reset_launches()
+        plain = ssl_group_step(cfg, state, ssl0, batch, False)
+        group = ssl_group_step(cfg, state, ssl0, batch, True)
+        launches = read_launches()
+        names = sorted(plain[1])
+        state_diff = ssl_state_diff(group[2], plain[2])
+        fp32[t] = {"clips": SSL_DDP_CLIPS, "loss": group[0], "plain_loss": plain[0],
+                   "loss_rel_err": abs(group[0] - plain[0]) / abs(plain[0]),
+                   "grad_rel_l2": rel_l2(group[1], plain[1], names),
+                   "same_grad_names": sorted(group[1]) == names,
+                   "ssl_state": state_diff, "launches": launches}
+        check(fp32[t]["loss_rel_err"] <= DDP_LOSS_TOL and fp32[t]["grad_rel_l2"] <= DDP_GRAD_TOL
+              and fp32[t]["same_grad_names"], f"ssl_ddp {t}: {fp32[t]}")
+        check(all(d["equal"] for d in state_diff.values()), f"ssl_ddp {t} state: {state_diff}")
+        check(not any(launches.values()), f"ssl_ddp {t} launched {launches}")
+    fp32_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    cfg = family_cfg(SSL_YAML["moco"], ["TPU.COMPUTE_DTYPE", "bfloat16",
+                                        "TRAIN.BATCH_SIZE", str(SSL_DDP_TIMED_CLIPS)], "ssl_ddp")
+    batch = ssl_float_batch(cfg, SSL_DDP_TIMED_CLIPS, 10)
+    timing = {mode: ssl_timed(cfg, batch, mode == "group")
+              for mode in ("plain", "group", "plain_again")}
+    plain_ms = statistics.mean([timing["plain"]["step_p50_ms"],
+                                timing["plain_again"]["step_p50_ms"]])
+    timed_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    n = SSL_DDP_LAUNCHER_CLIPS
+    out_dir = os.path.join(OUT_DIR, "ssl_ddp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = ["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", str(n), "TEST.ENABLE", "False",
+            "LOG_PERIOD", "1", *kinetics_split(corpus, "ssl_ddp", 4 * n)]
+    with removed_after(os.path.join(out_dir, "checkpoints")):
+        first = launcher_ssl(base + ["SOLVER.MAX_EPOCH", "1"], out_dir)
+        ckpt = cu.get_last_checkpoint(out_dir, first["cfg"].TASK)
+        check(ckpt is not None, f"no SSL checkpoint in {out_dir}")
+        ckpt_bytes = os.path.getsize(ckpt)
+        want_model = {k: v.detach().cpu().clone()
+                      for k, v in first["model"].state_dict().items()}
+        want_ssl = first["ssl"].state_dict()
+        del first["model"], first["ssl"]
+        loaded = {}
+
+        def on_load(model, ssl):
+            loaded["model"] = {k: v.detach().cpu().clone()
+                               for k, v in model.state_dict().items()}
+            loaded["ssl"] = ssl.state_dict()
+
+        resumed = launcher_ssl(base + ["SOLVER.MAX_EPOCH", "2"], out_dir, on_load)
+        del resumed["model"], resumed["ssl"]
+        # The resumed run appends to the first run's json_stats.log.
+        resumed["logged"] = resumed["logged"][len(first["logged"]):]
+    model_equal = all(torch.equal(loaded["model"][k], v) for k, v in want_model.items())
+    ssl_diff = ssl_state_diff(loaded["ssl"], want_ssl)
+    epochs = {name: [s["epoch"] for s in run["logged"] if s["_type"] == "train_epoch"]
+              for name, run in (("first", first), ("resumed", resumed))}
+    knn = [s["top1_acc"] for s in resumed["logged"] if s["_type"] == "knn_epoch"]
+    iters = {name: sum(s["_type"] == "train_iter" for s in run["logged"])
+             for name, run in (("first", first), ("resumed", resumed))}
+    launcher_s = time.perf_counter() - t0
+    row = {"phase": "ssl_ddp", "world_size": 1, "backend": first["cfg"].DIST_BACKEND,
+           "fp32": fp32,
+           "bf16_moco_step": {"clips": SSL_DDP_TIMED_CLIPS, **timing,
+                              "group_over_plain_ms": timing["group"]["step_p50_ms"] - plain_ms},
+           "launcher": {"clips_per_step": n, "epochs": epochs, "train_iters": iters,
+                        "knn_top1": knn, "checkpoint_bytes": ckpt_bytes,
+                        "resumed_model_bit_equal": model_equal, "resumed_ssl_state": ssl_diff,
+                        "first_wall_s": first["wall_s"], "resumed_wall_s": resumed["wall_s"],
+                        "launches": {k: first["launches"][k] + resumed["launches"][k]
+                                     for k in first["launches"]}},
+           "fp32_s": fp32_s, "timed_s": timed_s, "launcher_s": launcher_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check(epochs == {"first": ["1/1"], "resumed": ["2/2"]}
+          and iters == {"first": 4, "resumed": 4}, f"launcher epochs {epochs}, iterations {iters}")
+    check(model_equal and all(d["equal"] for d in ssl_diff.values()),
+          f"resumed state differs: model {model_equal}, SSL {ssl_diff}")
+    check(len(knn) == 1 and 0.0 <= knn[0] <= 100.0, f"kNN lines {knn}")
+    check(not any(row["launcher"]["launches"].values()),
+          f"the SSL launcher runs launched {row['launcher']['launches']}")
+    return row
+
+
+PTV_SLOWFAST_YAML = os.path.join(PTV_YAML, "SLOWFAST_4x16_R50.yaml")
+PTV_MVIT_YAML = os.path.join(PTV_YAML, "MVIT_B_16x4_CONV.yaml")
+# The scalars the trainer's TensorBoard writer takes (the JAX trainer's).
+TB_TAGS = ["Train/Top1_err", "Train/Top5_err", "Train/loss", "Train/lr", "Val/top1_err",
+           "Val/top5_err"]
+
+
+def tensorboard_scalars(log_dir):
+    """The scalar tags and their step counts in the event files under
+    ``log_dir``, and the files' count."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(log_dir)
+    acc.Reload()
+    files = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents")]
+    return {"tags": {t: len(acc.Scalars(t)) for t in acc.Tags()["scalars"]}, "files": len(files)}
+
+
+def phase_ptv_recipes(corpus):
+    """The pytorchvideo recipes through run_net: SLOWFAST_4x16_R50
+    (``Ptvkinetics``, ``PTVSlowFast``) trained as shipped, TensorBoard on,
+    at full width in bf16 over the mp4 corpus: 4 steps of 16 clips, the
+    recipe's precise BN (4 batches) and a val epoch, row 1 once per train,
+    precise-BN and val batch, every scalar tag of the JAX trainer in the one
+    event file. The same recipe with ``TPU.UINT8_PIPELINE False``: the
+    float pathways the host normalizes, no launch of row 1, and on the same
+    clips the host's normalization within 1e-6 of row 1's output. Every
+    configs/Kinetics/pytorchvideo YAML built at full size on the card, and
+    one held bf16 forward of the ``PTVMViT`` model (every flash call
+    against flash_plain)."""
+    import gc
+
+    from slowfast_tpu_torch.data import utils as data_utils
+    from slowfast_tpu_torch.data.kinetics import Kinetics
+    from slowfast_tpu_torch.engine.steps import make_eval_step
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.ops.preprocess import device_preprocess
+
+    t_phase = time.perf_counter()
+    n = CNN_TRAIN_CLIPS
+    data = kinetics_split(corpus, "ptv", 4 * n)
+    data[1] = "ptvkinetics"  # the recipe's dataset name, not kinetics_split's
+    opts = data + ["TRAIN.BATCH_SIZE", str(n), "DATA_LOADER.NUM_WORKERS", "8", "LOG_PERIOD", "1"]
+    runs = {}
+    for name, extra in (("uint8", []), ("float", ["TPU.UINT8_PIPELINE", "False"])):
+        out_dir = os.path.join(OUT_DIR, f"ptv_{name}")
+        with removed_after(os.path.join(out_dir, "checkpoints")):
+            run = drive_train(PTV_SLOWFAST_YAML, opts + extra, out_dir)
+        del run["model"]
+        log_dir = os.path.join(out_dir, "runs-ptvkinetics")
+        runs[name] = {"steps": run["steps"], "launches": run["launches"],
+                      "val_batches": sum(s["_type"] == "val_iter" for s in run["logged"]),
+                      "tensorboard": tensorboard_scalars(log_dir),
+                      "max_memory_allocated": run["max_memory_allocated"],
+                      "wall_s": run["wall_s"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t_phase
+
+    # The host's float pathways against row 1 on the same uint8 clips.
+    cfg = family_cfg(PTV_SLOWFAST_YAML, data, "ptv_uint8")
+    ds = Kinetics(cfg, "train")
+    clips = np.stack([ds[i][0][0] for i in range(4)])
+    host = [data_utils.pack_pathway_output(cfg, data_utils.tensor_normalize(
+        c, cfg.DATA.MEAN, cfg.DATA.STD)) for c in clips]
+    card = device_preprocess(torch.from_numpy(clips).cuda(), cfg.DATA.MEAN, cfg.DATA.STD,
+                             alpha=cfg.SLOWFAST.ALPHA, single_pathway=False,
+                             out_dtype=torch.float32,
+                             reverse_channels=cfg.DATA.REVERSE_INPUT_CHANNEL)
+    float_err = max((card[p].cpu() - torch.from_numpy(np.stack([h[p] for h in host]))).abs()
+                    .max().item() for p in range(2))
+
+    # Every recipe of the directory built at full size on the card.
+    t0 = time.perf_counter()
+    built = {}
+    for yaml in sorted(os.listdir(PTV_YAML)):
+        bcfg = family_cfg(os.path.join(PTV_YAML, yaml), [], "ptv_build")
+        model = build_model(bcfg, device="cuda")
+        built[yaml] = {"model": bcfg.MODEL.MODEL_NAME, "class": type(model).__name__,
+                       "params": sum(p.numel() for p in model.parameters())}
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+
+    # One held bf16 forward of PTVMViT.
+    mcfg = family_cfg(PTV_MVIT_YAML, ["TPU.COMPUTE_DTYPE", "bfloat16"], "ptv_mvit")
+    model = build_model(mcfg, device="cuda")
+    eval_fn = make_eval_step(mcfg, model)
+    batch = uint8_train_batch(mcfg, 4, 12)
+    reset_launches()
+    with FlashShadow() as shadow:
+        preds = eval_fn({"inputs": batch["inputs"]})
+        torch.cuda.synchronize()
+    mvit_launches = read_launches()
+    finite = bool(torch.isfinite(preds.float()).all().item())
+    depth = mcfg.MVIT.DEPTH
+    del model, eval_fn
+    launches = {k: runs["uint8"]["launches"][k] + runs["float"]["launches"][k]
+                + mvit_launches[k] for k in mvit_launches}
+    row = {"phase": "ptv_recipes", "clips_per_step": n, "runs": runs,
+           "float_vs_row_1_max_abs_err": float_err, "built": built, "build_s": build_s,
+           "ptvmvit": {"class": built["MVIT_B_16x4_CONV.yaml"]["class"], "clips": 4,
+                       "finite": finite, "launches": mvit_launches,
+                       "flash_shadow_checks": shadow.check("ptv_recipes PTVMViT", depth, 0)},
+           "train_s": train_s, "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    u8, fl = runs["uint8"], runs["float"]
+    for name, run in runs.items():
+        check(len(run["steps"]) == 4 and all(s["clips"] == n for s in run["steps"])
+              and run["val_batches"] >= 1, f"ptv {name} run: {run['steps']}")
+        check(sorted(run["tensorboard"]["tags"]) == TB_TAGS and run["tensorboard"]["files"] == 1
+              and run["tensorboard"]["tags"]["Train/loss"] == 4,
+              f"ptv {name} TensorBoard: {run['tensorboard']}")
+        check(only_launched(run["launches"], (), 0), f"ptv {name} launches {run['launches']}")
+    check(u8["launches"]["preprocess_u8"] == 4 + 4 + u8["val_batches"],
+          f"row 1 launches {u8['launches']}: 4 steps, 4 precise-BN and the val batches expected")
+    check(fl["launches"]["preprocess_u8"] == 0, f"float run launched row 1: {fl['launches']}")
+    check(float_err <= 1e-6, f"host float pathways vs row 1: {float_err}")
+    check(len(built) == 15 and built["MVIT_B_16x4_CONV.yaml"]["class"] == "MViT",
+          f"built {built}")
+    check(finite and only_launched(mvit_launches, ("attention_flash",), depth)
+          and mvit_launches["preprocess_u8"] == 1, f"PTVMViT forward launches {mvit_launches}")
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -5469,6 +5856,8 @@ def main():
         family["ssl"] = phase_ssl_train_slice(corpus, keep=ssl_ckpt)
         family["linear"] = phase_linear_probe_slice(corpus, ssl_ckpt)
         phase_ssl_family(corpus)
+        phase_ssl_ddp(corpus)
+        family["ptv"] = phase_ptv_recipes(corpus)
     phase_ssl_fp32()
     phase_masked_fp32()
     family["rev_mvit"] = phase_rev_mvit_train_slice()
@@ -5490,8 +5879,10 @@ def main():
     # its val batch; the SSL pretrains ship float pathways), of Rev-MViT's
     # run (4 steps, 4 val and 2 test batches) and of the multigrid run (its
     # steps, its precise-BN batches and its val batches; ImageNet's items
-    # are float images, as in JAX), and of the data-parallel runs (the
-    # launcher's two runs: 4 steps, 4 precise-BN and 4 val batches each).
+    # are float images, as in JAX), of the data-parallel runs (the
+    # launcher's two runs: 4 steps, 4 precise-BN and 4 val batches each),
+    # and of the pytorchvideo SlowFast run (4 steps, 4 precise-BN batches,
+    # its val batch; its float run launches none) and the PTVMViT forward.
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
@@ -5499,7 +5890,8 @@ def main():
         "launches": sf_train["launches"]["preprocess_u8"]
         + (data_launches["preprocess_u8"] if data_launches else 0)
         + sum(family[k]["launches"]["preprocess_u8"]
-              for k in ("maskfeat", "mae", "finetune", "linear", "rev_mvit", "multigrid"))
+              for k in ("maskfeat", "mae", "finetune", "linear", "ptv", "rev_mvit",
+                        "multigrid"))
         + ddp["launches"]["preprocess_u8"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],

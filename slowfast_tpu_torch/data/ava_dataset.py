@@ -1,5 +1,5 @@
 """The AVA dataset on JPEG frames (counterpart of
-slowfast_tpu/data/ava_dataset.py, the ``AVA.IMG_PROC_BACKEND cv2`` path;
+slowfast_tpu/data/ava_dataset.py, both ``AVA.IMG_PROC_BACKEND`` paths;
 reference slowfast/datasets/ava_dataset.py).
 
 Each item is one keyframe: the clip of ``NUM_FRAMES`` frames at
@@ -14,6 +14,15 @@ original box and ``[video_idx, sec]``. Each item draws from the generators
 of ``(RNG_SEED, epoch, index)`` in the JAX package's order (jitter size,
 crop y, crop x, flip, then the color draws), so seeding its ``np.random``
 with the same number gives the same item.
+
+``AVA.IMG_PROC_BACKEND pytorch`` is the reference's tensor path, which the
+JAX package runs in numpy (``_images_and_boxes_preprocessing``,
+slowfast_tpu/data/ava_dataset.py:134): the clip stays in the decoded BGR
+order throughout, is scaled to [0, 1] first, train always flips at p 0.5
+(``DATA.RANDOM_FLIP`` is not read), val scales and centre-crops, test only
+scales the short side, the color jitters run on the channel-reversed view,
+the normalization indexes the BGR channels, and the clip goes to RGB last
+unless ``AVA.BGR``.
 """
 
 import numpy as np
@@ -28,10 +37,6 @@ logger = logging_utils.get_logger(__name__)
 
 class Ava(data_utils.SeededDataset):
     def __init__(self, cfg, split):
-        if cfg.AVA.IMG_PROC_BACKEND != "cv2":
-            raise NotImplementedError(
-                f"AVA.IMG_PROC_BACKEND {cfg.AVA.IMG_PROC_BACKEND!r} is not ported yet; "
-                f"the port has the cv2 backend")
         self.cfg = cfg
         self._split = split
         self._sample_rate = cfg.DATA.SAMPLING_RATE
@@ -104,6 +109,42 @@ class Ava(data_utils.SeededDataset):
         clip = np.stack(imgs)
         return clip, cv2_transform.clip_boxes_to_image(boxes[0], clip.shape[1], clip.shape[2])
 
+    def _images_and_boxes_preprocessing(self, imgs, boxes, np_rng):
+        """The ``pytorch`` backend on the raw ``(T, H, W, C)`` uint8 BGR stack
+        (slowfast_tpu/data/ava_dataset.py:134-206); returns the clip and the
+        boxes clipped to the crop."""
+        cfg = self.cfg
+        imgs = imgs.astype(np.float32) / 255.0
+        height, width = imgs.shape[1], imgs.shape[2]
+        boxes = boxes.copy()
+        boxes[:, [0, 2]] *= width
+        boxes[:, [1, 3]] *= height
+        boxes = T.clip_boxes_to_image(boxes, height, width)
+        if self._split == "train":
+            imgs, boxes = T.random_short_side_scale_jitter(
+                imgs, self._jitter_min_scale, self._jitter_max_scale, np_rng, boxes=boxes)
+            imgs, boxes = T.random_crop(imgs, self._crop_size, np_rng, boxes=boxes)
+            imgs, boxes = T.horizontal_flip(0.5, imgs, np_rng, boxes=boxes)
+        else:
+            imgs, boxes = T.random_short_side_scale_jitter(
+                imgs, self._crop_size, self._crop_size, np_rng, boxes=boxes)
+            if self._split == "val":
+                imgs, boxes = T.uniform_crop_with_boxes(imgs, self._crop_size, 1, boxes)
+            if cfg.AVA.TEST_FORCE_FLIP:
+                imgs, boxes = T.horizontal_flip(1.0, imgs, np_rng, boxes=boxes)
+        if self._split == "train" and cfg.AVA.TRAIN_USE_COLOR_AUGMENTATION:
+            if not cfg.AVA.TRAIN_PCA_JITTER_ONLY:
+                imgs = T.color_jitter(imgs[..., ::-1], np_rng, 0.4, 0.4, 0.4)[..., ::-1]
+            imgs = T.lighting_jitter(imgs[..., ::-1], 0.1,
+                                     np.array(cfg.DATA.TRAIN_PCA_EIGVAL, np.float32),
+                                     np.array(cfg.DATA.TRAIN_PCA_EIGVEC, np.float32),
+                                     np_rng)[..., ::-1]
+        imgs = T.color_normalization(imgs, cfg.DATA.MEAN, cfg.DATA.STD)
+        if not cfg.AVA.BGR:
+            imgs = imgs[..., ::-1]
+        boxes = T.clip_boxes_to_image(boxes, self._crop_size, self._crop_size)
+        return np.ascontiguousarray(imgs), boxes
+
     def sample(self, index, rng, np_rng):
         """Keyframe ``index``: ``(pathways, labels (N, num_classes) int32,
         index, time, {"boxes", "ori_boxes", "metadata"})``."""
@@ -114,8 +155,11 @@ class Ava(data_utils.SeededDataset):
         boxes = np.array([box for box, _ in clip_label_list], np.float32)
         ori_boxes = boxes.copy()
         imgs = data_utils.retry_load_images([self._image_paths[video_idx][f] for f in seq])
-        imgs = [img[:, :, ::-1].astype(np.float32) for img in imgs]  # BGR -> RGB
-        clip, boxes = self._images_and_boxes_preprocessing_cv2(imgs, boxes, np_rng)
+        if self.cfg.AVA.IMG_PROC_BACKEND == "pytorch":
+            clip, boxes = self._images_and_boxes_preprocessing(np.stack(imgs), boxes, np_rng)
+        else:
+            imgs = [img[:, :, ::-1].astype(np.float32) for img in imgs]  # BGR -> RGB
+            clip, boxes = self._images_and_boxes_preprocessing_cv2(imgs, boxes, np_rng)
         label_arrs = np.zeros((len(clip_label_list), self._num_classes), np.int32)
         for i, (_, box_labels) in enumerate(clip_label_list):
             for label in box_labels:

@@ -17,7 +17,6 @@ import numpy as np
 
 from slowfast_tpu_torch.utils import logging as logging_utils
 from . import utils
-from .kinetics import _check_uint8
 
 logger = logging_utils.get_logger(__name__)
 
@@ -64,7 +63,6 @@ class Charades(utils.SeededDataset):
     def __init__(self, cfg, mode):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown split {mode!r}")
-        _check_uint8(cfg)
         self.cfg = cfg
         self.mode = mode
         self._num_clips = (1 if mode in ("train", "val")

@@ -19,7 +19,11 @@ tried again, past half the retries with another random video (not in test).
 Each item draws from its own generators (``utils.sample_rngs``) in the JAX
 package's order, so seeding that package's ``random`` and ``np.random``
 with the same number gives the same clip. Items are uint8 clips; the card
-normalizes them. ``ContrastiveModel``'s items are normalized float
+normalizes them. Under ``TPU.UINT8_PIPELINE False`` they are float
+pathways normalized on the host, as the JAX package's
+(slowfast_tpu/data/kinetics.py:182, :422-434, :557-565): the clip is
+normalized before the spatial sampling, and no crop is fused into the
+decode. ``ContrastiveModel``'s items are always normalized float
 pathways, and in training its multi-view items (``_ssl_views``);
 ``DATA.SSL_COLOR_JITTER`` applies the SSL colour recipe to every train clip
 before the spatial sampling. The decode backend is logged when a split is
@@ -57,10 +61,10 @@ def _ssl(cfg):
     return cfg.MODEL.MODEL_NAME == "ContrastiveModel"
 
 
-def _check_uint8(cfg):
-    if not cfg.TPU.UINT8_PIPELINE and not _ssl(cfg):
-        raise NotImplementedError("the port's loader ships uint8 clips only, and float "
-                                  "pathways for ContrastiveModel")
+def _uint8_path(cfg):
+    """Whether items are uint8 clips that the card normalizes (else float
+    pathways normalized on the host)."""
+    return cfg.TPU.UINT8_PIPELINE and not _ssl(cfg)
 
 
 def gen_mask(cfg, rng, np_rng):
@@ -95,7 +99,6 @@ class Kinetics(utils.SeededDataset):
     def __init__(self, cfg, mode, num_retries=100):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown split {mode!r}")
-        _check_uint8(cfg)
         self.cfg = cfg
         self.mode = mode
         self._num_retries = num_retries
@@ -194,7 +197,8 @@ class Kinetics(utils.SeededDataset):
             decode_at_scale = transform.sample_jitter_size(min_scale, max_scale, rng,
                                                            cfg.DATA.INV_UNIFORM_SAMPLE)
             min_scale = max_scale = decode_at_scale
-        fused_crop = (decode_at_scale and cfg.DATA.FUSED_DECODE_CROP and not cfg.AUG.ENABLE
+        fused_crop = (decode_at_scale and cfg.DATA.FUSED_DECODE_CROP and cfg.TPU.UINT8_PIPELINE
+                      and not cfg.AUG.ENABLE
                       and not cfg.DATA.SSL_COLOR_JITTER and not cfg.DATA.TRAIN_JITTER_MOTION_SHIFT)
         for i_try in range(self._num_retries):
             rng.random(), rng.random()  # the FFmpeg decoder's crop placement, unused here
@@ -282,8 +286,9 @@ class Kinetics(utils.SeededDataset):
         """The SSL colour recipe (train, ``DATA.SSL_COLOR_JITTER``, on [0, 1]
         floats, before everything else), RandAugment, the spatial sampling
         (or only the flip of a clip the decoder already cropped), random
-        erasing; returns ``[clip]``, a uint8 clip, or for ``ContrastiveModel``
-        the normalized float pathways (slowfast_tpu/data/kinetics.py:387-475).
+        erasing; returns ``[clip]``, a uint8 clip, or off the uint8 path
+        (``_uint8_path``) the normalized float pathways
+        (slowfast_tpu/data/kinetics.py:387-475).
         A float clip goes back to uint8 by truncation, as the JAX package's
         ``astype(np.uint8)`` does (:433-434)."""
         cfg = self.cfg
@@ -298,7 +303,8 @@ class Kinetics(utils.SeededDataset):
             if is_float255:
                 frames, is_float255 = np.clip(frames, 0, 255).astype(np.uint8), False
             frames = self.randaug(frames, rng)
-        if _ssl(cfg):
+        uint8_path = _uint8_path(cfg)
+        if not uint8_path:
             frames = utils.tensor_normalize(
                 frames.astype(np.float32) / 255.0 if is_float255 else frames,
                 cfg.DATA.MEAN, cfg.DATA.STD)
@@ -319,7 +325,7 @@ class Kinetics(utils.SeededDataset):
                 motion_shift=cfg.DATA.TRAIN_JITTER_MOTION_SHIFT and self.mode == "train")
         if self.erasing is not None:
             frames = self.erasing(frames, rng, np_rng)
-        if _ssl(cfg):
+        if not uint8_path:
             return utils.pack_pathway_output(cfg, frames.astype(np.float32))
         return [np.ascontiguousarray(frames)]
 
@@ -334,7 +340,6 @@ class Syntheticvideo(utils.SeededDataset):
                 "synthetic item is one pathway list, which its ssl_collate reads as one view "
                 "of several pathways, so its SSL step cannot take it; pretrain on video files "
                 "(TRAIN.DATASET kinetics)")
-        _check_uint8(cfg)
         self.cfg = cfg
         self.mode = mode
         self._size = cfg.DATA.SYNTHETIC_SIZE or (256 if mode == "train" else 64)
@@ -363,6 +368,10 @@ class Syntheticvideo(utils.SeededDataset):
         # sample's (``rng`` is the JAX package's ``random``).
         frame_rng = np.random.RandomState(index)
         frames = frame_rng.randint(0, 255, (cfg.DATA.NUM_FRAMES, crop, crop, 3), np.uint8)
+        inputs = [frames]
+        if not _uint8_path(cfg):
+            inputs = utils.pack_pathway_output(
+                cfg, utils.tensor_normalize(frames, cfg.DATA.MEAN, cfg.DATA.STD).astype(np.float32))
         if cfg.DETECTION.ENABLE:
             n = int(frame_rng.randint(1, 6))
             xy1 = frame_rng.rand(n, 2) * (crop / 2)
@@ -371,12 +380,12 @@ class Syntheticvideo(utils.SeededDataset):
             labels = (frame_rng.rand(n, cfg.MODEL.NUM_CLASSES) < 0.2).astype(np.float32)
             meta = {"boxes": boxes, "ori_boxes": boxes / crop,
                     "metadata": [[index, 900 + index]] * n}
-            return [frames], labels, index, np.zeros((1,)), meta
+            return inputs, labels, index, np.zeros((1,)), meta
         label_rng = np.random.RandomState(index // self._num_clips)
         label = int(label_rng.randint(0, cfg.MODEL.NUM_CLASSES))
         num_aug = cfg.AUG.NUM_SAMPLE if self.mode == "train" and cfg.AUG.ENABLE else 1
         if num_aug > 1:
-            return ([[frames]] * num_aug, [label] * num_aug, [index] * num_aug,
+            return ([inputs] * num_aug, [label] * num_aug, [index] * num_aug,
                     [np.zeros((1,))] * num_aug,
                     [_mask_meta(cfg, rng, np_rng) for _ in range(num_aug)])
-        return [frames], label, index, np.zeros((1,)), _mask_meta(cfg, rng, np_rng)
+        return inputs, label, index, np.zeros((1,)), _mask_meta(cfg, rng, np_rng)

@@ -134,7 +134,9 @@ def ssl_collate(samples):
     first entry is its list of views, each a pathway list. Returns ``(views,
     labels, clip ids, times, {})``, ``views`` a tuple of stacked float32
     pathway lists, one per view (at least two; the train step takes the
-    first two)."""
+    first two). Under a process group the loader hands it this rank's
+    items of the global batch (``rank_rows``), so the views, ``index`` and
+    ``time`` are this rank's rows, in the order of the global batch."""
     views = tuple([np.stack([s[0][v][p] for s in samples]).astype(np.float32)
                    for p in range(len(samples[0][0][v]))]
                   for v in range(len(samples[0][0])))

@@ -18,7 +18,6 @@ import numpy as np
 from slowfast_tpu_torch.utils import logging as logging_utils
 from . import utils
 from .charades import clip_sampling, load_clip, read_frame_lists
-from .kinetics import _check_uint8
 
 logger = logging_utils.get_logger(__name__)
 
@@ -27,7 +26,6 @@ class Ssv2(utils.SeededDataset):
     def __init__(self, cfg, mode):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"unknown split {mode!r}")
-        _check_uint8(cfg)
         self.cfg = cfg
         self.mode = mode
         num_clips = (1 if mode in ("train", "val")

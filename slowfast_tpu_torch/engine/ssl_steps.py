@@ -33,6 +33,25 @@ The LR and the momentum are functions of the fractional epoch ``iter /
 steps_per_epoch``. Random draws come from one ``torch.Generator`` on the
 model's device, seeded from ``(RNG_SEED, iter)`` at each step unless the
 caller passes its own.
+
+Under a process group of W ranks each rank holds its rows of the global
+batch, and the step computes what the one-process step computes on the
+whole of it, as the JAX package's step on the mesh does
+(slowfast_tpu/engine/ssl_steps.py:1-14); the global row order is rank
+order (``utils/distributed.global_rows``). Each rank's loss is the mean
+over its rows and the gradients are averaged over the ranks before the
+optimizer, so the update is the global loss's. MoCo's keys are gathered
+for the queue; its shuffle-BN gathers the key views, permutes the global
+batch with one draw (the same on every rank), encodes the rank's rows of
+the permuted batch under the global-batch split rule of ``BatchNorm3D``,
+gathers the keys and undoes the permutation. SimCLR gathers both views'
+embeddings with a gradient (``all_gather_with_grad``) and takes the loss of
+the rank's rows of the ``2·B`` against every row. SwAV's Sinkhorn codes
+are computed on every rank from the gathered scores, and its queue takes
+global rows (the reference's queue holds each GPU's rows). InstDisc draws
+its NCE samples for the global batch and each rank takes its rows. The
+queue, the banks and the momentum encoder stay replicated: every rank
+writes the same global rows at the same global indices.
 """
 
 import numpy as np
@@ -45,6 +64,7 @@ from slowfast_tpu_torch.models.contrastive import (dequeue_and_enqueue, ema_tens
 from slowfast_tpu_torch.solver.losses import contrastive_loss
 from slowfast_tpu_torch.solver.lr_policy import make_epoch_lr_fn
 from slowfast_tpu_torch.solver.optimizer import get_grad_norm
+from slowfast_tpu_torch.utils import distributed as du
 
 SSL_TYPES = ("moco", "byol", "simclr", "swav", "mem")
 
@@ -98,19 +118,21 @@ class SSLTrainStep:
     # --- the key encoder -------------------------------------------------
 
     def encode_keys(self, xs):
-        """The momentum encoder's l2-normalized keys of ``xs``."""
+        """The momentum encoder's l2-normalized keys of the global batch
+        whose rows of this rank are ``xs``."""
         hist = self.ssl.hist
         with torch.no_grad():
             if not self.shuffle_bn:
                 hist.eval()
-                return l2_normalize(hist(xs))
+                return du.global_rows(l2_normalize(hist(xs)))
+            xs = [du.global_rows(x) for x in xs]
             perm = shuffle_permutation(xs[0].shape[0], self.generator)
             kept = [b.clone() for b in hist.buffers()]
             hist.train()
-            out = l2_normalize(hist([x[perm] for x in xs]))
+            out = l2_normalize(hist([du.own_rows(x[perm]) for x in xs]))
             for b, k in zip(hist.buffers(), kept):
                 b.copy_(k)
-            return out[torch.argsort(perm)]
+            return du.global_rows(out)[torch.argsort(perm)]
 
     def encode_frozen(self, xs):
         hist = self.ssl.hist
@@ -121,17 +143,20 @@ class SSLTrainStep:
     # --- the losses ------------------------------------------------------
 
     def _swav_codes(self, s, view):
+        """This rank's rows of the Sinkhorn codes of the global batch's
+        scores (with the queue's in front once it is full)."""
         ssl, length = self.ssl, self.cfg.CONTRASTIVE.SWAV_QEUE_LEN
-        s = _fp32(s)
+        s = _fp32(du.global_rows(s))
         if length <= 0 or ssl.swav_filled < length:
-            return sinkhorn(s)
+            return du.own_rows(sinkhorn(s))
         sq = _fp32(self.model.prototypes(ssl.queue_swav[view].to(s.dtype)))
-        return sinkhorn(torch.cat([sq, s], dim=0))[-s.shape[0]:]
+        return du.own_rows(sinkhorn(torch.cat([sq, s], dim=0))[-s.shape[0]:])
 
     def loss(self, batch):
-        """The type's loss on ``batch`` in train mode; returns ``(loss, q, q2,
-        keys)``: the embeddings the banks take, the second view's for SwAV,
-        and MoCo's keys."""
+        """The type's loss on this rank's rows of ``batch`` in train mode;
+        returns ``(loss, q, q2, keys)``: this rank's embeddings, which the
+        banks take, the second view's for SwAV, and MoCo's keys of the
+        global batch."""
         cfg, model, ssl = self.cfg, self.model, self.ssl
         T = cfg.CONTRASTIVE.T
         x1, x2 = batch["inputs"], batch["inputs2"]
@@ -140,7 +165,7 @@ class SSLTrainStep:
         if self.type == "moco":
             keys = self.encode_keys(x2)
             q = l2_normalize(model(x1))
-            pos = (q * keys).sum(dim=-1, keepdim=True)
+            pos = (q * du.own_rows(keys)).sum(dim=-1, keepdim=True)
             neg = q @ ssl.queue_x.t().to(q.dtype)
             loss = contrastive_loss(torch.cat([pos, neg], dim=1) / T)
         elif self.type == "byol":
@@ -151,14 +176,16 @@ class SSLTrainStep:
                     + 2.0 - 2.0 * (q_2 * k2).sum(-1).mean()) * 0.5
         elif self.type == "simclr":
             q, q_2 = model(x1), model(x2)
-            B = q.shape[0]
-            z = _fp32(torch.cat([q, q_2], dim=0))
+            z = _fp32(torch.cat([du.all_gather_with_grad(q), du.all_gather_with_grad(q_2)]))
+            B = z.shape[0] // 2
             sim = (z @ z.t()) / T
             eye = torch.eye(2 * B, dtype=torch.bool, device=z.device)
             sim = torch.where(eye, torch.full_like(sim, -1e9), sim)
             pos_idx = torch.cat([torch.arange(B) + B, torch.arange(B)]).to(z.device)
             logp = F.log_softmax(sim, dim=1)
-            loss = -logp[torch.arange(2 * B, device=z.device), pos_idx].mean()
+            own = du.own_rows(torch.arange(B, device=z.device))
+            rows = torch.cat([own, own + B])  # this rank's rows of both views
+            loss = -logp[rows, pos_idx[rows]].mean()
         elif self.type == "swav":
             q, q2 = model(x1), model(x2)
             s1, s2 = model.prototypes(q), model.prototypes(q2)
@@ -172,9 +199,10 @@ class SSLTrainStep:
             duration = max(c.DURATION, 1) if c.MEM_TYPE == "2d" else 1
             q = model(x1)
             clip_ind, time_ind = contrastive.nce_sample_indices(
-                self.generator, batch["index"], c.LENGTH, min(c.QUEUE_LEN, c.LENGTH),
-                duration=duration, interp=c.INTERP_MEMORY)
-            logits = contrastive.nce_logits(q, ssl.memory, clip_ind, time_ind, T,
+                self.generator, du.global_rows(batch["index"]), c.LENGTH,
+                min(c.QUEUE_LEN, c.LENGTH), duration=duration, interp=c.INTERP_MEMORY)
+            logits = contrastive.nce_logits(q, ssl.memory, du.own_rows(clip_ind),
+                                            du.own_rows(time_ind), T,
                                             interp=c.INTERP_MEMORY)
             loss = contrastive_loss(logits)
         return loss, q.detach(), None if q2 is None else q2.detach(), keys
@@ -194,6 +222,7 @@ class SSLTrainStep:
             p.grad = None
         loss, q, q2, keys = self.loss(batch)
         loss.backward()
+        du.all_reduce_grads([p for p in model.parameters() if p.requires_grad])
         swav = self.type == "swav"
         if swav and epoch_exact <= 1.0 and model.swav_prototypes.weight.grad is not None:
             model.swav_prototypes.weight.grad.mul_(0.0)
@@ -216,10 +245,16 @@ class SSLTrainStep:
         return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
 
     def _update_state(self, batch, q, q2, keys, mmt):
+        """The momentum encoder's EMA and the writes of the global batch's
+        rows (``q``, ``q2``: this rank's embeddings; ``keys``: MoCo's global
+        keys) into the queues and banks, the same on every rank."""
         cfg, model, ssl = self.cfg, self.model, self.ssl
         c = cfg.CONTRASTIVE
         keep_old = float(np.float32(1.0) - mmt)
+        q = du.global_rows(q)
         index = batch.get("index")
+        if index is not None:
+            index = du.global_rows(index)
         if self.type in ("moco", "byol"):
             n_params = len(list(ssl.hist.parameters()))
             hist, new = ema_tensors(ssl.hist), ema_tensors(model.backbone)
@@ -235,7 +270,7 @@ class SSLTrainStep:
             momentum_update(hist[n_params:], new[n_params:], mmt)
         if self.type == "swav" and ssl.queue_swav is not None:
             B, L = q.shape[0], ssl.queue_swav.shape[1]
-            rows = torch.stack([q, q2]).to(ssl.queue_swav.dtype)
+            rows = torch.stack([q, du.global_rows(q2)]).to(ssl.queue_swav.dtype)
             ssl.queue_swav.copy_(torch.cat([rows, ssl.queue_swav[:, :L - B]], dim=1))
             ssl.swav_filled = min(ssl.swav_filled + B, L)
         if index is None:
@@ -243,7 +278,7 @@ class SSLTrainStep:
         if self.type == "mem":
             time = batch.get("time")
             if time is not None and ssl.memory.dim() == 3:
-                time = time.to(ssl.memory.dtype) * (ssl.memory.shape[1] - 1)
+                time = du.global_rows(time).to(ssl.memory.dtype) * (ssl.memory.shape[1] - 1)
             memory_update(ssl.memory, index, q, keep_old, time=time, interp=c.INTERP_MEMORY)
         elif ssl.memory is not None:
             memory_update(ssl.memory, index, q, keep_old)
@@ -260,7 +295,9 @@ def knn_eval(cfg, model, ssl, train_labels, val_loader, k=200, sigma=0.07):
     (:465; InstDisc's protocol): each val clip's embedding (eval mode), its
     cosine similarity to every bank row, the top ``min(k, LENGTH)`` rows
     voting for their video's label with weight ``exp(sim / sigma)``. The
-    2-D bank's runs read ``knn_memory``; None without a bank."""
+    2-D bank's runs read ``knn_memory``; None without a bank. On a sharded
+    val loader each rank votes for its real rows (``meta["num_real"]``) and
+    the counts are summed over the ranks."""
     k = min(k, cfg.CONTRASTIVE.LENGTH)
     memory = ssl.knn_memory if ssl.knn_memory is not None else ssl.memory
     if memory is None:
@@ -273,15 +310,19 @@ def knn_eval(cfg, model, ssl, train_labels, val_loader, k=200, sigma=0.07):
     model.eval()
     correct = total = 0
     with torch.inference_mode():
-        for inputs, labels, _, _, _ in val_loader:
+        for inputs, labels, _, _, meta in val_loader:
+            n_real = meta.get("num_real", len(labels))
             q = model.encode(inputs)
             sim = q @ memory.t().to(q.dtype)
             top_sim, top_idx = torch.topk(sim, k, dim=1)
             weights = torch.exp(top_sim / sigma)
             onehot = F.one_hot(labels_dev[top_idx], num_classes).float()
             pred = (onehot * weights[..., None]).sum(1).argmax(-1).cpu().numpy()
-            correct += int((pred == np.asarray(labels)).sum())
-            total += len(labels)
+            correct += int((pred[:n_real] == np.asarray(labels)[:n_real]).sum())
+            total += n_real
+    if du.is_initialized():
+        correct, total = (int(v) for v in du.all_reduce(
+            [torch.tensor([correct, total], dtype=torch.int64)], "sum")[0].tolist())
     return 100.0 * correct / max(total, 1)
 
 

@@ -18,13 +18,20 @@ the checkpoint, and a kNN probe instead of the val epoch.
 
 Multi-process (``utils/multiprocessing.launch_job``): each rank trains on
 its part of every global batch (``data/loader.py``) with the step's
-reductions (``engine/steps.py``); the metrics read back every
-``LOG_PERIOD`` steps are averaged over the ranks there, the val epoch's
-counts summed and its predictions gathered, and only the master logs and
-writes checkpoints, which every rank passes a barrier after. The job's
-rank count must be the process group's (``NUM_SHARDS · NUM_GPUS``).
-``ContrastiveModel`` trains on one rank only: its SSL state's collectives
-are not ported (ROADMAP Queue 1).
+reductions (``engine/steps.py``, ``engine/ssl_steps.py``); the metrics read
+back every ``LOG_PERIOD`` steps are averaged over the ranks there, the val
+epoch's counts summed and its predictions gathered, and only the master
+logs and writes checkpoints, which every rank passes a barrier after. The
+job's rank count must be the process group's (``NUM_SHARDS · NUM_GPUS``).
+
+TensorBoard (``TENSORBOARD.ENABLE``, slowfast_tpu/engine/trainer.py:113-121,
+:173-193, :363-368): the master's ``TensorboardWriter`` takes
+``Train/loss``, ``Train/lr`` and, for single-label classification,
+``Train/Top1_err`` and ``Train/Top5_err`` of every step at ``data_size ·
+epoch + iter``, the val epoch's ``Val/top1_err``, ``Val/top5_err`` or
+``Val/map`` at the epoch, and ``plot_eval`` of the epoch's predictions,
+gathered from every rank, for single-label classification. SSL
+pretraining writes nothing there, as the JAX package's ``train_ssl``.
 
 Chunked csvs (``DATA.LOADER_CHUNK_SIZE``, slowfast_tpu/engine/trainer.py:
 371-381): from the second epoch on, each epoch moves ``DATA.SKIP_ROWS`` to
@@ -66,19 +73,9 @@ logger = logging_utils.get_logger(__name__)
 
 
 def _check_supported(cfg):
-    unported = {
-        "TPU.PIPELINE_PARTITIONS > 1": int(cfg.TPU.PIPELINE_PARTITIONS) > 1,
-        "TENSORBOARD.ENABLE": cfg.TENSORBOARD.ENABLE,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"training with {name} is not ported yet")
+    if int(cfg.TPU.PIPELINE_PARTITIONS) > 1:
+        raise NotImplementedError("training with TPU.PIPELINE_PARTITIONS > 1 is not ported yet")
     du.check_world(cfg)
-    if cfg.MODEL.MODEL_NAME == "ContrastiveModel" and du.get_world_size() > 1:
-        raise NotImplementedError(
-            "ContrastiveModel on more than one rank: the SSL state's collectives (MoCo's key "
-            "gather, SimCLR's global negatives, SwAV's Sinkhorn sums, the memory bank's "
-            "indices) are not ported yet (ROADMAP Queue 1); train on NUM_GPUS 1")
 
 
 def reduce_metrics(pending):
@@ -93,11 +90,12 @@ def reduce_metrics(pending):
         m.update({k: flat[i * len(keys) + j] for j, k in enumerate(keys)})
 
 
-def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg):
+def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg, writer=None):
     """One training epoch of ``step_fn`` on ``make_batch(cur_iter, item)``
     for each loader item, the metrics read back every ``LOG_PERIOD`` steps
-    (averaged over the ranks)."""
+    (averaged over the ranks), and written to ``writer`` when given."""
     log_period = max(int(cfg.LOG_PERIOD), 1)
+    data_size = len(train_loader)
     world = du.get_world_size()
     pending = []  # (cur_iter, device metrics, global batch size)
 
@@ -112,6 +110,12 @@ def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg):
             else:
                 top1, top5 = (float(m[k]) if k in m else None for k in ("top1_err", "top5_err"))
                 meter.update_stats(top1, top5, loss, m["lr"], bs)
+            if writer is not None:
+                scalars = {"Train/loss": loss, "Train/lr": float(m["lr"])}
+                if not isinstance(meter, AVAMeter) and "top1_err" in m:
+                    scalars.update({"Train/Top1_err": float(m["top1_err"]),
+                                    "Train/Top5_err": float(m["top5_err"])})
+                writer.add_scalars(scalars, global_step=data_size * cur_epoch + it)
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()
 
@@ -130,7 +134,7 @@ def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg):
     meter.reset()
 
 
-def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
+def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg, writer=None):
     """One training epoch."""
     data_size = len(train_loader)
     device = train_loader.device
@@ -145,7 +149,7 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg):
             batch["mask"] = meta["mask"]
         return batch
 
-    drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg)
+    drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg, writer)
 
 
 def detection_preds(eval_fn, inputs, meta):
@@ -158,13 +162,17 @@ def detection_preds(eval_fn, inputs, meta):
     return preds[keep], meta["ori_boxes"][keep], meta["metadata"][keep]
 
 
-def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
+def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False, writer=None,
+               plot=False):
     """One val epoch on the eval step; returns the ``val_epoch`` stats (with
     ``multi_label``, the mAP of the epoch's predictions; with an
     ``AVAMeter``, the AVA mAP of its detections). Over several ranks the
     real rows of every rank count: the top-k counts are summed, the
-    predictions gathered."""
+    predictions gathered. ``writer`` takes the epoch's ``Val/*`` scalars
+    and, under ``plot`` (which every rank must be given, as it gathers the
+    predictions of single-label classification), ``plot_eval``."""
     world = du.get_world_size()
+    tb_preds, tb_labels = [], []
     meter.iter_tic()
     for cur_iter, (inputs, labels, _, _, meta) in enumerate(val_loader):
         if isinstance(meter, AVAMeter):
@@ -185,10 +193,19 @@ def eval_epoch(val_loader, eval_fn, meter, cur_epoch, multi_label=False):
                 counts = torch.tensor([float(k1), float(k5), float(b)], dtype=torch.float64)
                 k1, k5, b = du.all_reduce([counts], "sum")[0].tolist()
             meter.update_stats((1.0 - float(k1) / b) * 100.0, (1.0 - float(k5) / b) * 100.0, b)
+            if plot:
+                tb_preds.append(du.all_gather_unaligned(preds.numpy()))
+                tb_labels.append(du.all_gather_unaligned(labels))
         meter.iter_toc()
         meter.log_iter_stats(cur_epoch, cur_iter)
         meter.iter_tic()
     stats = meter.log_epoch_stats(cur_epoch)
+    if writer is not None:
+        writer.add_scalars({f"Val/{k}": float(stats[k]) for k in ("top1_err", "top5_err", "map")
+                            if stats and k in stats}, global_step=cur_epoch)
+        if tb_preds:
+            writer.plot_eval(np.concatenate(tb_preds), np.concatenate(tb_labels),
+                             global_step=cur_epoch)
     meter.reset()
     return stats
 
@@ -223,7 +240,11 @@ def train_ssl(cfg, device):
     the SSL state. Each epoch: the SSL step on views 0 and 1 of every
     batch, the checkpoint (with the SSL state) on the checkpoint cadence
     and, under ``CONTRASTIVE.KNN_ON``, the kNN probe on the val split on the
-    eval cadence (a ``knn_epoch`` json_stats line)."""
+    eval cadence (a ``knn_epoch`` json_stats line). Over several ranks each
+    loads its rows of every global batch and of the val batches, the step
+    and the probe reduce over the ranks (``engine/ssl_steps.py``), the
+    master writes the checkpoint and the json line, and every rank resumes
+    from the checkpoint."""
     train_loader = construct_loader(cfg, "train", device)
     steps_per_epoch = max(len(train_loader), 1)
     num_videos = train_loader.dataset.num_videos
@@ -298,6 +319,12 @@ def train(cfg, device="cuda"):
 
     train_loader, val_loader, step_fn, eval_fn, train_meter, val_meter = build_trainer()
     epoch_timer = EpochTimer()
+    writer = None
+    if cfg.TENSORBOARD.ENABLE and du.is_master_proc():
+        from slowfast_tpu_torch.visualization.tensorboard_vis import TensorboardWriter
+
+        writer = TensorboardWriter(cfg)
+    plot = cfg.TENSORBOARD.ENABLE and not (cfg.DETECTION.ENABLE or cfg.DATA.MULTI_LABEL)
 
     logger.info("Start epoch: %d", start_epoch + 1)
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
@@ -311,7 +338,7 @@ def train(cfg, device="cuda"):
                     build_trainer())
         shuffle_dataset(train_loader, cur_epoch)
         epoch_timer.epoch_tic()
-        train_epoch(train_loader, step_fn, train_meter, cur_epoch, cfg)
+        train_epoch(train_loader, step_fn, train_meter, cur_epoch, cfg, writer)
         epoch_timer.epoch_toc()
         logger.info("Epoch %d takes %.2fs. Epochs from %d to %d take %.2fs in average.",
                     cur_epoch + 1, epoch_timer.last_epoch_time(), start_epoch + 1,
@@ -326,8 +353,11 @@ def train(cfg, device="cuda"):
         if is_checkp:
             cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg)
         if is_eval:
-            eval_epoch(val_loader, eval_fn, val_meter, cur_epoch, cfg.DATA.MULTI_LABEL)
+            eval_epoch(val_loader, eval_fn, val_meter, cur_epoch, cfg.DATA.MULTI_LABEL, writer,
+                       plot)
             du.barrier()
+    if writer is not None:
+        writer.close()
     logger.info("training done")
     return model
 

@@ -144,7 +144,12 @@ class BatchNorm1D(nn.Module):
     (slowfast_tpu/models/heads.py:240-247): statistics and output in fp32,
     ``var = max(E[x²] - E[x]², 0)``, ``y = (x - mean) * (rsqrt(var + eps) *
     weight) + bias``, and flax's momentum convention: ``new = 0.9 * old +
-    0.1 * batch``, with the biased batch variance."""
+    0.1 * batch``, with the biased batch variance.
+
+    Under a process group a training forward takes its statistics over the
+    global batch, as flax's BN does under the JAX package's mesh: each
+    rank's mean and mean square averaged over the ranks by the autograd
+    all-reduce of ``BatchNorm3D`` (every rank holds as many rows)."""
 
     def __init__(self, num_features, eps=1e-5, momentum=0.9):
         super().__init__()
@@ -159,14 +164,10 @@ class BatchNorm1D(nn.Module):
     def forward(self, x):
         x = x.to(sum_dtype(x.dtype))
         if self.training:
-            if du.get_world_size() > 1:
-                raise NotImplementedError(
-                    "BatchNorm1D (the SSL MLP heads' BN) takes per-rank statistics; its "
-                    "global statistics over several ranks come with the SSL collectives "
-                    "(ROADMAP Queue 1)")
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp(x.square().mean(dims) - mean.square(), min=0.0)
+            moments = du.all_reduce_sum_autograd(torch.cat([x.mean(dims), x.square().mean(dims)]))
+            mean, sq = (moments / du.get_world_size()).chunk(2)
+            var = torch.clamp(sq - mean.square(), min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)

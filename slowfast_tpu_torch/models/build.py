@@ -29,8 +29,8 @@ from .video_models import X3D, ResNet, SlowFast
 # (slowfast_tpu/models/__init__.py:4-19): CSN and R(2+1)D are the ResNet with
 # RESNET.TRANS_FUNC csn_transform / r2plus1d_transform (their YAMLs leave it
 # at bottleneck_transform); ResNet_nopool is the ResNet without the
-# temporal pool after res2.
-MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT,
+# temporal pool after res2; PTVMViT is MViT (slowfast_tpu/models/__init__.py:27-28).
+MODEL_REGISTRY = {"SlowFast": SlowFast, "PTVSlowFast": SlowFast, "MViT": MViT, "PTVMViT": MViT,
                   "MaskMViT": MaskMViT, "ResNet": ResNet, "PTVResNet": ResNet, "ResNet_nopool": ResNet,
                   "PTVCSN": ResNet, "PTVR2plus1D": ResNet, "X3D": X3D, "PTVX3D": X3D,
                   "ContrastiveModel": ContrastiveModel}

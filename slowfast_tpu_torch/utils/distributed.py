@@ -153,6 +153,64 @@ def all_reduce_grads(params):
     all_reduce(grads, "mean")
 
 
+class _AllGatherWithGradient(torch.autograd.Function):
+    """Every rank's rows of ``x`` in rank order (reference
+    contrastive.py ``AllGatherWithGradient``): the backward sums the
+    incoming gradient over the ranks and keeps this rank's rows, so every
+    rank's loss on the gathered rows reaches the rows' own rank."""
+
+    @staticmethod
+    def forward(ctx, x):
+        parts = [torch.empty_like(x) for _ in range(get_world_size())]
+        dist.all_gather(parts, x.contiguous())
+        ctx.rows = x.shape[0]
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        start = get_rank() * ctx.rows
+        return grad[start:start + ctx.rows]
+
+
+def all_gather_with_grad(x):
+    """``x``'s rows of every rank, in rank order, with a gradient that
+    reaches each rank's own rows (``_AllGatherWithGradient``); one process:
+    ``x``."""
+    if not is_initialized():
+        return x
+    return _AllGatherWithGradient.apply(x)
+
+
+def global_rows(x):
+    """The global batch of the rows that each rank holds of it (equal
+    counts a rank), without gradient; one process: ``x``.
+
+    The order is the JAX package's global order: its loader gives host
+    ``s`` the rows ``batch[s::NUM_SHARDS]`` (slowfast_tpu/data/loader.py:208)
+    and ``shard_batch`` assembles the global array from the hosts' rows with
+    ``make_array_from_process_local_data`` (slowfast_tpu/parallel/mesh.py:
+    228) on a mesh of the devices in process order (:105), so its device
+    ``d`` holds rows ``[d·b, (d+1)·b)`` of the array: rank order, the order
+    of the gather, whatever ``NUM_SHARDS`` is."""
+    if not is_initialized():
+        return x
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(get_world_size())]
+    dist.all_gather(parts, x)
+    return torch.cat(parts)
+
+
+def own_rows(x_global):
+    """This rank's rows of a global tensor (``global_rows``'s inverse); one
+    process: ``x_global``."""
+    if not is_initialized():
+        return x_global
+    per = x_global.shape[0] // get_world_size()
+    return x_global[get_rank() * per:(get_rank() + 1) * per]
+
+
 def global_count(local):
     """``local`` (a tensor) summed over the ranks, without gradient (one
     process: ``local``)."""

@@ -13,6 +13,7 @@ import functools
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from slowfast_tpu_torch.config import get_cfg
@@ -24,6 +25,18 @@ from slowfast_tpu_torch.utils import distributed as du
 from slowfast_tpu_torch.utils.multiprocessing import launch_job
 
 WORLD = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread in the test process while a module runs (as
+    tests/test_torch_train.py's fixture, without its JAX import), and so one
+    a spawned rank: the suite runs several workers on a few cores, and
+    their ranks oversubscribe them otherwise."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def launch(tmp_dir, func, *args, world=WORLD):

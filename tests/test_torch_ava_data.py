@@ -91,12 +91,13 @@ ITEMS = {
     "val": ("val", []),
     "test_flip": ("test", ["AVA.TEST_FORCE_FLIP", "True"]),
 }
+PYTORCH = {"pytorch_train": ("train", ["AVA.IMG_PROC_BACKEND", "pytorch"])}
 
 
 @pytest.mark.parametrize("name", sorted(ITEMS))
 def test_items_bit_equal_to_jax(corpus, monkeypatch, name):
     monkeypatch.setattr(jax_native, "probe_jpeg", lambda path: None)
-    split, extra = ITEMS[name]
+    split, extra = {**ITEMS, **PYTORCH}[name]
     jcfg, cfg = both_cfgs(corpus, extra)
     ds, jds = build_dataset("ava", cfg, split), JaxAva(jcfg, split)
     assert len(ds) == len(jds) > 2 and ds._video_idx_to_name == jds._video_idx_to_name
@@ -171,10 +172,11 @@ def test_mini_groundtruth_and_meters_match_jax(corpus, tmp_path):
         assert (meters[0].groundtruth == mini) == (mode == "val")
 
 
-def test_pytorch_backend_is_not_ported(corpus):
-    _, cfg = both_cfgs(corpus, ["AVA.IMG_PROC_BACKEND", "pytorch"])
-    with pytest.raises(NotImplementedError, match="IMG_PROC_BACKEND"):
-        build_dataset("ava", cfg, "train")
+def test_pytorch_backend_is_not_ported(corpus, monkeypatch):
+    """The ``pytorch`` backend, which had raised, is ported: its train items
+    equal the JAX package's (every split and option in
+    tests/test_torch_ava_backend.py)."""
+    test_items_bit_equal_to_jax(corpus, monkeypatch, "pytorch_train")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

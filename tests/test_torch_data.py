@@ -327,12 +327,22 @@ def test_kinetics_retries_a_corrupt_file(corpus, tmp_path):
 
 
 def test_kinetics_unported_options_raise(corpus):
-    # The SSL items (ContrastiveModel, DATA.SSL_COLOR_JITTER) are ported:
-    # tests/test_torch_ssl_data.py; the 2D patch stem's loader masks too:
-    # tests/test_torch_imagenet.py; chunked csvs: tests/test_torch_ddp_misc.py.
-    for extra in (["TPU.UINT8_PIPELINE", "False"],):
-        with pytest.raises(NotImplementedError):
-            Kinetics(both_cfgs(corpus, extra)[1], "train")
+    # Every Kinetics option is ported now: the SSL items (ContrastiveModel,
+    # DATA.SSL_COLOR_JITTER) in tests/test_torch_ssl_data.py, the 2D patch
+    # stem's loader masks in tests/test_torch_imagenet.py, chunked csvs in
+    # tests/test_torch_ddp_misc.py, and the float clips of
+    # ``TPU.UINT8_PIPELINE False``, which had raised, in
+    # tests/test_torch_float_clips.py; here they build and equal JAX's.
+    jcfg, cfg = both_cfgs(corpus, ["TPU.UINT8_PIPELINE", "False"])
+    jds, ds = JaxKinetics(jcfg, "train"), Kinetics(cfg, "train")
+    for index in range(len(ds)):
+        seeded(tutils.sample_seed(cfg.RNG_SEED, 0, index))
+        got, want = ds[index], jds[index]
+        assert len(got[0]) == len(want[0]) == 2  # SlowFast's pathways
+        for g, w in zip(got[0], want[0]):
+            assert g.dtype == np.float32
+            same(g, w)
+        assert got[1:3] == want[1:3]
 
 
 def test_dummy_load_caches_the_first_item(corpus):

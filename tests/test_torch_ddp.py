@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 from ddp_harness import check_one_process, port_cfg, spawned_train_runs, train_run
+from ddp_harness import one_torch_thread  # noqa: F401  (autouse fixture)
 
 STEPS = 3
 CLIPS = 4  # a global batch

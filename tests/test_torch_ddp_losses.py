@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 from ddp_harness import check_one_process, port_cfg
+from ddp_harness import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_ddp import SGD, STEPS, spawn_cases
 
 CLIPS = 4

@@ -23,6 +23,7 @@ first whose three steps take both CutMix and MixUp).
 import pytest
 
 from ddp_harness import check_one_process, port_cfg
+from ddp_harness import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_ddp import SGD, spawn_cases, uint8_batches
 
 CLIPS = 4

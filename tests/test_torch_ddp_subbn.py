@@ -16,9 +16,9 @@ divides W.
 * One ``BatchNorm3D`` on 4 ranks, in float64: 2 splits (each over 2
   ranks, a subgroup) and 4 splits (one a rank) against the same module in
   one process on the global batch: outputs, input and parameter
-  gradients, running statistics. 3 splits over 4 ranks raise, and so does
-  the SSL heads' ``BatchNorm1D`` in training, whose global statistics are
-  not ported yet.
+  gradients, running statistics; and so the SSL heads' ``BatchNorm1D`` in
+  training, with the global batch's statistics. 3 splits over 4 ranks
+  raise.
 """
 
 import os
@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from ddp_harness import check_one_process, launch, port_cfg
+from ddp_harness import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_ddp import SGD, spawn_cases, uint8_batches
 
 CLIPS = 8
@@ -99,8 +100,27 @@ def bn_step(splits, x, dy, weight, bias):
             "mean": bn.running_mean, "var": bn.running_var}
 
 
-def rank_bn(out_dir, device):
+def bn1d_step(x, dy, weight, bias):
+    """``bn_step`` for the SSL heads' ``BatchNorm1D`` on the rows of
+    ``x``."""
     from slowfast_tpu_torch.models.batchnorm import BatchNorm1D
+    from slowfast_tpu_torch.utils import distributed as du
+
+    c = x.shape[-1]
+    bn = BatchNorm1D(c).double()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(weight))
+        bn.bias.copy_(torch.from_numpy(bias))
+    x = torch.from_numpy(x.reshape(-1, c)).requires_grad_(True)
+    y = bn(x)
+    y.backward(torch.from_numpy(dy.reshape(-1, c)))
+    grads = [bn.weight.grad, bn.bias.grad]
+    du.all_reduce(grads, "sum")
+    return {"y": y.detach(), "dx": x.grad, "dweight": grads[0], "dbias": grads[1],
+            "mean": bn.running_mean, "var": bn.running_var}
+
+
+def rank_bn(out_dir, device):
     from slowfast_tpu_torch.utils import distributed as du
 
     x, dy, weight, bias = bn_inputs()
@@ -111,10 +131,7 @@ def rank_bn(out_dir, device):
         bn_step(3, x[rows], dy[rows], weight, bias)
     except ValueError as e:
         out["three"] = str(e)
-    try:
-        BatchNorm1D(BN_SHAPE[-1])(torch.from_numpy(x[rows]).reshape(-1, BN_SHAPE[-1]))
-    except NotImplementedError as e:
-        out["bn1d"] = str(e)
+    out["bn1d"] = bn1d_step(x[rows], dy[rows], weight, bias)
     torch.save(out, os.path.join(out_dir, f"bn{du.get_rank()}.pt"))
 
 
@@ -140,4 +157,14 @@ def test_split_bn_over_four_ranks_matches_one_process(four_ranks):
 
 
 def test_mlp_head_bn_raises_over_several_ranks(four_ranks):
-    assert all("SSL collectives" in r["bn1d"] for r in four_ranks)
+    # The SSL heads' BatchNorm1D, which had raised over several ranks, takes
+    # the global batch's statistics: on 4 ranks what it computes in one
+    # process on the global batch.
+    x, dy, weight, bias = bn_inputs()
+    want = bn1d_step(x, dy, weight, bias)
+    for key in ("y", "dx"):
+        got = torch.cat([r["bn1d"][key] for r in four_ranks])
+        torch.testing.assert_close(got, want[key], rtol=1e-12, atol=1e-12)
+    for r in four_ranks:
+        for key in ("dweight", "dbias", "mean", "var"):
+            torch.testing.assert_close(r["bn1d"][key], want[key], rtol=1e-12, atol=1e-12)

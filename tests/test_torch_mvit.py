@@ -350,12 +350,19 @@ def test_tester_matches_jax_test_meter(jax_side, tmp_path):
 @pytest.mark.parametrize("opt", [
     # Rev-MViT, contrastive SSL and the 2D patch stem are ported
     # (tests/test_torch_reversible.py, tests/test_torch_contrastive.py,
-    # tests/test_torch_imagenet.py); the pytorchvideo name PTVMViT is not,
-    # nor are the head activation and the norm that the reference refuses.
+    # tests/test_torch_imagenet.py), and so is the pytorchvideo name
+    # PTVMViT, which builds MViT's model; the head activation and the norm
+    # that the reference refuses are not.
     ["MODEL.MODEL_NAME", "PTVMViT"], ["MODEL.HEAD_ACT", "tanh"],
     ["MVIT.NORM", "batchnorm"],
 ])
 def test_unported_options_raise(opt):
+    if opt[1] == "PTVMViT":
+        got = build_model(narrow_cfg(get_cfg, extra=opt), device="cpu").state_dict()
+        want = build_model(narrow_cfg(get_cfg), device="cpu").state_dict()
+        assert list(got) == list(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        return
     with pytest.raises(NotImplementedError):
         build_model(narrow_cfg(get_cfg, extra=opt), device="cpu")
 

@@ -1,0 +1,30 @@
+"""The InstDisc 2-D memory bank under data parallelism: the port's SSL step on
+2 gloo ranks against the JAX package's ``make_ssl_train_step`` on a 2-device
+``data`` mesh, with the checks of ``tests/ssl_ddp_jax.py``. One JAX
+configuration a file (its mesh step compiles in about 13 s).
+
+* ``mem_2d``: the 2-D bank (``MEM_TYPE 2d``, 4 time slots), written at
+  each clip's slot from the gathered times, with the separate kNN bank
+  (``KNN_ON``).
+"""
+
+import pytest
+
+from test_torch_train import one_torch_thread  # noqa: F401  (autouse fixture)
+
+CASES = {"mem_2d": ("mem", ["CONTRASTIVE.MEM_TYPE", "2d", "CONTRASTIVE.DURATION", "4",
+                           "CONTRASTIVE.KNN_ON", "True"])}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from ssl_ddp_jax import run_cases
+
+    return run_cases(tmp_path_factory.mktemp("ssl_ddp"), CASES)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_two_ranks_match_jax_on_a_two_device_mesh(runs, name):
+    from ssl_ddp_jax import check_case
+
+    check_case(name, *runs[name])

@@ -1,0 +1,30 @@
+"""SwAV's queue under data parallelism: the port's SSL step on 2 gloo ranks
+against the JAX package's ``make_ssl_train_step`` on a 2-device ``data``
+mesh, with the checks of ``tests/ssl_ddp_jax.py``. One JAX configuration a
+file (its mesh step compiles in about 13 s).
+
+* ``swav_queue``: a queue of 8, which the first step fills with the
+  global batch's rows (the reference's queue holds each GPU's rows,
+  ROADMAP Queue 3 #40), so steps 1 and 2 take the queue's scores into the
+  Sinkhorn problem.
+"""
+
+import pytest
+
+from test_torch_train import one_torch_thread  # noqa: F401  (autouse fixture)
+
+CASES = {"swav_queue": ("swav", ["CONTRASTIVE.SWAV_QEUE_LEN", "8"])}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from ssl_ddp_jax import run_cases
+
+    return run_cases(tmp_path_factory.mktemp("ssl_ddp"), CASES)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_two_ranks_match_jax_on_a_two_device_mesh(runs, name):
+    from ssl_ddp_jax import check_case
+
+    check_case(name, *runs[name])
