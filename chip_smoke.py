@@ -214,11 +214,11 @@ Phases, each printing one JSON line:
               run_net.main pretraining MoCo (MoCo_SlowR50_8x8.yaml: Slow R50
               8 x 224², DIM 128, a 3-layer projection MLP, QUEUE_LEN 65,536,
               MOCO_MULTI_VIEW_QUEUE, 4 temporal views a clip with the MoCo-v2
-              colour recipe) at full width in bf16 for 3 epochs over the 128
+              colour recipe) at full width in bf16 for 2 epochs over the 128
               decoded videos at the recipe's 64 clips a step: epoch 0 is all
               queue warm-up (the parameters bit-equal after each step), every
               step after it updates, the queue pointer moves 2 x clips a
-              step, the kNN probe runs after epoch 3, the checkpoint resumes
+              step, the kNN probe runs after epoch 2, the checkpoint resumes
               model and SSL state bit-equal; the p50 and the fastest of the
               updating steps after the first (clips/s), the run's peak
               memory, and the loader alone per batch. No kernel launches: the SSL items are
@@ -231,7 +231,7 @@ Phases, each printing one JSON line:
               preprocess launches, the backbone bit-equal to the checkpoint
               after them and without gradients.
  24d. ssl_family  BYOL, SimCLR and SwAV at full width in bf16 with LARS,
-              each 4 decoded run_net steps of 32 clips (64 do not fit in
+              each 2 decoded run_net steps of 32 clips (64 do not fit in
               80 GB) with finite losses: the p50 and the fastest of the
               steps after the first (clips/s) and the run's peak memory; SwAV's prototype
               rows of unit length after each step and unmoved in epoch 0
@@ -247,7 +247,7 @@ Phases, each printing one JSON line:
               16 clips with no group, the group and no group again (p50 ms,
               clips/s, peak memory); then the launcher's rank entry
               (utils.multiprocessing.run) on run_net's MoCo config: one
-              epoch of 4 steps of 8 decoded clips, the kNN probe and the
+              epoch of 2 steps of 8 decoded clips, the kNN probe and the
               checkpoint, and a second run that auto-resumes from it (its
               model and SSL state bit-equal to the first run's end) and
               trains epoch 2.
@@ -264,6 +264,33 @@ Phases, each printing one JSON line:
               configs/Kinetics/pytorchvideo YAML built at full size on the
               card; one bf16 forward of the PTVMViT model (4 clips) with
               every flash call held against flash_plain.
+ 24g. vis_tools  the visualize tool through run_net on MVITv2_S_16x4 in
+              bf16: seeded weights saved as a port checkpoint, the test of 16
+              synthetic clips (its predictions pickled), then MODEL_VIS (the
+              weight and first-batch activation histograms of blocks 2 and
+              14, Grad-CAM on block 13) and WRONG_PRED_VIS with the pickle as
+              PREDICTIONS_PATH: the event file's tags, rows 1, 6 and 7
+              counted, every flash call held; Grad-CAM of one batch at its
+              labels with the kernels and with their plain versions in bf16
+              and fp32: the kernels' bf16 map and gradient within twice the
+              plain versions' bf16 distance of their fp32 ones;
+              SlowFast 4x16's two-pathway Grad-CAM, fp32, card (TF32 off)
+              against CPU within 1e-4.
+ 24h. mae_vis  the MAE ViT-B recipe's test of 8 decoded clips under
+              VIS_MASK.ENABLE: 8 mp4s that cv2 reads back as T frames of
+              H x 3W, row 6 counted and held.
+ 24i. demo_slice  the demo through run_net on SLOWFAST_4x16_R50 in bf16 over
+              one corpus mp4, a clip every 8 frames: plain, then threaded
+              with two clips in flight (the same predictions within 1e-5),
+              the frames the JAX demo writes, the first clip fp32 card vs
+              CPU within 1e-4, the p50 clip latency; the AVA live demo on
+              SLOWFAST_32x2_R50_SHORT with the motion proposals (ROIAlign a
+              clip) and the precomputed-box visualizer on a csv of boxes and
+              ground truth.
+ 24j. data_bench  utils/benchmark.py: benchmark_data_loading for one epoch
+              of SlowFast 4x16's train loader over 64 decoded clips (clips/s
+              a batch), and benchmark_core_budget (one worker's clips per
+              CPU-second over the same mp4s).
  26a. ssl_fp32  one MoCo step on 2 clips and one BYOL step on 4 (its MLPs'
               BNs are degenerate on 2) at full width in fp32, card (TF32
               off) vs CPU from the same weights, SSL state
@@ -677,7 +704,7 @@ def temper_head(model, clip, cfg, logit_std=2.0):
     feats = []
     hook = model.head.register_forward_pre_hook(lambda m, args: feats.append(args[0]))
     try:
-        make_eval_step(cfg, model)({"inputs": [torch.from_numpy(clip)]})
+        make_eval_step(cfg, model)({"inputs": [torch.as_tensor(clip)]})
     finally:
         hook.remove()
     if isinstance(feats[0], torch.Tensor):  # MViT: the (B, C) cls row
@@ -4368,6 +4395,12 @@ LINEAR_YAML = os.path.join(SSL_CONFIGS, "linear_k400_Slow_8x8_R50_syn8.yaml")
 SSL_CLIPS = {"moco": 64, "byol": 32, "simclr": 32, "swav": 32}
 LINEAR_CLIPS = 16
 SSL_STATE_TOL = 1e-6
+# MoCo's epochs and the other recipes' steps: 3 and 4 until PR 18, cut so
+# the whole script keeps within its time (their loaders decode 4 views of
+# 64 or 32 clips a step on the host, 10-33 s a step; no kernel runs on
+# these paths).
+SSL_EPOCHS = 2
+SSL_FAMILY_STEPS = 2
 
 
 def ssl_float_batch(cfg, n, seed, device="cuda"):
@@ -4499,10 +4532,11 @@ def phase_ssl_train_slice(corpus, keep):
     """``run_net.main`` pretraining MoCo (MoCo_SlowR50_8x8.yaml: Slow R50,
     8 x 224², DIM 128, a 3-layer projection MLP, QUEUE_LEN 65,536,
     MOCO_MULTI_VIEW_QUEUE, 4 temporal views, the MoCo-v2 colour recipe) at
-    full width in bf16 on the mp4 corpus for 3 epochs at the recipe's 64
-    clips a step: epoch 0 all queue warm-up (the parameters bit-equal after
-    each step), every step after it updating, the pointer 2 x clips on a
-    step, the kNN probe after epoch 3, the checkpoint auto-resuming
+    full width in bf16 on the mp4 corpus for ``SSL_EPOCHS`` epochs at the
+    recipe's 64 clips a step: epoch 0 all queue warm-up (the parameters
+    bit-equal after each step), every step after it updating, the pointer
+    2 x clips on a step, the kNN probe after the last epoch, the checkpoint
+    auto-resuming
     bit-equal (copied to ``keep`` for the linear probe). The p50 and the
     fastest of the updating steps after the first (clips/s), the run's
     peak memory, and the loader alone."""
@@ -4517,7 +4551,7 @@ def phase_ssl_train_slice(corpus, keep):
     n = SSL_CLIPS["moco"]
     out_dir = os.path.join(OUT_DIR, "ssl")
     opts = kinetics_split(corpus, "ssl", MASKED_VIDEOS) + [
-        "TRAIN.BATCH_SIZE", str(n), "SOLVER.MAX_EPOCH", "3"]
+        "TRAIN.BATCH_SIZE", str(n), "SOLVER.MAX_EPOCH", str(SSL_EPOCHS)]
     cfg = family_cfg(SSL_YAML["moco"], opts, "ssl")
     with removed_after(os.path.join(out_dir, "checkpoints")):
         run = drive_ssl_train(SSL_YAML["moco"], opts, out_dir)
@@ -4541,13 +4575,14 @@ def phase_ssl_train_slice(corpus, keep):
           "max_memory_allocated": run["max_memory_allocated"],
           "loader_batch_ms": loader_ms, "train_wall_s": run["wall_s"],
           "launches": run["launches"]})
-    check(len(steps) == 3 * spe and all(s["clips"] == n for s in steps), f"steps {len(steps)}")
+    check(len(steps) == SSL_EPOCHS * spe and all(s["clips"] == n for s in steps),
+          f"steps {len(steps)}")
     check(not any(s["params_moved"] for s in steps[:spe]),
           "a queue warm-up step of epoch 0 moved the parameters")
     check(all(s["params_moved"] for s in steps[spe:]), "a step after epoch 0 left the parameters")
     check(all(s["ptr_advance"] == 2 * n for s in steps), "the queue pointer moved by "
           f"{[s['ptr_advance'] for s in steps]}, not 2 x {n}")
-    check(epochs == ["1/3", "2/3", "3/3"] and len(knn) == 1
+    check(epochs == [f"{e}/{SSL_EPOCHS}" for e in range(1, SSL_EPOCHS + 1)] and len(knn) == 1
           and 0.0 <= knn[0]["top1_acc"] <= 100.0, f"epochs {epochs}, kNN {knn}")
     return {"launches": run["launches"]}
 
@@ -4617,11 +4652,12 @@ def phase_linear_probe_slice(corpus, pt_ckpt):
 def phase_ssl_family(corpus):
     """BYOL (2-layer MLPs of 4,096, a predictor), SimCLR and SwAV (1,000
     prototypes) at full width in bf16 with LARS: per recipe
-    ``run_net.main`` for 4 decoded steps of 32 clips on the mp4 corpus with
-    finite losses, the p50 and the fastest of the steps after the first
-    (clips/s) and the run's peak memory; SwAV's prototype rows of unit length after each step
-    and, in epoch 0, after each step but the first equal to the rows before
-    it renormalized (LARS gives their zero gradient no decay)."""
+    ``run_net.main`` for ``SSL_FAMILY_STEPS`` decoded steps of 32 clips on
+    the mp4 corpus with finite losses, the p50 and the fastest of the steps
+    after the first (clips/s) and the run's peak memory; SwAV's prototype
+    rows of unit length after each step and, in epoch 0, after each step
+    but the first equal to the rows before it renormalized (LARS gives
+    their zero gradient no decay)."""
     out = {}
     for t in ("byol", "simclr", "swav"):
         cfg = family_cfg(SSL_YAML[t], [], f"ssl_{t}")
@@ -4640,7 +4676,8 @@ def phase_ssl_family(corpus):
                           .max().item(), "max_move_beyond_renorm": (w - unit0).abs().max().item()})
 
         with removed_after(os.path.join(out_dir, "checkpoints")):
-            run = drive_ssl_train(SSL_YAML[t], kinetics_split(corpus, f"ssl_{t}", 4 * n) + [
+            run = drive_ssl_train(SSL_YAML[t], kinetics_split(
+                corpus, f"ssl_{t}", SSL_FAMILY_STEPS * n) + [
                 "TRAIN.BATCH_SIZE", str(n), "SOLVER.MAX_EPOCH", "1"], out_dir, on_step=swav_check)
         del run["model"], run["ssl"]
         # The loader's workers decode the next batches on the host's cores
@@ -4652,10 +4689,12 @@ def phase_ssl_family(corpus):
                   "step_min_ms": min(ms), "min_step_clips_per_s": n / min(ms) * 1e3,
                   "max_memory_allocated": run["max_memory_allocated"],
                   "run_steps": run["steps"], "train_wall_s": run["wall_s"], "prototypes": proto}
-        check(len(run["steps"]) == 4 and all(s["params_moved"] for s in run["steps"]),
+        check(len(run["steps"]) == SSL_FAMILY_STEPS
+              and all(s["params_moved"] for s in run["steps"]),
               f"{t} steps {run['steps']}")
         if t == "swav":
-            check(len(proto) == 4 and all(p["max_row_norm_err"] <= 1e-6 for p in proto)
+            check(len(proto) == SSL_FAMILY_STEPS
+                  and all(p["max_row_norm_err"] <= 1e-6 for p in proto)
                   and all(p["max_move_beyond_renorm"] <= 1e-6 for p in proto[1:]),
                   f"SwAV prototypes {proto}")
     emit({"phase": "ssl_family", **out})
@@ -5463,6 +5502,7 @@ SSL_DDP_RECIPES = ("moco", "simclr", "swav")
 SSL_DDP_CLIPS = 4  # the fp32 steps' clips (the MLP heads' BN needs more than 2)
 SSL_DDP_TIMED_CLIPS = 16
 SSL_DDP_LAUNCHER_CLIPS = 8
+SSL_DDP_LAUNCHER_STEPS = 2  # an epoch of the launcher's run; 4 until PR 18
 
 
 def ssl_group_step(cfg, state, ssl0, batch, grouped):
@@ -5583,7 +5623,7 @@ def phase_ssl_ddp(corpus):
     relative L2, the queue rows, pointer, bank rows and momentum encoder
     equal. The bf16 MoCo step of 16 clips with and without the group: p50
     ms, clips/s, peak memory. Then the launcher's rank entry on run_net's
-    MoCo config over the mp4 corpus: one epoch of 4 steps of 8 clips, the
+    MoCo config over the mp4 corpus: one epoch of 2 steps of 8 clips, the
     kNN probe and the checkpoint, and a second run that auto-resumes from
     it, its model and SSL state bit-equal to the first run's end."""
     import tempfile
@@ -5634,7 +5674,8 @@ def phase_ssl_ddp(corpus):
     out_dir = os.path.join(OUT_DIR, "ssl_ddp")
     shutil.rmtree(out_dir, ignore_errors=True)
     base = ["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", str(n), "TEST.ENABLE", "False",
-            "LOG_PERIOD", "1", *kinetics_split(corpus, "ssl_ddp", 4 * n)]
+            "LOG_PERIOD", "1",
+            *kinetics_split(corpus, "ssl_ddp", SSL_DDP_LAUNCHER_STEPS * n)]
     with removed_after(os.path.join(out_dir, "checkpoints")):
         first = launcher_ssl(base + ["SOLVER.MAX_EPOCH", "1"], out_dir)
         ckpt = cu.get_last_checkpoint(out_dir, first["cfg"].TASK)
@@ -5677,7 +5718,8 @@ def phase_ssl_ddp(corpus):
            "phase_s": time.perf_counter() - t_phase}
     emit(row)
     check(epochs == {"first": ["1/1"], "resumed": ["2/2"]}
-          and iters == {"first": 4, "resumed": 4}, f"launcher epochs {epochs}, iterations {iters}")
+          and iters == {"first": SSL_DDP_LAUNCHER_STEPS, "resumed": SSL_DDP_LAUNCHER_STEPS},
+          f"launcher epochs {epochs}, iterations {iters}")
     check(model_equal and all(d["equal"] for d in ssl_diff.values()),
           f"resumed state differs: model {model_equal}, SSL {ssl_diff}")
     check(len(knn) == 1 and 0.0 <= knn[0] <= 100.0, f"kNN lines {knn}")
@@ -5812,6 +5854,475 @@ def phase_ptv_recipes(corpus):
     return {"launches": launches}
 
 
+# --- the tools (PR 18): the visualize tool with Grad-CAM, MAE's renders, the
+# demo and the data-loading benchmark -----------------------------------------
+
+VIS_CLIPS = 16  # two test batches of 8 (bench.py's eval B)
+# MODEL_VIS's layers: a 28² block and a 7² one; Grad-CAM on the last 14²
+# block, so its backward runs row 7 in blocks 14 and 15.
+VIS_LAYERS = ["blocks/2", "blocks/14"]
+VIS_CAM_LAYER = "blocks/13"
+# Grad-CAM on the max prediction is discontinuous where two classes tie:
+# a bf16 forward that flips one clip's argmax moves that clip's gradient
+# entirely (dS/dA 58% apart in relative L2 with one flip, PR 18 calls
+# 2-4). So the held maps take a fixed class a clip (GRAD_CAM.USE_TRUE_LABEL),
+# and the kernels' bf16 map and gradient are held to the plain versions'
+# fp32 ones: within twice the distance of the plain versions in bf16.
+VIS_CAM_FACTOR = 2.0
+SF_CAM_TOL = 1e-4  # SlowFast's two-pathway maps, fp32, card vs CPU
+SF_CAM_LAYERS = ["s5/pathway0_res2", "s5/pathway1_res2"]
+DEMO_BUFFER = 56  # the demo's overlap: a clip every 8 frames
+DEMO_TOL = 1e-5  # the threaded, two-in-flight demo against the plain one
+BENCH_CLIPS = 64
+CORE_BUDGET_SAMPLES = 16
+
+
+class PlainFlashCore(torch.autograd.Function):
+    """Rows 6 and 7's plain versions as one core: ``flash_plain`` forward,
+    ``flash_bwd_plain`` backward (the kernels' rounding of ``e``, ``do/s``
+    and ``dl`` to the input dtype, step by step)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh):
+        from slowfast_tpu_torch.ops import attention as ta
+
+        ctx.save_for_backward(qh, kh, vh)
+        return ta.flash_plain(qh, kh, vh)
+
+    @staticmethod
+    def backward(ctx, do):
+        from slowfast_tpu_torch.ops import attention as ta
+
+        return ta.flash_bwd_plain(*ctx.saved_tensors, do.contiguous())
+
+
+@contextlib.contextmanager
+def plain_flash_core():
+    """MViT's attention core on ``PlainFlashCore`` in place of rows 6 and
+    7."""
+    from slowfast_tpu_torch.ops import attention as ta
+
+    kernel_core = ta.flash_pooled_attention
+    ta.flash_pooled_attention = PlainFlashCore.apply
+    try:
+        yield
+    finally:
+        ta.flash_pooled_attention = kernel_core
+
+
+@contextlib.contextmanager
+def no_tf32():
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def histogram_tags(log_dir):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(log_dir, size_guidance={"histograms": 0})
+    acc.Reload()
+    return sorted(acc.Tags()["histograms"])
+
+
+def phase_vis_tools():
+    """The visualize tool through run_net on MViTv2-S 16x4 in bf16: seeded
+    weights saved as a port checkpoint, the multi-view test of 16 synthetic
+    clips (its predictions pickled), then MODEL_VIS (the weight and
+    first-batch activation histograms of two blocks, Grad-CAM on one) and
+    WRONG_PRED_VIS with the test's pickle as PREDICTIONS_PATH; every flash
+    call held against its plain version, rows 1, 6 and 7 counted; the
+    activation heatmaps stay off, as matplotlib is not on the card's host.
+    Then Grad-CAM of one batch at its labels, with the kernels and with
+    their plain versions, in bf16 and in fp32: the kernels' bf16 map and
+    gradient within twice the plain versions' bf16 distance of the plain
+    versions' fp32 ones, the fp32 kernels' map within 1e-4 of it; and
+    SlowFast 4x16's two-pathway Grad-CAM, fp32, card against CPU."""
+    import pickle
+    import tempfile
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
+    from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.visualization.gradcam import GradCAM, class_activation_map
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(OUT_DIR, "vis_tools")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    results = os.path.join(out_dir, "test.pkl")
+    opts = ["NUM_GPUS", "1", "TRAIN.ENABLE", "False", "TEST.ENABLE", "True",
+            "TEST.DATASET", "syntheticvideo", "DATA.SYNTHETIC_SIZE", str(VIS_CLIPS),
+            "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "1", "TEST.BATCH_SIZE", "8",
+            "TEST.SAVE_RESULTS_PATH", results, "TENSORBOARD.ENABLE", "True",
+            "TENSORBOARD.MODEL_VIS.ENABLE", "True", "TENSORBOARD.MODEL_VIS.MODEL_WEIGHTS", "True",
+            "TENSORBOARD.MODEL_VIS.LAYER_LIST", str(VIS_LAYERS),
+            "TENSORBOARD.MODEL_VIS.GRAD_CAM.LAYER_LIST", str([VIS_CAM_LAYER]),
+            "TENSORBOARD.WRONG_PRED_VIS.ENABLE", "True",
+            "TENSORBOARD.PREDICTIONS_PATH", results]
+    cfg = family_cfg(MVIT_YAML, opts[2:], "vis_tools")
+    ckpt_dir = tempfile.mkdtemp(prefix="vis_tools_")
+    try:
+        ckpt = os.path.join(ckpt_dir, "mvit.pyth")
+        model = build_model(cfg, device="cuda")
+        torch.save({"model_state": model.state_dict()}, ckpt)
+        n_params = {layer: len(list(model.get_submodule(layer.replace("/", ".")).parameters()))
+                    for layer in VIS_LAYERS}
+        os.makedirs(out_dir)
+        argv = ["--cfg", MVIT_YAML, "--opts", *opts, "OUTPUT_DIR", out_dir,
+                "TEST.CHECKPOINT_FILE_PATH", ckpt]
+        reset_launches()
+        t0 = time.perf_counter()
+        with FlashShadow() as shadow:
+            run_net.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        with open(results, "rb") as f:
+            saved_preds = pickle.load(f)[0]
+        tags = histogram_tags(os.path.join(out_dir, "runs-kinetics"))
+
+        # Grad-CAM on one batch with the kernels and with their plain
+        # versions, in bf16 and in fp32 (TF32 off), the head tempered so the
+        # softmax is neither flat nor saturated; each against the plain
+        # versions in fp32.
+        batch = uint8_train_batch(cfg, 8, 40)
+        temper_head(model, batch["inputs"][0], cfg)
+        cfg32 = family_cfg(MVIT_YAML, opts[2:] + ["TPU.COMPUTE_DTYPE", "float32"], "vis_tools")
+        model32 = build_model(cfg32, device="cuda")
+        model32.load_state_dict(model.state_dict(), strict=True)
+        variants = {}
+        for name, m, c, plain in (("kernels_bf16", model, cfg, False),
+                                  ("plain_bf16", model, cfg, True),
+                                  ("kernels_fp32", model32, cfg32, False),
+                                  ("plain_fp32", model32, cfg32, True)):
+            x = maybe_device_preprocess(c, batch["inputs"])
+            with (plain_flash_core() if plain else contextlib.nullcontext()), no_tf32():
+                reset_launches()
+                t0 = time.perf_counter()
+                preds, act, grads, thw = GradCAM(m, [VIS_CAM_LAYER]).layer_gradients(
+                    x, VIS_CAM_LAYER, batch["labels"], use_labels=True)
+                cam = class_activation_map(act.float(), grads.float(), thw)
+                torch.cuda.synchronize()
+                variants[name] = {"preds": preds.float(), "act": act.float(),
+                                  "grads": grads.float(), "cam": cam, "launches": read_launches(),
+                                  "ms": (time.perf_counter() - t0) * 1e3}
+        del model, model32, x
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ref = variants["plain_fp32"]
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    cam_err = {name: {"cam_max_abs": (v["cam"] - ref["cam"]).abs().max().item(),
+                      "cam_mean_abs": (v["cam"] - ref["cam"]).abs().mean().item(),
+                      "act_rel_l2": rel(v["act"], ref["act"]),
+                      "grads_rel_l2": rel(v["grads"], ref["grads"]),
+                      "preds_max_abs": (v["preds"] - ref["preds"]).abs().max().item(),
+                      "argmax_flips": int((v["preds"].argmax(-1) != ref["preds"].argmax(-1))
+                                          .sum().item()),
+                      "ms": v["ms"]}
+               for name, v in variants.items() if name != "plain_fp32"}
+    cam_launches = variants["kernels_bf16"]["launches"]
+    cams = [variants["kernels_bf16"]["cam"].cpu().numpy()]
+
+    # SlowFast's two-pathway maps, fp32, card against CPU.
+    scfg = slowfast_cfg(["TPU.COMPUTE_DTYPE", "float32"])
+    cpu_model = build_model(scfg, device="cpu")
+    randomize_bn(cpu_model, 5)
+    clip = np.random.RandomState(6).randint(
+        0, 256, (1, scfg.DATA.NUM_FRAMES, scfg.DATA.TEST_CROP_SIZE, scfg.DATA.TEST_CROP_SIZE, 3)
+    ).astype(np.uint8)
+    temper_head(cpu_model, clip, scfg)
+    gpu_model = build_model(scfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    t0 = time.perf_counter()
+    want, want_preds = GradCAM(cpu_model, SF_CAM_LAYERS)(
+        maybe_device_preprocess(scfg, [torch.from_numpy(clip)]))
+    sf_cpu_s = time.perf_counter() - t0
+    with no_tf32():
+        got, got_preds = GradCAM(gpu_model, SF_CAM_LAYERS)(
+            maybe_device_preprocess(scfg, [torch.from_numpy(clip).cuda()]))
+    sf_err = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+    del cpu_model, gpu_model
+
+    depth = cfg.MVIT.DEPTH
+    tail = depth - 1 - int(VIS_CAM_LAYER.split("/")[1])  # blocks after the target
+    batches = VIS_CLIPS // 8
+    want_tags = ({f"weights/{layer}/{i}" for layer in VIS_LAYERS for i in range(n_params[layer])}
+                 | {f"activations/{layer}" for layer in VIS_LAYERS} | {"gradcam/pathway0"})
+    row = {"phase": "vis_tools", "clips": VIS_CLIPS, "layers": VIS_LAYERS,
+           "grad_cam_layer": VIS_CAM_LAYER, "run_s": run_s, "launches": launches,
+           "flash_shadow_checks": shadow.stats, "histogram_tags": len(tags),
+           "saved_videos": len(saved_preds),
+           "grad_cam": {"launches": cam_launches, "vs_plain_fp32": cam_err,
+                        "map_shape": list(cams[0].shape),
+                        "fp32_launches": variants["kernels_fp32"]["launches"],
+                        "max_prob": ref["preds"].max().item()},
+           "slowfast_fp32": {"layers": SF_CAM_LAYERS, "card_vs_cpu_max_abs": sf_err,
+                             "tol": SF_CAM_TOL, "map_shapes": [list(g.shape) for g in got],
+                             "preds_max_abs": float(np.abs(got_preds - want_preds).max()),
+                             "cpu_s": sf_cpu_s},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    # Rows 1 and 6: the test's and the visualize tool's batches, the first
+    # batch again for the activations and for Grad-CAM; row 7: Grad-CAM's
+    # backward through the blocks after its layer.
+    check(only_launched(launches, ("attention_flash", "attention_flash_bwd"), None)
+          and launches["preprocess_u8"] == 2 * batches + 1
+          and launches["attention_flash"] == depth * (2 * batches + 2)
+          and launches["attention_flash_bwd"] == tail, f"vis_tools launches {launches}")
+    shadow.check("vis_tools", depth * (2 * batches + 2), tail)
+    check(want_tags <= set(tags), f"vis_tools tags {tags} lack {want_tags - set(tags)}")
+    check(len(saved_preds) == VIS_CLIPS, f"saved predictions {len(saved_preds)}")
+    check(only_launched(cam_launches, ("attention_flash", "attention_flash_bwd"), None)
+          and cam_launches["attention_flash"] == depth
+          and cam_launches["attention_flash_bwd"] == tail, f"Grad-CAM launches {cam_launches}")
+    k, p = cam_err["kernels_bf16"], cam_err["plain_bf16"]
+    check(np.isfinite(cams[0]).all() and cams[0].max() > 0.5
+          and all(k[key] <= VIS_CAM_FACTOR * p[key]
+                  for key in ("cam_max_abs", "cam_mean_abs", "grads_rel_l2"))
+          and cam_err["kernels_fp32"]["cam_max_abs"] <= SF_CAM_TOL,
+          f"Grad-CAM, kernels against the plain versions' fp32 map: {cam_err}")
+    check(max(sf_err) <= SF_CAM_TOL and min(g.max() for g in got) > 0.5,
+          f"SlowFast Grad-CAM card vs CPU: {sf_err}")
+    return {"launches": launches}
+
+
+def phase_mae_vis(corpus):
+    """MAE's reconstruction renders: the ViT-B MAE recipe's test of 8
+    decoded clips under VIS_MASK.ENABLE through run_net, every flash call
+    held; one mp4 a clip, which cv2 reads back as T frames of H x 3W."""
+    from slowfast_tpu_torch import run_net
+
+    t_phase = time.perf_counter()
+    n = 8
+    out_dir = os.path.join(OUT_DIR, "mae_vis")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    data_dir = os.path.join(corpus, "mae_vis")
+    os.makedirs(data_dir, exist_ok=True)
+    videos = open(os.path.join(corpus, "videos.csv")).read().splitlines()
+    with open(os.path.join(data_dir, "test.csv"), "w") as f:
+        f.writelines(v + "\n" for v in videos[:n])
+    opts = ["NUM_GPUS", "1", "TRAIN.ENABLE", "False", "TEST.ENABLE", "True",
+            "TEST.DATASET", "kinetics", "DATA.PATH_TO_DATA_DIR", data_dir,
+            "TEST.BATCH_SIZE", str(n), "TEST.NUM_ENSEMBLE_VIEWS", "1",
+            "TEST.NUM_SPATIAL_CROPS", "1", "VIS_MASK.ENABLE", "True",
+            "DATA_LOADER.NUM_WORKERS", "8"]
+    cfg = family_cfg(MAE_YAML, opts[2:], "mae_vis")
+    blocks = masked_blocks(cfg)
+    vid_dir = os.path.join(out_dir, "vis_mask", "vid")
+    with removed_after(vid_dir):
+        reset_launches()
+        t0 = time.perf_counter()
+        with FlashShadow() as shadow:
+            run_net.main(["--cfg", MAE_YAML, "--opts", *opts, "OUTPUT_DIR", out_dir])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        names = sorted(os.listdir(vid_dir))
+        shapes = {}
+        for name in names:
+            frames = read_video(os.path.join(vid_dir, name))
+            shapes[name] = [len(frames)] + (list(frames[0].shape) if frames else [])
+    shown = cfg.DATA.NUM_FRAMES // cfg.MVIT.PATCH_STRIDE[0] if cfg.MASK.TIME_STRIDE_LOSS \
+        else cfg.DATA.NUM_FRAMES
+    crop = cfg.DATA.TEST_CROP_SIZE
+    emit({"phase": "mae_vis", "clips": n, "blocks": blocks, "videos": names, "shapes": shapes,
+          "launches": launches, "flash_shadow_checks": shadow.stats, "run_s": run_s,
+          "phase_s": time.perf_counter() - t_phase})
+    check(names == [f"vis_mask_mr{cfg.AUG.MASK_RATIO}_0_{i}.mp4" for i in range(n)],
+          f"mae_vis videos {names}")
+    check(all(s == [shown, crop, 3 * crop, 3] for s in shapes.values()),
+          f"mae_vis frames {shapes}, want {shown} of {crop} x {3 * crop}")
+    check(only_launched(launches, ("attention_flash",), blocks)
+          and launches["preprocess_u8"] == 1, f"mae_vis launches {launches}")
+    shadow.check("mae_vis", blocks, 0)
+    return {"launches": launches}
+
+
+def read_video(path, limit=None):
+    """The frames of ``path`` (the first ``limit``), BGR uint8."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    ok, frame = cap.read()
+    while ok and (limit is None or len(frames) < limit):
+        frames.append(frame)
+        ok, frame = cap.read()
+    cap.release()
+    return frames
+
+
+def demo_frames(n_frames, seq, buffer):
+    """The frames the demo writes for ``n_frames`` input frames, clips of
+    ``seq`` and ``buffer`` frames of overlap, as the JAX package's
+    VideoManager reads and writes them: the first clip writes ``seq``, each
+    later one ``seq - buffer``."""
+    if n_frames < seq:
+        return 0
+    return seq + (n_frames - seq) // (seq - buffer) * (seq - buffer)
+
+
+def phase_demo_slice(corpus):
+    """The demo through run_net on SlowFast 4x16 R50 in bf16 over one corpus
+    mp4 (a clip every 8 frames): once plain and once with the threaded
+    reader and two clips in flight (AsyncPredictor), the same predictions;
+    the frames written as the JAX demo writes them; the first clip's fp32
+    prediction card against CPU; the p50 clip latency. Then the AVA live
+    demo (SLOWFAST_32x2_R50_SHORT with the motion proposals: ROIAlign on
+    every clip) and the precomputed-box visualizer on a csv of boxes and
+    ground truth."""
+    import csv
+
+    from slowfast_tpu_torch import run_net
+    from slowfast_tpu_torch.visualization import demo
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(OUT_DIR, "demo_slice")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    src = open(os.path.join(corpus, "videos.csv")).readline().split()[0]
+    n_frames = len(read_video(src))
+    recorded = []
+
+    class Recording(demo.Predictor):
+        def __call__(self, task):
+            t0 = time.perf_counter()
+            task = super().__call__(task)
+            recorded[-1].append((task.id, task.action_preds, (time.perf_counter() - t0) * 1e3))
+            return task
+
+    base = ["NUM_GPUS", "1", "TRAIN.ENABLE", "False", "TEST.ENABLE", "False", "DEMO.ENABLE",
+            "True", "DEMO.INPUT_VIDEO", src, "OUTPUT_DIR", out_dir]
+    runs = {}
+    real = demo.Predictor
+    demo.Predictor = Recording
+    try:
+        for name, extra in (("plain", ["DEMO.THREAD_ENABLE", "False", "DEMO.NUM_VIS_INSTANCES",
+                                       "1"]),
+                            ("threaded", ["DEMO.THREAD_ENABLE", "True",
+                                          "DEMO.NUM_VIS_INSTANCES", "2"])):
+            recorded.append([])
+            out = os.path.join(out_dir, f"{name}.mp4")
+            reset_launches()
+            t0 = time.perf_counter()
+            run_net.main(["--cfg", YAML, "--opts", *base, "DEMO.BUFFER_SIZE", str(DEMO_BUFFER),
+                          "DEMO.OUTPUT_FILE", out, *extra])
+            runs[name] = {"wall_s": time.perf_counter() - t0, "launches": read_launches(),
+                          "clips": [r[0] for r in recorded[-1]],
+                          "clip_ms": [r[2] for r in recorded[-1]],
+                          "frames": len(read_video(out))}
+        plain, threaded = ({i: p for i, p, _ in rec} for rec in recorded)
+    finally:
+        demo.Predictor = real
+    preds_err = max(float(np.abs(plain[i] - threaded[i]).max()) for i in plain)
+    cfg = slowfast_cfg(["DEMO.BUFFER_SIZE", str(DEMO_BUFFER)])
+    seq = cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE
+    want_frames = demo_frames(n_frames, seq, DEMO_BUFFER)
+
+    # The first clip's prediction in fp32, card against CPU.
+    fcfg = slowfast_cfg(["TPU.COMPUTE_DTYPE", "float32"])
+    task = demo.TaskInfo()
+    task.frames = read_video(src, seq)
+    cpu_pred = demo.Predictor(fcfg, "cpu")
+    randomize_bn(cpu_pred.model, 7)
+    temper_head(cpu_pred.model, np.random.RandomState(8).randint(
+        0, 256, (1, fcfg.DATA.NUM_FRAMES, fcfg.DATA.TEST_CROP_SIZE, fcfg.DATA.TEST_CROP_SIZE, 3)
+    ).astype(np.uint8), fcfg)
+    card_pred = demo.Predictor(fcfg, "cuda")
+    card_pred.model.load_state_dict(cpu_pred.model.state_dict(), strict=True)
+    want = cpu_pred(task).action_preds
+    with no_tf32():
+        got = card_pred(task).action_preds
+    fp32_err = float(np.abs(got - want).max())
+    del cpu_pred, card_pred
+
+    # AVA: the live demo on the motion proposals, then precomputed boxes.
+    ava = {}
+    ava_base = base + ["DEMO.NUM_VIS_INSTANCES", "1"]
+    reset_launches()
+    t0 = time.perf_counter()
+    run_net.main(["--cfg", DET_YAML, "--opts", *ava_base, "DEMO.BUFFER_SIZE", str(DEMO_BUFFER),
+                  "DEMO.OUTPUT_FILE", os.path.join(out_dir, "ava_live.mp4")])
+    ava["live"] = {"wall_s": time.perf_counter() - t0, "launches": read_launches(),
+                   "frames": len(read_video(os.path.join(out_dir, "ava_live.mp4")))}
+    boxes, gt = os.path.join(out_dir, "boxes.csv"), os.path.join(out_dir, "gt.csv")
+    with open(boxes, "w") as f:
+        csv.writer(f).writerows([["v", 900, 0.1, 0.1, 0.5, 0.9, 0.95],
+                                 ["v", 900, 0.4, 0.2, 0.9, 0.95, 0.9]])
+    with open(gt, "w") as f:
+        csv.writer(f).writerows([["v", 900, 0.1, 0.1, 0.5, 0.9, 12],
+                                 ["v", 900, 0.1, 0.1, 0.5, 0.9, 17]])
+    reset_launches()
+    t0 = time.perf_counter()
+    run_net.main(["--cfg", DET_YAML, "--opts", *ava_base, "DEMO.PREDS_BOXES", boxes,
+                  "DEMO.GT_BOXES", gt, "DEMO.OUTPUT_FILE", os.path.join(out_dir, "ava_boxes.mp4")])
+    ava["boxes"] = {"wall_s": time.perf_counter() - t0, "launches": read_launches(),
+                    "frames": len(read_video(os.path.join(out_dir, "ava_boxes.mp4")))}
+    det_cfg_ = slowfast_cfg([], DET_YAML)
+    det_seq = det_cfg_.DATA.NUM_FRAMES * det_cfg_.DATA.SAMPLING_RATE
+    live_clips = len(range(0, n_frames - det_seq + 1, det_seq - DEMO_BUFFER))
+    for f in ("plain.mp4", "threaded.mp4", "ava_live.mp4", "ava_boxes.mp4"):
+        os.remove(os.path.join(out_dir, f))
+    row = {"phase": "demo_slice", "video_frames": n_frames, "seq": seq,
+           "buffer": DEMO_BUFFER, "frames_written_want": want_frames, "runs": runs,
+           "clip_p50_ms": statistics.median(runs["plain"]["clip_ms"]),
+           "threaded_clip_p50_ms": statistics.median(runs["threaded"]["clip_ms"]),
+           "threaded_vs_plain_max_abs": preds_err, "tol": DEMO_TOL,
+           "fp32_card_vs_cpu_max_abs": fp32_err, "fp32_tol": FULL_WIDTH_ATOL,
+           "fp32_max_prob": float(want.max()), "ava": ava, "ava_live_clips": live_clips,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    n_clips = len(range(0, n_frames - seq + 1, seq - DEMO_BUFFER))
+    for name, run in runs.items():
+        check(run["frames"] == want_frames and run["clips"] == list(range(n_clips))
+              and run["launches"]["preprocess_u8"] == 0
+              and only_launched(run["launches"], (), 0), f"demo {name}: {run}")
+    check(preds_err <= DEMO_TOL, f"threaded demo vs plain: {preds_err}")
+    check(fp32_err <= FULL_WIDTH_ATOL and want.max() < 0.5, f"demo fp32 card vs CPU {fp32_err}")
+    live, boxed = ava["live"], ava["boxes"]
+    check(live["frames"] == demo_frames(n_frames, det_seq, DEMO_BUFFER)
+          and live["launches"]["roi_align"] == 2 * live_clips, f"AVA live demo {live}")
+    check(boxed["frames"] == n_frames // det_seq * det_seq
+          and boxed["launches"]["roi_align"] == 2, f"AVA precomputed boxes {boxed}")
+    return {"launches": {k: live["launches"][k] + boxed["launches"][k]
+                         for k in live["launches"]}}
+
+
+def phase_data_bench(corpus):
+    """The data-loading benchmark (utils/benchmark.py) on the card's host:
+    benchmark_data_loading for one epoch of SlowFast 4x16's train loader
+    over 64 decoded clips (8 workers, batches of 16 landing on the card),
+    and benchmark_core_budget, one worker's items over the same mp4s."""
+    from slowfast_tpu_torch.utils.benchmark import benchmark_core_budget, benchmark_data_loading
+
+    t_phase = time.perf_counter()
+    data = kinetics_split(corpus, "data_bench", BENCH_CLIPS)
+    out_dir = os.path.join(OUT_DIR, "data_bench")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = family_cfg(YAML, data + ["TRAIN.BATCH_SIZE", str(CNN_TRAIN_CLIPS),
+                                   "DATA_LOADER.NUM_WORKERS", "8", "BENCHMARK.NUM_EPOCHS", "1",
+                                   "BENCHMARK.LOG_PERIOD", "1", "BENCHMARK.SHUFFLE", "True"],
+                     "data_bench")
+    rates = benchmark_data_loading(cfg, "cuda")
+    with open(os.path.join(out_dir, "json_stats.log")) as f:
+        records = [json.loads(line.split("json_stats: ", 1)[1]) for line in f]
+    budget = benchmark_core_budget(cfg, n_samples=CORE_BUDGET_SAMPLES, corpus=data[3])
+    row = {"phase": "data_bench", "clips": BENCH_CLIPS, "batch": CNN_TRAIN_CLIPS, "workers": 8,
+           "clips_per_s": rates[0], "batch_clips_per_s": [r["clips_per_s"] for r in records],
+           "core_budget": budget, "core_budget_samples": CORE_BUDGET_SAMPLES,
+           "host_cores": os.cpu_count(), "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check([(r["_type"], r["epoch"], r["iter"]) for r in records]
+          == [("benchmark", 0, i + 1) for i in range(BENCH_CLIPS // CNN_TRAIN_CLIPS)]
+          and all(r["clips_per_s"] > 0 for r in records), f"data_bench records {records}")
+    check(budget["clips_per_core_sec"] > 0, f"core budget {budget}")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -5858,6 +6369,10 @@ def main():
         phase_ssl_family(corpus)
         phase_ssl_ddp(corpus)
         family["ptv"] = phase_ptv_recipes(corpus)
+        family["vis_tools"] = phase_vis_tools()
+        family["mae_vis"] = phase_mae_vis(corpus)
+        family["demo"] = phase_demo_slice(corpus)
+        phase_data_bench(corpus)
     phase_ssl_fp32()
     phase_masked_fp32()
     family["rev_mvit"] = phase_rev_mvit_train_slice()
@@ -5882,7 +6397,9 @@ def main():
     # are float images, as in JAX), of the data-parallel runs (the
     # launcher's two runs: 4 steps, 4 precise-BN and 4 val batches each),
     # and of the pytorchvideo SlowFast run (4 steps, 4 precise-BN batches,
-    # its val batch; its float run launches none) and the PTVMViT forward.
+    # its val batch; its float run launches none) and the PTVMViT forward,
+    # and of the visualize tool (the test's and its own batches, the first
+    # batch again for the activations and Grad-CAM) and MAE's renders.
     lines = [{
         "name": "preprocess_u8", "route": "cuda",
         "source": "slowfast_tpu_torch/csrc/preprocess.cu",
@@ -5891,7 +6408,7 @@ def main():
         + (data_launches["preprocess_u8"] if data_launches else 0)
         + sum(family[k]["launches"]["preprocess_u8"]
               for k in ("maskfeat", "mae", "finetune", "linear", "ptv", "rev_mvit",
-                        "multigrid"))
+                        "multigrid", "vis_tools", "mae_vis"))
         + ddp["launches"]["preprocess_u8"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
@@ -5905,8 +6422,10 @@ def main():
     # path only under TPU.PALLAS_ATTENTION, so its launches are those of
     # phase mvit_train_fused's bf16 exact step. The masked pretraining runs
     # (MaskFeat, MAE), the fine-tune, Rev-MViT's run (29 forwards and 16
-    # backwards a train step) and the ImageNet runs (MViTv2-S on the 2D
-    # stem, 2D MaskFeat) count in the family's.
+    # backwards a train step), the ImageNet runs (MViTv2-S on the 2D stem,
+    # 2D MaskFeat) and the tools (the visualize tool's test and eval
+    # batches, activations and Grad-CAM, whose backward runs row 7; MAE's
+    # renders) count in the family's.
     family_fwd = sum(f["launches"]["attention_flash"] for f in family.values())
     family_bwd = sum(f["launches"]["attention_flash_bwd"] for f in family.values())
     for core, source, replaces, n in (
@@ -5961,14 +6480,15 @@ def main():
     # ROIAlign (a hand kernel beyond the TPU's: the JAX package's is plain
     # XLA): per SLOWFAST_32x2_R50_SHORT train forward at 16 clips in bf16,
     # summed over its two pathways; launches are det_train_slice's, two a
-    # forward batch and two a train step's backward, and mvit_det's one and
-    # one.
+    # forward batch and two a train step's backward, mvit_det's one and
+    # one, and the AVA demos' two a clip with boxes.
     for name, part in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
         tot = roi["per_forward"][part]
         lines.append({
             "name": name, "route": "cuda", "source": "slowfast_tpu_torch/csrc/roi_align.cu",
             "replaces": "slowfast_tpu/ops/roi_align.py:106",
-            "launches": det["launches"][name] + family["mvit_det"]["launches"][name],
+            "launches": det["launches"][name] + family["mvit_det"]["launches"][name]
+            + family["demo"]["launches"][name],
             "max_abs_err": roi["max_abs_err"][part], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": None,

@@ -9,8 +9,10 @@ scores the predictions of every real box with ``AVAMeter`` and returns
 ``{"map": ...}``. Over several ranks each tests its part of every batch;
 the real rows' predictions, labels and clip ids are gathered each
 iteration (the detections at the end), so every rank's meter sees every
-view, and the master logs. MAE's reconstruction renders
-(``VIS_MASK.ENABLE``) are not ported: asking for them raises.
+view, and the master logs. Under ``VIS_MASK.ENABLE`` (with ``MASK.ENABLE``
+and ``MASK.MAE_ON``) the test renders MAE's reconstructions in place of the
+metrics (``visualization/mae_vis.py``), as slowfast_tpu/engine/tester.py:89-93
+does.
 """
 
 import pickle
@@ -53,11 +55,6 @@ def test(cfg, device="cuda"):
             "TEST.ENABLE after an SSL pretrain (ContrastiveModel) has no test protocol: "
             "the pretrain is judged by its kNN probe and by linear_*/finetune_* transfer; "
             "set TEST.ENABLE False")
-    if cfg.VIS_MASK.ENABLE and cfg.MASK.ENABLE and cfg.MASK.MAE_ON:
-        # slowfast_tpu/engine/tester.py:89-93 renders them in place of the
-        # metrics (ROADMAP Queue 1 #10).
-        raise NotImplementedError("VIS_MASK.ENABLE (MAE's reconstruction renders) is not "
-                                  "ported yet; set VIS_MASK.ENABLE False")
     du.check_world(cfg)
     device = resolve_device(device)
     logging_utils.setup_logging(cfg.OUTPUT_DIR)
@@ -91,8 +88,12 @@ def perform_detection_test(test_loader, eval_fn, meter):
 def test_one(cfg, device):
     model = build_model(cfg, device)
     cu.load_test_checkpoint(cfg, model)
-    eval_fn = make_eval_step(cfg, model)
     test_loader = construct_loader(cfg, "test", device)
+    if cfg.VIS_MASK.ENABLE and cfg.MASK.ENABLE and cfg.MASK.MAE_ON:
+        from slowfast_tpu_torch.visualization.mae_vis import run_mae_visualization
+
+        return run_mae_visualization(cfg, model, test_loader)
+    eval_fn = make_eval_step(cfg, model)
     if cfg.DETECTION.ENABLE:
         meter = AVAMeter(len(test_loader), cfg, mode="test")
         meter.set_video_idx_to_name(getattr(test_loader.dataset, "_video_idx_to_name", None))

@@ -7,15 +7,17 @@ matrix (whole, on a subset of classes, and one for each parent category)
 and each class's top-k histogram as matplotlib figures. The event files go
 to ``OUTPUT_DIR/runs-<TRAIN.DATASET>`` (or ``OUTPUT_DIR/TENSORBOARD.LOG_DIR``).
 ``torch.utils.tensorboard`` and matplotlib are imported when a writer or a
-figure is made, not with this module. The model and wrong-prediction
-visualizations (``TENSORBOARD.MODEL_VIS``, ``WRONG_PRED_VIS``) are not
-ported: ``run_net`` refuses them.
+figure or heatmap is made, not with this module: on a host without
+matplotlib a heatmap raises ``ImportError``, as the JAX package's does.
+The visualize tool (``visualization/vis.py``) adds videos, weight
+histograms and activation heatmaps through the same writer.
 """
 
 import json
 import os
 
 import numpy as np
+import torch
 
 from slowfast_tpu_torch.utils import logging as logging_utils
 
@@ -125,12 +127,49 @@ class TensorboardWriter:
                     name, cmtx[i], tb.HISTOGRAM.TOPK, self.class_names,
                     tb.HISTOGRAM.FIGSIZE), global_step=global_step)
 
+    def add_video(self, vid, tag="Video Input", global_step=None, fps=4):
+        """A ``(B, T, H, W, C)`` uint8 video batch."""
+        v = torch.from_numpy(np.ascontiguousarray(vid)).permute(0, 1, 4, 2, 3)
+        self.writer.add_video(tag, v, global_step=global_step, fps=fps)
+
+    def plot_weights_and_activations(self, params=None, activations=None, global_step=None,
+                                     tag="Model/"):
+        """A histogram of every leaf of ``params`` (a possibly nested dict
+        of arrays) and each of ``activations`` (named arrays) through
+        ``add_ndim_array``: 2-D and larger arrays as heatmaps."""
+        for name, leaf in _iter_leaves(params or {}):
+            self.writer.add_histogram(tag + "weights/" + name,
+                                      torch.from_numpy(np.asarray(leaf, np.float32)),
+                                      global_step=global_step)
+        for name, act in (activations or {}).items():
+            self.add_ndim_array(act, tag + "activations/" + name, global_step=global_step)
+
+    def add_ndim_array(self, array, name, global_step=None):
+        """A 0-D or 1-D array as a histogram; a larger one as the heatmap
+        (``add_heatmap``) of its first 2-D slice."""
+        arr = np.asarray(array, np.float32)
+        if arr.ndim <= 1:
+            self.writer.add_histogram(name, torch.from_numpy(arr), global_step=global_step)
+            return
+        while arr.ndim > 2:
+            arr = arr[0]
+        self.writer.add_image(name, add_heatmap(arr), global_step=global_step)
+
     def flush(self):
         self.writer.flush()
 
     def close(self):
         self.writer.flush()
         self.writer.close()
+
+
+def _iter_leaves(tree, prefix=""):
+    """``(path, leaf)`` of a nested dict, the path's keys joined by ``/``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _iter_leaves(v, prefix + str(k) + "/")
+    else:
+        yield prefix.rstrip("/"), tree
 
 
 def get_confusion_matrix(preds, labels, num_classes):
@@ -185,3 +224,16 @@ def plot_topk_histogram(class_name, row, k, class_names=None, figsize=None):
     plt.title("Top-{} predictions for: {}".format(k, class_name))
     plt.tight_layout()
     return fig
+
+
+def add_heatmap(arr2d):
+    """A 2-D array, min-max scaled, as a ``(3, H, W)`` float viridis image
+    (a constant array is all zeros before the colormap)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    arr = np.asarray(arr2d, np.float64)
+    lo, hi = arr.min(), arr.max()
+    arr = (arr - lo) / (hi - lo) if hi > lo else np.zeros_like(arr)
+    rgba = matplotlib.colormaps["viridis"](arr)
+    return np.transpose(rgba[:, :, :3], (2, 0, 1)).astype(np.float32)

@@ -17,9 +17,12 @@ package on the CPU:
   after the saved one and the saved momentum, with it ``True`` epoch 0 and
   a fresh optimizer, as JAX's ``load_train_checkpoint`` gives for its own
   checkpoint of the same state;
-* the options that the port refuses (ROADMAP Queue 3 #31): the visualize
-  tool, the demo and MAE's reconstruction renders; more ranks than cards;
-  a config of 2 ranks trained in a process that is not one of them.
+* the tools that the port refused until they were ported (ROADMAP Queue 3
+  #31): ``run_net`` now reaches the visualize tool and the demo, and the
+  test MAE's reconstruction renders (the tools themselves are held in
+  tests/test_torch_{vis_tools,gradcam,demo,mae_vis}.py); the options the
+  port refuses: more ranks than cards, a config of 2 ranks trained in a
+  process that is not one of them.
 """
 
 import os
@@ -251,29 +254,43 @@ def test_train_checkpoint_resumes_as_jax(tmp_path, reset):
             torch.testing.assert_close(t, model.state_dict()[name], rtol=0, atol=0)
 
 
-# --- refusals (#31) and the launcher's checks -------------------------------------
+# --- the tools once refused (#31) and the launcher's checks -----------------------
 
-@pytest.mark.parametrize("opts,match", [
-    (["TENSORBOARD.ENABLE", "True", "TENSORBOARD.MODEL_VIS.ENABLE", "True"], "MODEL_VIS"),
+@pytest.mark.parametrize("opts,tool", [
+    (["TENSORBOARD.ENABLE", "True", "TENSORBOARD.MODEL_VIS.ENABLE", "True"], "visualize"),
     (["TENSORBOARD.ENABLE", "True", "TENSORBOARD.WRONG_PRED_VIS.ENABLE", "True"],
-     "WRONG_PRED_VIS"),
-    (["DEMO.ENABLE", "True"], "DEMO.ENABLE"),
+     "visualize"),
+    (["DEMO.ENABLE", "True"], "demo"),
 ])
-def test_unported_tools_raise(tmp_path, opts, match):
+def test_unported_tools_raise(tmp_path, monkeypatch, opts, tool):
+    """The tools that raised here until they were ported: ``run_net`` now
+    calls each, on its ``--device``, after the test."""
     from slowfast_tpu_torch.run_net import main
+    from slowfast_tpu_torch.visualization import demo, vis
 
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--device", "cpu", "--opts", "TRAIN.ENABLE", "False", "TEST.ENABLE", "False",
-              "OUTPUT_DIR", str(tmp_path), *opts])
+    called = []
+    monkeypatch.setattr(vis, "visualize", lambda cfg, device: called.append(("visualize", device)))
+    monkeypatch.setattr(demo, "demo", lambda cfg, device: called.append(("demo", device)))
+    main(["--device", "cpu", "--opts", "TRAIN.ENABLE", "False", "TEST.ENABLE", "False",
+          "OUTPUT_DIR", str(tmp_path), *opts])
+    assert called == [(tool, "cpu")]
 
 
-def test_mae_reconstruction_renders_raise(tmp_path):
+def test_mae_reconstruction_renders_raise(tmp_path, monkeypatch):
+    """MAE's renders, which raised here until they were ported: the test
+    now hands its model and loader to ``run_mae_visualization`` in place
+    of the metrics."""
     from slowfast_tpu_torch.engine.tester import test
+    from slowfast_tpu_torch.visualization import mae_vis
 
-    cfg = cfg_of(get_cfg, ["MASK.ENABLE", "True", "MASK.MAE_ON", "True", "VIS_MASK.ENABLE",
-                           "True", "OUTPUT_DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="VIS_MASK.ENABLE"):
-        test(cfg, "cpu")
+    monkeypatch.setattr(mae_vis, "run_mae_visualization",
+                        lambda cfg, model, loader: {"rendered": len(loader)})
+    cfg = cfg_of(get_cfg, SLOW + ["MASK.ENABLE", "True", "MASK.MAE_ON", "True",
+                                  "VIS_MASK.ENABLE", "True", "TEST.DATASET", "syntheticvideo",
+                                  "DATA.SYNTHETIC_SIZE", "4", "TEST.BATCH_SIZE", "2",
+                                  "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "1",
+                                  "DATA.TEST_CROP_SIZE", "32", "OUTPUT_DIR", str(tmp_path)])
+    assert test(cfg, "cpu") == [{"rendered": 2}]
 
 
 def test_more_ranks_than_cards_raise(tmp_path):

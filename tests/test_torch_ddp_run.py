@@ -13,9 +13,18 @@ held in tests/test_torch_ddp*.py), and the one process's test of the 2-rank
 run's checkpoint gives the same per-video scores (within 1e-6) and
 accuracies as the 2-rank test. Only the master writes the logs and
 checkpoints.
+
+Every launch of a job meets at a rendezvous of its own: the second
+``run_net`` launches training and then the test on one ``file://`` path,
+whose store file a group can leave behind with its ranks' addresses.
+``test_two_launches_on_one_file_rendezvous_meet`` makes the first group
+leave its store file and checks that the second launch on the same path
+meets all the same.
 """
 
+import functools
 import json
+import os
 import pickle
 
 import numpy as np
@@ -23,6 +32,9 @@ import pytest
 import torch
 
 from ddp_harness import params_and_buffers, rel_l2
+
+from slowfast_tpu_torch.config import get_cfg
+from slowfast_tpu_torch.utils.multiprocessing import fresh_rendezvous, launch_job, store_file
 
 OPTS = ["MODEL.MODEL_NAME", "ResNet", "MODEL.ARCH", "slow", "RESNET.DEPTH", "18",
         "RESNET.WIDTH_PER_GROUP", "8", "RESNET.NUM_BLOCK_TEMP_KERNEL", "[[2],[2],[2],[2]]",
@@ -96,3 +108,41 @@ def test_two_rank_test_matches_one_process_on_its_checkpoint(runs):
     np.testing.assert_array_equal(got[1], want[1])
     final = lambda d: [s for s in logged(d) if s["_type"] == "test_final"]  # noqa: E731
     assert final(runs["two"]) == final(runs["test_dir"])
+
+
+def _meet(leave, out_dir, cfg, device):
+    """One rank: all-reduce its rank + 1 and write the sum; with ``leave``,
+    end the process without leaving the group, so its store file stays."""
+    import torch.distributed as dist
+
+    x = torch.tensor([dist.get_rank() + 1.0])
+    dist.all_reduce(x)
+    with open(os.path.join(out_dir, f"{os.path.basename(cfg.INIT_METHOD)}.{dist.get_rank()}"),
+              "w") as f:
+        f.write(str(x.item()))
+    if leave:
+        os._exit(0)
+
+
+def test_two_launches_on_one_file_rendezvous_meet(tmp_path):
+    cfg = get_cfg()
+    cfg.NUM_GPUS = 2
+    cfg.INIT_METHOD = f"file://{tmp_path}/rendezvous"
+    for leave in (True, False):
+        launch_job(cfg, "cpu", functools.partial(_meet, leave, str(tmp_path)))
+    sums = {p.name: p.read_text() for p in tmp_path.iterdir()}
+    assert sorted(sums.values()) == ["3.0"] * 4 and len({n[:-2] for n in sums}) == 2, sums
+
+
+def test_fresh_rendezvous_names_each_launch(tmp_path):
+    cfg = get_cfg()
+    cfg.INIT_METHOD = "tcp://localhost:9999"
+    assert fresh_rendezvous(cfg).INIT_METHOD == "tcp://localhost:9999"
+    cfg.INIT_METHOD = f"file://{tmp_path}/rendezvous"
+    first, second = fresh_rendezvous(cfg), fresh_rendezvous(cfg)
+    assert first.INIT_METHOD != second.INIT_METHOD and cfg.INIT_METHOD.endswith("rendezvous")
+    assert store_file(first).startswith(f"{tmp_path}/rendezvous.")
+    left = store_file(cfg) + "." + str(int(store_file(second).rsplit(".", 1)[1]) + 1)
+    with open(left, "w") as f:
+        f.write("an earlier group's store")
+    assert store_file(fresh_rendezvous(cfg)) == left and not os.path.exists(left)
