@@ -11,6 +11,7 @@ each video that have a box, at frame ``(sec - 900) * 30``.
 import os
 
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.io import pathmgr
 
 logger = logging_utils.get_logger(__name__)
 
@@ -26,7 +27,7 @@ def load_image_lists(cfg, is_train):
     image_paths = {}
     video_idx_to_name = []
     for list_filename in list_filenames:
-        with open(list_filename) as f:
+        with pathmgr.open(list_filename) as f:
             f.readline()  # header
             for line in f:
                 row = line.split()
@@ -52,7 +53,7 @@ def load_boxes_and_labels(cfg, mode):
     all_boxes = {}
     count = unique = 0
     for filename, gt in zip(filenames, is_gt):
-        with open(filename) as f:
+        with pathmgr.open(filename) as f:
             for line in f:
                 row = line.strip().split(",")
                 if not gt and float(row[7]) < cfg.AVA.DETECTION_SCORE_THRESH:

@@ -16,6 +16,7 @@ from collections import defaultdict
 import numpy as np
 
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.io import pathmgr
 from . import utils
 
 logger = logging_utils.get_logger(__name__)
@@ -25,7 +26,7 @@ def read_frame_lists(path_to_file, path_prefix):
     """``{video: [frame paths]}`` and ``{video: [row's last field]}`` of a
     frame-list csv, in file order."""
     paths, fields = defaultdict(list), defaultdict(list)
-    with open(path_to_file) as f:
+    with pathmgr.open(path_to_file) as f:
         f.readline()
         for line in f:
             row = line.split()

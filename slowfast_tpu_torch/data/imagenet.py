@@ -25,6 +25,7 @@ import numpy as np
 
 from slowfast_tpu_torch.models.mvit import maskfeat_feature_size
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.io import pathmgr
 from . import transform, utils
 from .rand_augment import rand_augment_transform
 from .random_erasing import RandomErasing
@@ -66,7 +67,7 @@ class Imagenet(utils.SeededDataset):
         cfg = self.cfg
         if cfg.DATA.PATH_TO_PRELOAD_IMDB:
             path = os.path.join(cfg.DATA.PATH_TO_PRELOAD_IMDB, f"{self.mode}.json")
-            with open(path) as f:
+            with pathmgr.open(path) as f:
                 self._imdb = json.load(f)
             logger.info("Loaded imagenet imdb (size: %d) from %s", len(self._imdb), path)
             return

@@ -49,6 +49,8 @@ import os
 import numpy as np
 
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.io import pathmgr
+
 from . import decoder, transform, utils
 from .imagenet import maskfeat_mask
 from .rand_augment import rand_augment_transform
@@ -128,12 +130,12 @@ class Kinetics(utils.SeededDataset):
         ``SKIP_ROWS`` each epoch."""
         cfg = self.cfg
         path_to_file = os.path.join(cfg.DATA.PATH_TO_DATA_DIR, f"{self.mode}.csv")
-        if not os.path.exists(path_to_file):
+        if not pathmgr.exists(path_to_file):
             raise FileNotFoundError(f"{path_to_file} not found")
         chunk = cfg.DATA.LOADER_CHUNK_SIZE if self.mode == "train" else 0
         skip = cfg.DATA.SKIP_ROWS if chunk > 0 else 0
         self._path_to_videos, self._labels, self._spatial_temporal_idx = [], [], []
-        with open(path_to_file) as f:
+        with pathmgr.open(path_to_file) as f:
             for row, line in enumerate(f):
                 if chunk > 0 and not skip <= row < skip + chunk:
                     continue

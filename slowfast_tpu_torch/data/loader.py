@@ -1,9 +1,12 @@
 """Train, val and test loaders (counterpart of slowfast_tpu/data/loader.py:29-305).
 
-Samples are made by a thread pool a few batches ahead (numpy's generators
-release the GIL while they fill an array), stacked into NTHWC batches
-(uint8 clips, or the float pathways of the AVA dataset), and sent to the
-device from pinned memory with a non-blocking copy, with the padded boxes
+Samples are made by a thread pool ``TPU.PREFETCH + 1`` batches ahead
+(numpy's generators release the GIL while they fill an array), stacked
+into NTHWC batches (uint8 clips, or the float pathways of the AVA dataset)
+and sent to the device from pinned memory with a non-blocking copy on a
+background thread and, on the card, a side stream (``parallel/prefetch.py``
+``DevicePrefetcher``, up to ``max(TPU.PREFETCH, 1)`` batches ahead of the
+consumer, as the JAX loader's producer thread), with the padded boxes
 and box mask of a detection batch (``detection_collate``) and the masks of
 a masked-pretraining batch (``AUG.GEN_MASK_LOADER``); an SSL train batch
 (``ssl_collate``) is a tuple of views, each a list of pathways. Labels, clip ids
@@ -39,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from slowfast_tpu_torch.parallel.prefetch import DevicePrefetcher, to_device
 from slowfast_tpu_torch.utils import distributed as du
 
 from .ava_dataset import Ava
@@ -52,7 +56,6 @@ from .ssv2 import Ssv2
 DATASET_REGISTRY = {"Syntheticvideo": Syntheticvideo, "Kinetics": Kinetics,
                     "Ptvkinetics": Kinetics, "Charades": Charades, "Ptvcharades": Charades,
                     "Ssv2": Ssv2, "Ptvssv2": Ssv2, "Ava": Ava, "Imagenet": Imagenet}
-PREFETCH = 2  # batches in the making beyond the one being consumed
 # Per-clip box counts are padded up to one of these (multiples of the last
 # beyond it), so a detection step sees a few shapes only.
 _BOX_BUCKETS = (4, 8, 16, 32)
@@ -182,12 +185,17 @@ class Loader:
     batch a list of ``(index, cycle position)`` items. ``batch_size`` and
     ``cycle_batches`` are global: with ``world`` > 1 this loader yields
     rank ``rank``'s rows of each (``rank_rows``), the last partial batch
-    padded for every rank.
+    padded for every rank. ``prefetch`` (``TPU.PREFETCH``): the samples of
+    ``prefetch + 1`` batches are made at once, and ``prefetcher``
+    (``parallel.prefetch.DevicePrefetcher``, or ``staged_inline`` to stage
+    on the consumer's thread) collates and moves up to ``max(prefetch, 1)``
+    batches ahead of the consumer; ``stage_with`` runs a consumer's own
+    staging there too.
     """
 
     def __init__(self, dataset, batch_size, device, num_workers=1, shuffle=False,
                  drop_last=False, seed=0, collate_fn=collate, cycle_batches=None,
-                 rank=0, world=1, num_shards=1):
+                 rank=0, world=1, num_shards=1, prefetch=2, prefetcher=DevicePrefetcher):
         if world > 1 and (batch_size % world or world % num_shards):
             raise ValueError(f"the global batch of {batch_size} does not split over "
                              f"{world} ranks on {num_shards} hosts")
@@ -201,6 +209,8 @@ class Loader:
         self.collate_fn = collate_fn
         self.cycle_batches = cycle_batches
         self.rank, self.world, self.num_shards = rank, world, num_shards
+        self.prefetch = max(int(prefetch), 0)
+        self.prefetcher = prefetcher
         self.epoch = 0
 
     def set_epoch(self, epoch):
@@ -240,19 +250,15 @@ class Loader:
             out.append(([batch[i] for i in rows], sum(i < n for i in rows)))
         return out
 
-    def _to_device(self, x):
-        t = torch.from_numpy(x)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
-    def __iter__(self):
+    def _host_batches(self):
+        """This rank's collated host batches, the samples of ``prefetch + 1``
+        batches in the making on the thread pool."""
         batches = iter(self._rank_batches())
         pool = ThreadPoolExecutor(self.num_workers)
         window = deque()
         try:
             while True:
-                while len(window) <= PREFETCH:
+                while len(window) <= self.prefetch:
                     idx, num_real = next(batches, (None, 0))
                     if idx is None:
                         break
@@ -265,19 +271,37 @@ class Loader:
                     [f.result() for f in futures])
                 if self.world > 1:
                     meta["num_real"] = num_real
-                meta = {k: self._to_device(v) if k in DEVICE_META else v
-                        for k, v in meta.items()}
-                if isinstance(inputs, tuple):  # SSL views
-                    inputs = tuple([self._to_device(x) for x in view] for view in inputs)
-                else:
-                    inputs = [self._to_device(x) for x in inputs]
                 yield inputs, labels, index, times, meta
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
+    def _stage(self, batch):
+        """The batch with its inputs and ``DEVICE_META`` on the device."""
+        inputs, labels, index, times, meta = batch
+        meta = {k: to_device(v, self.device) if k in DEVICE_META else v
+                for k, v in meta.items()}
+        if isinstance(inputs, tuple):  # SSL views
+            inputs = tuple([to_device(x, self.device) for x in view] for view in inputs)
+        else:
+            inputs = [to_device(x, self.device) for x in inputs]
+        return inputs, labels, index, times, meta
 
-def construct_loader(cfg, split, device="cuda"):
-    """The loader of ``split`` (``train``, ``val`` or ``test``)."""
+    def __iter__(self):
+        return self.stage_with(None)
+
+    def stage_with(self, then):
+        """The staged batches, or ``then(batch)`` of each: ``then`` runs
+        after the batch's copies, on the same thread and stream, so what it
+        moves (the trainer's labels, the SSL step's clip ids and times)
+        travels with the batch."""
+        stage = self._stage if then is None else lambda batch: then(self._stage(batch))
+        return iter(self.prefetcher(self._host_batches(), stage, max(self.prefetch, 1),
+                                    self.device))
+
+
+def construct_loader(cfg, split, device="cuda", prefetcher=DevicePrefetcher):
+    """The loader of ``split`` (``train``, ``val`` or ``test``); see
+    ``Loader`` for ``prefetcher``."""
     if split not in ("train", "val", "test"):
         raise ValueError(f"unknown split {split!r}")
     if split == "test":
@@ -307,7 +331,7 @@ def construct_loader(cfg, split, device="cuda"):
     return Loader(dataset, batch_size, device, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
                   shuffle=train, drop_last=train, seed=cfg.RNG_SEED, collate_fn=collate_fn,
                   cycle_batches=cycle_batches, rank=du.get_rank(), world=du.get_world_size(),
-                  num_shards=cfg.NUM_SHARDS)
+                  num_shards=cfg.NUM_SHARDS, prefetch=cfg.TPU.PREFETCH, prefetcher=prefetcher)
 
 
 def shuffle_dataset(loader, cur_epoch):

@@ -16,6 +16,7 @@ import os
 import numpy as np
 
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils.io import pathmgr
 from . import utils
 from .charades import clip_sampling, load_clip, read_frame_lists
 
@@ -31,10 +32,10 @@ class Ssv2(utils.SeededDataset):
         num_clips = (1 if mode in ("train", "val")
                      else cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS)
         root = cfg.DATA.PATH_TO_DATA_DIR
-        with open(os.path.join(root, "something-something-v2-labels.json")) as f:
+        with pathmgr.open(os.path.join(root, "something-something-v2-labels.json")) as f:
             label_dict = json.load(f)
         split = "train" if mode == "train" else "validation"
-        with open(os.path.join(root, f"something-something-v2-{split}.json")) as f:
+        with pathmgr.open(os.path.join(root, f"something-something-v2-{split}.json")) as f:
             videos = json.load(f)
         frame_lists, _ = read_frame_lists(
             os.path.join(root, f"{'train' if mode == 'train' else 'val'}.csv"),

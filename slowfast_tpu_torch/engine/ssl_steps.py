@@ -61,6 +61,7 @@ import torch.nn.functional as F
 from slowfast_tpu_torch.models import contrastive
 from slowfast_tpu_torch.models.contrastive import (dequeue_and_enqueue, ema_tensors, l2_normalize,
                                                    memory_update, momentum_update, sinkhorn)
+from slowfast_tpu_torch.parallel.prefetch import to_device
 from slowfast_tpu_torch.solver.losses import contrastive_loss
 from slowfast_tpu_torch.solver.lr_policy import make_epoch_lr_fn
 from slowfast_tpu_torch.solver.optimizer import get_grad_norm
@@ -331,7 +332,7 @@ def ssl_batch(views, index, times, device):
     only views 0 and 1 reach the step, whatever ``TRAIN_CROP_NUM_TEMPORAL``
     decodes; ``time`` is each clip's first view's position."""
     return {"inputs": views[0], "inputs2": views[1],
-            "index": torch.as_tensor(np.asarray(index), device=device),
-            "time": torch.as_tensor(
-                np.asarray(times, np.float32).reshape(len(index), -1)[:, 0], device=device)}
+            "index": to_device(np.asarray(index), device),
+            "time": to_device(np.ascontiguousarray(
+                np.asarray(times, np.float32).reshape(len(index), -1)[:, 0]), device)}
 

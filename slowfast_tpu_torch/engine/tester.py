@@ -25,6 +25,8 @@ from slowfast_tpu_torch.models.build import build_model, resolve_device
 from slowfast_tpu_torch.utils import checkpoint as cu
 from slowfast_tpu_torch.utils import distributed as du
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils import misc
+from slowfast_tpu_torch.utils.io import pathmgr
 from slowfast_tpu_torch.utils.meters import AVAMeter, TestMeter
 
 logger = logging_utils.get_logger(__name__)
@@ -87,6 +89,8 @@ def perform_detection_test(test_loader, eval_fn, meter):
 
 def test_one(cfg, device):
     model = build_model(cfg, device)
+    if cfg.LOG_MODEL_INFO and du.is_master_proc():
+        misc.log_model_info(model, cfg)
     cu.load_test_checkpoint(cfg, model)
     test_loader = construct_loader(cfg, "test", device)
     if cfg.VIS_MASK.ENABLE and cfg.MASK.ENABLE and cfg.MASK.MAE_ON:
@@ -113,6 +117,6 @@ def test_one(cfg, device):
     )
     perform_test(test_loader, eval_fn, test_meter)
     if cfg.TEST.SAVE_RESULTS_PATH and du.is_master_proc():
-        with open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:
+        with pathmgr.open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:
             pickle.dump([test_meter.video_preds, test_meter.video_labels], f)
     return dict(test_meter.stats)

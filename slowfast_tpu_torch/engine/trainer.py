@@ -49,6 +49,7 @@ and checkpoint cadences follow the schedule. Precise BN runs on the train
 loader, short cycle and all.
 """
 
+import itertools
 import math
 import pprint
 
@@ -61,12 +62,15 @@ from slowfast_tpu_torch.engine.ssl_steps import knn_eval, make_ssl_train_step, s
 from slowfast_tpu_torch.engine.steps import make_eval_step, make_train_step
 from slowfast_tpu_torch.models.build import build_model, resolve_device, set_generator
 from slowfast_tpu_torch.models.contrastive import init_ssl_state
+from slowfast_tpu_torch.parallel.prefetch import to_device
 from slowfast_tpu_torch.solver.optimizer import construct_optimizer
 from slowfast_tpu_torch.utils import checkpoint as cu
 from slowfast_tpu_torch.utils import distributed as du
 from slowfast_tpu_torch.utils import logging as logging_utils
+from slowfast_tpu_torch.utils import misc
 from slowfast_tpu_torch.utils.meters import AVAMeter, EpochTimer, TrainMeter, ValMeter
 from slowfast_tpu_torch.utils.metrics import topks_correct
+from slowfast_tpu_torch.utils.misc import is_eval_epoch
 from slowfast_tpu_torch.utils.multigrid import MultigridSchedule
 
 logger = logging_utils.get_logger(__name__)
@@ -93,7 +97,9 @@ def reduce_metrics(pending):
 def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg, writer=None):
     """One training epoch of ``step_fn`` on ``make_batch(cur_iter, item)``
     for each loader item, the metrics read back every ``LOG_PERIOD`` steps
-    (averaged over the ranks), and written to ``writer`` when given."""
+    (averaged over the ranks), and written to ``writer`` when given.
+    ``make_batch`` runs where the loader stages its batches
+    (``Loader.stage_with``), as JAX's ``_drive_epoch`` stages."""
     log_period = max(int(cfg.LOG_PERIOD), 1)
     data_size = len(train_loader)
     world = du.get_world_size()
@@ -103,8 +109,7 @@ def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg, writer
         reduce_metrics(pending)
         for it, m, bs in pending:
             loss = float(m["loss"])
-            if math.isnan(loss):  # reference misc.check_nan_losses
-                raise RuntimeError(f"ERROR: Got NaN losses at epoch {cur_epoch} iter {it}")
+            misc.check_nan_losses(loss, f" at epoch {cur_epoch} iter {it}")
             if isinstance(meter, AVAMeter):
                 meter.update_stats(None, None, None, loss, m["lr"])
             else:
@@ -119,12 +124,17 @@ def drive_epoch(train_loader, step_fn, make_batch, meter, cur_epoch, cfg, writer
             meter.log_iter_stats(cur_epoch, it)
         pending.clear()
 
+    numbers = itertools.count()  # the loader stages its batches in order
+
+    def stage(item):
+        cur_iter = next(numbers)
+        return cur_iter, make_batch(cur_iter, item), len(item[2]) * world
+
     meter.iter_tic()
-    for cur_iter, item in enumerate(train_loader):
+    for cur_iter, batch, bs in train_loader.stage_with(stage):
         meter.data_toc()
-        batch = make_batch(cur_iter, item)
         m = step_fn(batch)
-        pending.append((cur_iter, m, len(item[2]) * world))
+        pending.append((cur_iter, m, bs))
         meter.iter_toc()
         if (cur_iter + 1) % log_period == 0:
             flush()
@@ -141,7 +151,7 @@ def train_epoch(train_loader, step_fn, meter, cur_epoch, cfg, writer=None):
 
     def make_batch(cur_iter, item):
         inputs, labels, _, _, meta = item
-        batch = {"inputs": inputs, "labels": torch.from_numpy(labels).to(device, non_blocking=True),
+        batch = {"inputs": inputs, "labels": to_device(labels, device),
                  "epoch_exact": cur_epoch + cur_iter / data_size}
         if cfg.DETECTION.ENABLE:
             batch.update(boxes=meta["boxes"], box_mask=meta["box_mask"])
@@ -299,6 +309,8 @@ def train(cfg, device="cuda"):
     schedule = multigrid.schedule if multigrid is not None else None
 
     model = build_model(cfg, device)
+    if cfg.LOG_MODEL_INFO and du.is_master_proc():
+        misc.log_model_info(model, cfg)
     optimizer = construct_optimizer(model, cfg)
     start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
     mix_generator = torch.Generator().manual_seed(cfg.RNG_SEED)
@@ -376,12 +388,3 @@ def carry_over(cfg, model, optimizer, device):
     new_optimizer.load_state_dict(optimizer.state_dict())
     return new, new_optimizer
 
-
-def is_eval_epoch(cfg, cur_epoch, multigrid_schedule=None):
-    """Eval cadence, multigrid-aware (slowfast_tpu/engine/trainer.py:466-479)."""
-    if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
-        return True
-    hit = cu.multigrid_period_hit(cfg, cur_epoch, multigrid_schedule)
-    if hit is not None:
-        return hit
-    return (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0

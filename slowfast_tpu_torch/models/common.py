@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from slowfast_tpu_torch.ops import max_pool
+
 
 def sum_dtype(dtype):
     """The dtype the CNN modules take sums and statistics in: fp32, or
@@ -234,9 +236,9 @@ class SE(nn.Module):
 
 
 def max_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
-    """Torch MaxPool3d on NTHWC input."""
-    y = F.max_pool3d(to_ncthw(x), tuple(kernel), tuple(stride or kernel), tuple(padding))
-    return to_nthwc(y)
+    """Torch MaxPool3d on NTHWC input, with the deterministic backward of
+    ``ops/max_pool.py`` (a kernel on the card)."""
+    return max_pool.max_pool3d(x, kernel, stride, padding)
 
 
 def avg_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):

@@ -18,6 +18,7 @@ import re
 import numpy as np
 
 from .checkpoint import load_state_dict_partial
+from .io import pathmgr
 from .logging import get_logger
 
 logger = get_logger(__name__)
@@ -107,7 +108,7 @@ class _NumpyUnpickler(pickle.Unpickler):
 
 def load_caffe2_blobs(path):
     """The ``{name: value}`` blobs of a caffe2 pickle."""
-    with open(path, "rb") as f:
+    with pathmgr.open(path, "rb") as f:
         blobs = _NumpyUnpickler(f, encoding="latin1").load()
     return blobs["blobs"] if "blobs" in blobs else blobs
 

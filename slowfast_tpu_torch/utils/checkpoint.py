@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from . import distributed as du
+from .io import pathmgr
 from .logging import get_logger
 
 logger = get_logger(__name__)
@@ -160,7 +161,7 @@ def get_last_checkpoint(path_to_job, task=""):
     """The most recent checkpoint file, or None (reference checkpoint.py:61-78)."""
     d = get_checkpoint_dir(path_to_job)
     prefix = f"{task}_checkpoint" if task else "checkpoint"
-    names = sorted(f for f in os.listdir(d) if f.startswith(prefix)) if os.path.isdir(d) else []
+    names = sorted(f for f in pathmgr.ls(d) if f.startswith(prefix)) if pathmgr.isdir(d) else []
     return os.path.join(d, names[-1]) if names else None
 
 
@@ -208,7 +209,7 @@ def save_checkpoint(path_to_job, model, optimizer, epoch, cfg, ssl_state=None):
 
 
 def _write_checkpoint(path, model, optimizer, epoch, cfg, ssl_state):
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    pathmgr.mkdirs(os.path.dirname(path))
     payload = {
         "epoch": epoch,
         "model_state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -218,8 +219,9 @@ def _write_checkpoint(path, model, optimizer, epoch, cfg, ssl_state):
     if ssl_state is not None:
         payload["ssl_state"] = ssl_state.state_dict()
     tmp = os.path.join(os.path.dirname(path), "." + os.path.basename(path) + ".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    with pathmgr.open(tmp, "wb") as f:
+        torch.save(payload, f)
+    pathmgr.replace(tmp, path)
 
 
 class _PlainUnpickler(pickle.Unpickler):
@@ -232,13 +234,14 @@ class _PlainUnpickler(pickle.Unpickler):
 
 def _is_jax_native(path):
     """A pickle written by the JAX package (``format`` ``slowfast_tpu.*``)."""
-    if zipfile.is_zipfile(path):
-        return False
-    try:
-        with open(path, "rb") as f:
+    with pathmgr.open(path, "rb") as f:
+        if zipfile.is_zipfile(f):
+            return False
+        f.seek(0)
+        try:
             payload = _PlainUnpickler(f).load()
-    except (pickle.UnpicklingError, EOFError, ValueError, TypeError, AttributeError):
-        return False
+        except (pickle.UnpicklingError, EOFError, ValueError, TypeError, AttributeError):
+            return False
     return isinstance(payload, dict) and str(payload.get("format", "")).startswith(
         "slowfast_tpu.")
 
@@ -252,7 +255,8 @@ def _refuse_jax_native(path):
 
 def _load_pyth(path):
     _refuse_jax_native(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    with pathmgr.open(path, "rb") as f:
+        return torch.load(f, map_location="cpu", weights_only=True)
 
 
 def load_train_checkpoint(cfg, model, optimizer, ssl_state=None):

@@ -12,6 +12,7 @@ import os
 import sys
 
 from .distributed import is_master_proc
+from .io import pathmgr
 
 _FORMAT = "[%(asctime)s][%(levelname)s] %(filename)s: %(lineno)3d: %(message)s"
 
@@ -28,7 +29,9 @@ def setup_logging(output_dir=None):
     if not is_master_proc():
         logger.setLevel(logging.WARNING)
     elif output_dir:
-        handlers.append(logging.FileHandler(os.path.join(output_dir, "stdout.log")))
+        path = os.path.join(output_dir, "stdout.log")
+        handlers.append(logging.StreamHandler(pathmgr.open(path, "a")) if "://" in path
+                        else logging.FileHandler(path))
     for h in handlers:
         h.setFormatter(formatter)
         logger.addHandler(h)
@@ -47,5 +50,5 @@ def log_json_stats(stats, output_dir=None):
     line = "json_stats: {:s}".format(json.dumps(stats, sort_keys=True))
     get_logger(__name__).info(line)
     if output_dir:
-        with open(os.path.join(output_dir, "json_stats.log"), "a") as f:
+        with pathmgr.open(os.path.join(output_dir, "json_stats.log"), "a") as f:
             f.write(line + "\n")

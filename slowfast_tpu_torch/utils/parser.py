@@ -8,10 +8,10 @@ and where its ranks meet (``NUM_SHARDS``, ``SHARD_ID``, ``INIT_METHOD``).
 """
 
 import argparse
-import os
 import sys
 
 from slowfast_tpu_torch.config import get_cfg
+from slowfast_tpu_torch.utils.io import pathmgr
 
 
 def parse_args(argv=None):
@@ -72,5 +72,5 @@ def load_config(args, path_to_config=None):
     cfg.SHARD_ID = args.shard_id
     cfg.INIT_METHOD = args.init_method
     if cfg.OUTPUT_DIR:
-        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        pathmgr.mkdirs(cfg.OUTPUT_DIR)
     return cfg
