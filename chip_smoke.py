@@ -12,6 +12,25 @@ Phases, each printing one JSON line:
   3. kernel   each kernel against its plain PyTorch version on the card, at the
               slice's shape and a ragged one, with its device time, the plain
               version's time and its byte bound.
+  3a. maxpool_bwd_kernel  the max-pool backward (csrc/max_pool3d_bwd.cu)
+              against max_pool3d_bwd_plain at every max pool of the bf16
+              SlowFast 4x16 R50 and MViTv2-S 16x4 train forwards at 16 clips
+              and at POOL_EDGE_CASES, bf16 and fp32, on inputs full of ties:
+              bit-equal, and bit-equal over two launches; per main-path
+              shape the device time, the plain time, ATen's atomic
+              max_pool3d_with_indices_backward and the byte bound, summed per
+              SlowFast and per MViTv2-S step (with the kernel over ATen and
+              its share of the bound).
+  3b. avgpool_bwd_kernel  the average-pool backward (csrc/avg_pool3d_bwd.cu)
+              against avg_pool3d_bwd_plain, fp32 and float64, at every
+              average pool of the bf16 train forwards at 16 clips of
+              SlowFast 4x16 R50 (the head's two one-window pools) and X3D-M,
+              at SlowFast's head on the 256 test crop (overlapping windows),
+              at MViTv2-S's pools under MVIT.MODE avg and at
+              AVG_POOL_EDGE_CASES and a strided gradient: bit-equal, and
+              bit-equal over two launches; at the CNN heads' shapes in fp32
+              the device time, the plain time, ATen's atomic
+              avg_pool3d_backward and the byte bound, summed per step.
   4. fp32     the full-width SLOWFAST_4x16_R50 forward on the card against the
               same weights on the CPU, fp32, TF32 off.
   5. slice    the multi-view test (engine.tester.test) at full width in bf16 on
@@ -84,6 +103,15 @@ Phases, each printing one JSON line:
               held against flash_bwd_plain on its own inputs and output
               gradient; fp32 (TF32 off): equal losses and gradients within
               1e-3 relative L2.
+ 10c. determinism  under torch.use_deterministic_algorithms(True), no
+              warn_only (CUBLAS_WORKSPACE_CONFIG=:4096:8, which main sets
+              before CUDA starts): two bf16 MViTv2-S 16x4 and two bf16
+              SlowFast 4x16 R50 train steps at 16 clips from one state each:
+              no op refused, equal losses, bit-equal gradients, both pool
+              backward kernels launched on SlowFast's; each pair's step p50
+              with the max-pool kernel and with ATen's backward in turns;
+              the argmax flips of MViT's residual pools between the flash
+              and exact cores.
  11. mvit_train_fp32  one train step of full-width MViTv2-S on one clip on
               the card against the CPU on the same weights, fp32, TF32 off,
               once with each core: loss, grad norm, every gradient and the
@@ -214,15 +242,15 @@ Phases, each printing one JSON line:
               run_net.main pretraining MoCo (MoCo_SlowR50_8x8.yaml: Slow R50
               8 x 224², DIM 128, a 3-layer projection MLP, QUEUE_LEN 65,536,
               MOCO_MULTI_VIEW_QUEUE, 4 temporal views a clip with the MoCo-v2
-              colour recipe) at full width in bf16 for 2 epochs over the 128
-              decoded videos at the recipe's 64 clips a step: epoch 0 is all
-              queue warm-up (the parameters bit-equal after each step), every
-              step after it updates, the queue pointer moves 2 x clips a
-              step, the kNN probe runs after epoch 2, the checkpoint resumes
-              model and SSL state bit-equal; the p50 and the fastest of the
-              updating steps after the first (clips/s), the run's peak
-              memory, and the loader alone per batch. No kernel launches: the SSL items are
-              float pathways and Slow R50 runs on cuDNN.
+              colour recipe) at full width in bf16 for 2 epochs over 64 of
+              the decoded videos at the recipe's 64 clips a step: epoch 0 is
+              all queue warm-up (the parameters bit-equal after its step),
+              the step after it updates, the queue pointer moves 2 x clips
+              a step, the kNN probe runs after epoch 2, the checkpoint resumes
+              model and SSL state bit-equal; the updating step's clips/s and
+              the run's peak memory. No kernel but the Slow stem's max-pool
+              backward launches: the SSL items are float pathways and Slow
+              R50 runs on cuDNN.
  24c. linear_probe_slice  run_net.main training linear_k400_Slow_8x8_R50_syn8
               (Slow R50, DETACH_FINAL_FC) from ssl_train_slice's checkpoint
               through CHECKPOINT_CLEAR_NAME_PATTERN ("backbone."): the load's
@@ -361,7 +389,10 @@ Phases, each printing one JSON line:
               state bit-equal to the checkpoint's; the preprocess kernel
               once a train, precise-BN and val batch.
  35. kernels  one line per kernel with its launches on its path, error,
-              times and bound.
+              times and bound; before it the max-pool and the average-pool
+              backwards' launches by train path (maxpool_launches,
+              avgpool_launches; the latter must be above zero on
+              sf_train_slice, X3D-M's cnn_family run and ddp_slice).
 Before the phases, one line per host library that the data path and the
 trainer may use (cv2, PIL, sklearn, tensorboard, matplotlib): whether it
 imports, and its version. On the H100 hosts this runs on, tensorboard
@@ -507,11 +538,12 @@ def mvit_cfg(extra):
 
 def reset_launches():
     from slowfast_tpu_torch.ops import attention as ta
+    from slowfast_tpu_torch.ops import avg_pool as ap
     from slowfast_tpu_torch.ops import max_pool as mp
     from slowfast_tpu_torch.ops import preprocess as pp
     from slowfast_tpu_torch.ops import roi_align as ra
 
-    ra.launches = ra.bwd_launches = mp.bwd_launches = 0
+    ra.launches = ra.bwd_launches = mp.bwd_launches = ap.bwd_launches = 0
     pp.launches = ta.flash_launches = ta.exact_launches = ta.fused_launches = 0
     ta.flash_bwd_launches = ta.exact_bwd_launches = ta.fused_bwd_launches = 0
     ta.flash_tc_launches = ta.exact_tc_launches = ta.fused_tc_launches = 0
@@ -520,6 +552,7 @@ def reset_launches():
 
 def read_launches():
     from slowfast_tpu_torch.ops import attention as ta
+    from slowfast_tpu_torch.ops import avg_pool as ap
     from slowfast_tpu_torch.ops import max_pool as mp
     from slowfast_tpu_torch.ops import preprocess as pp
     from slowfast_tpu_torch.ops import roi_align as ra
@@ -530,6 +563,7 @@ def read_launches():
     # *_fma*: the fp32 instances, the FMA kernels.
     return {"preprocess_u8": pp.launches, "roi_align": ra.launches,
             "roi_align_bwd": ra.bwd_launches, "max_pool3d_bwd": mp.bwd_launches,
+            "avg_pool3d_bwd": ap.bwd_launches,
             "attention_flash": ta.flash_tc_launches,
             "attention_flash_fma": ta.flash_launches,
             "attention_exact": ta.exact_tc_launches,
@@ -4459,10 +4493,12 @@ LINEAR_YAML = os.path.join(SSL_CONFIGS, "linear_k400_Slow_8x8_R50_syn8.yaml")
 SSL_CLIPS = {"moco": 64, "byol": 32, "simclr": 32, "swav": 32}
 LINEAR_CLIPS = 16
 SSL_STATE_TOL = 1e-6
-# MoCo's epochs and the other recipes' steps: 3 and 4 until PR 18, cut so
-# the whole script keeps within its time (their loaders decode 4 views of
-# 64 or 32 clips a step on the host, 10-33 s a step; no kernel runs on
-# these paths).
+# MoCo's videos and epochs and the other recipes' steps, as few as the
+# checks allow so the whole script keeps within its time (their loaders
+# decode 4 views of 64 or 32 clips a step on the host, 10-33 s a step; only
+# the max-pool backward runs on these paths): MoCo takes one step an epoch,
+# a warm-up epoch and an updating one.
+SSL_VIDEOS = 64
 SSL_EPOCHS = 2
 SSL_FAMILY_STEPS = 2
 
@@ -4581,9 +4617,7 @@ def ssl_reload_identical(cfg, out_dir, model, ssl):
 
 
 def loader_batch_ms(cfg):
-    """The train loader alone: ms to its first batch on the card (a 64-clip
-    SSL batch of 4 views a clip takes seconds, against which the pool's
-    start is noise)."""
+    """The train loader alone: ms to its first batch on the card."""
     from slowfast_tpu_torch.data import construct_loader
 
     t0 = time.perf_counter()
@@ -4596,14 +4630,14 @@ def phase_ssl_train_slice(corpus, keep):
     """``run_net.main`` pretraining MoCo (MoCo_SlowR50_8x8.yaml: Slow R50,
     8 x 224², DIM 128, a 3-layer projection MLP, QUEUE_LEN 65,536,
     MOCO_MULTI_VIEW_QUEUE, 4 temporal views, the MoCo-v2 colour recipe) at
-    full width in bf16 on the mp4 corpus for ``SSL_EPOCHS`` epochs at the
+    full width in bf16 on ``SSL_VIDEOS`` clips of the mp4 corpus for
+    ``SSL_EPOCHS`` epochs at the
     recipe's 64 clips a step: epoch 0 all queue warm-up (the parameters
     bit-equal after each step), every step after it updating, the pointer
     2 x clips on a step, the kNN probe after the last epoch, the checkpoint
     auto-resuming
     bit-equal (copied to ``keep`` for the linear probe). The p50 and the
-    fastest of the updating steps after the first (clips/s), the run's
-    peak memory, and the loader alone."""
+    fastest of the updating steps (clips/s) and the run's peak memory."""
     from slowfast_tpu_torch.utils import checkpoint as cu
 
     cfg0 = family_cfg(SSL_YAML["moco"], [], "ssl")
@@ -4614,30 +4648,26 @@ def phase_ssl_train_slice(corpus, keep):
           and cfg0.DATA.NUM_FRAMES == 8 and cfg0.TPU.COMPUTE_DTYPE == "bfloat16", "MoCo recipe")
     n = SSL_CLIPS["moco"]
     out_dir = os.path.join(OUT_DIR, "ssl")
-    opts = kinetics_split(corpus, "ssl", MASKED_VIDEOS) + [
+    opts = kinetics_split(corpus, "ssl", SSL_VIDEOS) + [
         "TRAIN.BATCH_SIZE", str(n), "SOLVER.MAX_EPOCH", str(SSL_EPOCHS)]
     cfg = family_cfg(SSL_YAML["moco"], opts, "ssl")
     with removed_after(os.path.join(out_dir, "checkpoints")):
         run = drive_ssl_train(SSL_YAML["moco"], opts, out_dir)
-        cfg.CONTRASTIVE.LENGTH = MASKED_VIDEOS
+        cfg.CONTRASTIVE.LENGTH = SSL_VIDEOS
         ckpt_bytes = ssl_reload_identical(cfg, out_dir, run["model"], run["ssl"])
         shutil.copyfile(cu.get_last_checkpoint(out_dir, cfg.TASK), keep)
-    steps, spe = run["steps"], MASKED_VIDEOS // n
+    steps, spe = run["steps"], SSL_VIDEOS // n
     del run["model"], run["ssl"]
-    loader_ms = loader_batch_ms(cfg)
     knn = [s for s in run["logged"] if s["_type"] == "knn_epoch"]
     epochs = [s["epoch"] for s in run["logged"] if s["_type"] == "train_epoch"]
-    frozen_ms = [s["ms"] for s in steps[1:spe]]
-    ms = [s["ms"] for s in steps[spe + 1:]]
+    ms = [s["ms"] for s in steps[spe:]]
     p50 = statistics.median(ms)
     emit({"phase": "ssl_train_slice", "recipe": "MoCo_SlowR50_8x8.yaml", "clips_per_step": n,
-          "videos": MASKED_VIDEOS, "steps_per_epoch": spe, "warmup_iters": 65536 // n,
+          "videos": SSL_VIDEOS, "steps_per_epoch": spe, "warmup_iters": 65536 // n,
           "epochs": epochs, "per_step": steps, "knn": knn, "checkpoint_bytes": ckpt_bytes,
           "reload_identical": True, "step_p50_ms": p50, "train_clips_per_s": n / p50 * 1e3,
           "step_min_ms": min(ms), "min_step_clips_per_s": n / min(ms) * 1e3,
-          "warmup_step_p50_ms": statistics.median(frozen_ms) if frozen_ms else None,
-          "max_memory_allocated": run["max_memory_allocated"],
-          "loader_batch_ms": loader_ms, "train_wall_s": run["wall_s"],
+          "max_memory_allocated": run["max_memory_allocated"], "train_wall_s": run["wall_s"],
           "launches": run["launches"]})
     check(len(steps) == SSL_EPOCHS * spe and all(s["clips"] == n for s in steps),
           f"steps {len(steps)}")
@@ -6387,34 +6417,39 @@ def phase_data_bench(corpus):
     return row
 
 
-def capture_pool_calls(cfg, n):
+def capture_pool_calls(cfg, n, avg=False, crop=None):
     """``(input shape, kernel, stride, padding)`` of every max pool of one
-    train-mode forward of ``cfg``'s model (bf16) on ``n`` seeded clips, in
-    call order."""
+    train-mode forward of ``cfg``'s model (bf16) on ``n`` seeded clips of
+    ``crop`` (the train crop by default), in call order; with ``avg`` the
+    ``(input shape, kernel, stride)`` of every average pool instead (the
+    zero-padded fp32 input that ``ops.avg_pool.avg_pool3d`` takes)."""
     import gc
 
     from slowfast_tpu_torch.engine.steps import maybe_device_preprocess
     from slowfast_tpu_torch.models.build import build_model
+    from slowfast_tpu_torch.ops import avg_pool as ap
     from slowfast_tpu_torch.ops import max_pool as mp
 
     model = build_model(cfg, device="cuda")
     model.train()
     gen = torch.Generator(device="cuda").manual_seed(13)
-    crop = cfg.DATA.TRAIN_CROP_SIZE
+    crop = crop or cfg.DATA.TRAIN_CROP_SIZE
     clip = torch.randint(0, 256, (n, cfg.DATA.NUM_FRAMES, crop, crop, 3), dtype=torch.uint8,
                          device="cuda", generator=gen)
-    calls, real = [], mp.max_pool3d
+    module, name = (ap, "avg_pool3d") if avg else (mp, "max_pool3d")
+    calls, real = [], getattr(module, name)
 
     def recording(x, kernel, stride=None, padding=(0, 0, 0)):
-        calls.append((tuple(x.shape), tuple(kernel), tuple(stride or kernel), tuple(padding)))
-        return real(x, kernel, stride, padding)
+        calls.append((tuple(x.shape), tuple(kernel), tuple(stride or kernel))
+                     + (() if avg else (tuple(padding),)))
+        return real(x, kernel, stride) if avg else real(x, kernel, stride, padding)
 
-    mp.max_pool3d = recording
+    setattr(module, name, recording)
     try:
         with torch.no_grad():
             model(maybe_device_preprocess(cfg, [clip]))
     finally:
-        mp.max_pool3d = real
+        setattr(module, name, real)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6432,13 +6467,15 @@ POOL_EDGE_CASES = [((2, 5, 17, 15, 5), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
                    ((2, 3, 9, 11, 6), (1, 3, 3), (1, 2, 2), (0, 1, 1))]
 
 
-def maxpool_case(shape, kernel, stride, padding, dtype, seed, timed):
+def maxpool_case(shape, kernel, stride, padding, dtype, seed, timed, strided=False):
     """The backward kernel against ``max_pool3d_bwd_plain`` on integer-valued
     inputs (windows full of ties) and a seeded output gradient in the
-    model's NTHWC layout: bit-equality, a bit-equal relaunch, ATen's
-    backward's distance; with ``timed`` the device times of the kernel, the
-    plain version and ATen's ``max_pool3d_with_indices_backward`` (the
-    library yardstick) and the byte bound."""
+    model's NTHWC layout (with ``strided`` the gradient and the indices
+    every other channel of wider tensors, which the kernel reads a channel
+    at a time): bit-equality, a bit-equal relaunch, ATen's backward's
+    distance; with ``timed`` the device times of the kernel, the plain
+    version and ATen's ``max_pool3d_with_indices_backward`` (the library
+    yardstick) and the byte bound."""
     import torch.nn.functional as F
 
     from slowfast_tpu_torch.ops import max_pool as mp
@@ -6449,6 +6486,9 @@ def maxpool_case(shape, kernel, stride, padding, dtype, seed, timed):
     y, idx = F.max_pool3d(xc, kernel, stride, padding, return_indices=True)
     go = torch.randn(y.permute(0, 2, 3, 4, 1).shape, device="cuda", generator=gen).to(dtype)
     idx5 = idx.permute(0, 2, 3, 4, 1)
+    if strided:
+        go, idx5 = (torch.stack([v, torch.zeros_like(v)], dim=-1).flatten(-2)[..., ::2]
+                    for v in (go, idx5))
     args = (go, idx5, shape, dtype, kernel, stride, padding)
     got, again = mp._launch_bwd(*args), mp._launch_bwd(*args)
     want = mp.max_pool3d_bwd_plain(go, idx5, shape, kernel, stride, padding, dtype)
@@ -6461,7 +6501,8 @@ def maxpool_case(shape, kernel, stride, padding, dtype, seed, timed):
     torch.cuda.synchronize()
     row = {"shape": list(shape), "kernel": list(kernel), "stride": list(stride),
            "padding": list(padding), "dtype": str(dtype).replace("torch.", ""),
-           "bit_equal_plain": torch.equal(got, want), "relaunch_bit_equal": torch.equal(got, again),
+           "strided": strided, "bit_equal_plain": torch.equal(got, want),
+           "relaunch_bit_equal": torch.equal(got, again),
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "aten_max_abs_diff": (got.float() - aten().permute(0, 2, 3, 4, 1).float())
            .abs().max().item()}
@@ -6477,13 +6518,14 @@ def maxpool_case(shape, kernel, stride, padding, dtype, seed, timed):
 def phase_maxpool_bwd_kernel():
     """The max-pool backward kernel (csrc/max_pool3d_bwd.cu) against its
     plain version at every pool of the full-width SlowFast 4x16 R50 and
-    MViTv2-S 16x4 train steps at 16 clips and at ``POOL_EDGE_CASES``, in
-    bf16 and fp32, on integer-valued inputs full of ties: bit-equal (the
-    plain version adds in the kernel's order and rounds once), bit-equal
-    over two launches; per distinct main-path shape in bf16 the device
+    MViTv2-S 16x4 train steps at 16 clips, at ``POOL_EDGE_CASES`` and at a
+    strided gradient, in bf16 and fp32, on integer-valued inputs full of
+    ties: bit-equal (the plain version adds in the kernel's order and rounds
+    once), bit-equal over two launches; per distinct main-path shape in bf16 the device
     time, the plain version's, ATen's backward's and the byte bound, and
     their sums over each step's pools. The kernels line takes the SlowFast
     step's pools in bf16, summed."""
+    t0 = time.perf_counter()
     sf = capture_pool_calls(slowfast_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"]), CNN_TRAIN_CLIPS)
     mvit = capture_pool_calls(mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"]), TRAIN_CLIPS)
     check(sf and mvit, f"pools captured: SlowFast {len(sf)}, MViT {len(mvit)}")
@@ -6493,22 +6535,135 @@ def phase_maxpool_bwd_kernel():
         for dtype in (torch.bfloat16, torch.float32):
             timed = case in main_path and dtype == torch.bfloat16
             rows[(case, dtype)] = maxpool_case(*case, dtype, 100 + i, timed)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows[("strided", dtype)] = maxpool_case(*POOL_EDGE_CASES[0], dtype, 99, False,
+                                                strided=True)
     cases = list(rows.values())
     bad = [r for r in cases if not (r["bit_equal_plain"] and r["relaunch_bit_equal"])]
-
-    def per_step(calls):
-        step = [rows[(c, torch.bfloat16)] for c in calls]
-        return {"bound_by": "bytes", **{k: sum(r[k] for r in step)
-                                        for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                  "bytes")}}
     row = {"phase": "maxpool_bwd_kernel", "source": "slowfast_tpu_torch/csrc/max_pool3d_bwd.cu",
            "slowfast_pools": [list(c) for c in sf], "mvit_pools": [list(c) for c in mvit],
            "cases_checked": len(cases), "bit_equal": len(cases) - len(bad),
            "max_abs_err": max(r["max_abs_err"] for r in cases),
-           "per_slowfast_step": per_step(sf), "per_mvit_step": per_step(mvit),
-           "cases": cases}
+           "per_slowfast_step": per_step_sums(rows, sf, torch.bfloat16),
+           "per_mvit_step": per_step_sums(rows, mvit, torch.bfloat16), "cases": cases,
+           "seconds": time.perf_counter() - t0}
     emit(row)
     check(not bad, f"max-pool backward kernel differs from its plain version: {bad}")
+    return row
+
+
+def per_step_sums(rows, calls, dtype):
+    """The timed rows of ``calls`` summed: a step's device time of the
+    kernel, of its plain version and of ATen's backward, its bound and bytes,
+    the kernel's time over ATen's and its share of the bound."""
+    step = [rows[(c, dtype)] for c in calls]
+    out = {"bound_by": "bytes", **{k: sum(r[k] for r in step)
+                                   for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bytes")}}
+    out.update(over_library=out["ms"] / out["library_ms"],
+               share_of_bound=out["bound_ms"] / out["ms"])
+    return out
+
+
+# Small average pools on the edges of the backward: odd channel counts
+# (one channel a thread), overlapping windows at stride 1 and 2, stride 2
+# in time, windows that fill an axis, a 1 x 1 x 1 map.
+AVG_POOL_EDGE_CASES = [((2, 4, 8, 8, 5), (4, 7, 7), (1, 1, 1)),
+                       ((1, 4, 11, 11, 3), (3, 3, 3), (1, 2, 2)),
+                       ((2, 3, 9, 9, 33), (3, 3, 3), (1, 4, 4)),
+                       ((1, 7, 6, 7, 8), (3, 3, 3), (2, 1, 1)),
+                       ((2, 2, 3, 3, 16), (2, 3, 3), (1, 1, 1)),
+                       ((3, 1, 1, 1, 12), (1, 1, 1), (1, 1, 1))]
+
+
+def avgpool_case(shape, kernel, stride, dtype, seed, timed, strided=False):
+    """The average-pool backward kernel against ``avg_pool3d_bwd_plain`` on
+    a seeded output gradient (with ``strided`` every other channel of a
+    wider one, which the kernel reads a channel at a time): bit-equality, a
+    bit-equal relaunch, ATen's backward's distance; with ``timed`` the
+    device times of the kernel, the plain version and ATen's
+    ``avg_pool3d_backward`` (the library yardstick, atomic adds) and the
+    byte bound."""
+    import math
+
+    from slowfast_tpu_torch.ops import avg_pool as ap
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = [shape[0]] + [(shape[1 + a] - kernel[a]) // stride[a] + 1 for a in range(3)]
+    go = torch.randn(out + [shape[4]], device="cuda", generator=gen,
+                     dtype=torch.float64).to(dtype)
+    if strided:
+        go = torch.stack([go, torch.zeros_like(go)], dim=-1).flatten(-2)[..., ::2]
+    args = (go, shape, kernel, stride)
+    got, again = ap._launch_bwd(*args), ap._launch_bwd(*args)
+    want = ap.avg_pool3d_bwd_plain(*args)
+    x = torch.empty(shape, dtype=dtype, device="cuda").permute(0, 4, 1, 2, 3)
+
+    def aten():
+        return torch.ops.aten.avg_pool3d_backward(go.permute(0, 4, 1, 2, 3), x, list(kernel),
+                                                  list(stride), [0, 0, 0], False, True, None)
+
+    torch.cuda.synchronize()
+    row = {"shape": list(shape), "kernel": list(kernel), "stride": list(stride),
+           "dtype": str(dtype).replace("torch.", ""), "strided": strided,
+           "bit_equal_plain": torch.equal(got, want), "relaunch_bit_equal": torch.equal(got, again),
+           "max_abs_err": (got - want).abs().max().item(),
+           "aten_max_abs_diff": (got - aten().permute(0, 2, 3, 4, 1)).abs().max().item()}
+    if timed:
+        # Each window's terms: a division and an add per input it covers.
+        ops = 2 * go.numel() * math.prod(kernel)
+        nbytes = (go.numel() + math.prod(shape)) * go.element_size()
+        row.update(ms=device_ms(lambda: ap._launch_bwd(*args)),
+                   plain_ms=device_ms(lambda: ap.avg_pool3d_bwd_plain(*args), iters=5),
+                   library_ms=device_ms(aten), **roofline(ops, nbytes, dtype))
+    return row
+
+
+def phase_avgpool_bwd_kernel():
+    """The average-pool backward kernel (csrc/avg_pool3d_bwd.cu) against its
+    plain version, fp32 and float64, at every average pool of the bf16
+    train forwards at 16 clips of SlowFast 4x16 R50 (the head's two
+    pathways, one window each) and X3D-M (its head), at SlowFast's head on
+    the 256 test crop (a 7 x 7 pool over an 8 x 8 map: 4 overlapping
+    windows), at MViTv2-S 16x4's pools under MVIT.MODE avg (k // 2 padding)
+    and at ``AVG_POOL_EDGE_CASES`` and a strided gradient: bit-equal, and
+    bit-equal over two launches. At the CNN heads' shapes in fp32 the device
+    time, the plain version's, ATen's ``avg_pool3d_backward`` and the byte
+    bound, summed per SlowFast step for the kernels line."""
+    t0 = time.perf_counter()
+    sf = capture_pool_calls(slowfast_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"]), CNN_TRAIN_CLIPS,
+                            avg=True)
+    sf_test = capture_pool_calls(slowfast_cfg(["TPU.COMPUTE_DTYPE", "bfloat16"]), 8, avg=True,
+                                 crop=256)
+    x3d = capture_pool_calls(
+        slowfast_cfg(["NUM_GPUS", "1", "TPU.COMPUTE_DTYPE", "bfloat16"], X3D_YAML,
+                     os.path.join(OUT_DIR, "x3d_m")), CNN_TRAIN_CLIPS, avg=True)
+    mvit = capture_pool_calls(mvit_cfg(["TPU.COMPUTE_DTYPE", "bfloat16", "MVIT.MODE", "avg"]),
+                              TRAIN_CLIPS, avg=True)
+    check(sf and sf_test and x3d and mvit, f"average pools captured: SlowFast {len(sf)}, test "
+          f"crop {len(sf_test)}, X3D-M {len(x3d)}, MViT avg {len(mvit)}")
+    timed_cases = list(dict.fromkeys(sf + sf_test + x3d))
+    rows = {}
+    for i, case in enumerate(list(dict.fromkeys(timed_cases + mvit)) + AVG_POOL_EDGE_CASES):
+        for dtype in (torch.float32, torch.float64):
+            timed = case in timed_cases and dtype == torch.float32
+            rows[(case, dtype)] = avgpool_case(*case, dtype, 200 + i, timed)
+    rows["strided"] = avgpool_case(*AVG_POOL_EDGE_CASES[1], torch.float32, 199, False,
+                                   strided=True)
+    cases = list(rows.values())
+    bad = [r for r in cases if not (r["bit_equal_plain"] and r["relaunch_bit_equal"])]
+    row = {"phase": "avgpool_bwd_kernel", "source": "slowfast_tpu_torch/csrc/avg_pool3d_bwd.cu",
+           "slowfast_pools": [list(c) for c in sf],
+           "slowfast_test_pools": [list(c) for c in sf_test],
+           "x3d_pools": [list(c) for c in x3d], "mvit_avg_pools": [list(c) for c in mvit],
+           "cases_checked": len(cases), "bit_equal": len(cases) - len(bad),
+           "max_abs_err": max(r["max_abs_err"] for r in cases),
+           "per_slowfast_step": per_step_sums(rows, sf, torch.float32),
+           "per_slowfast_test_batch": per_step_sums(rows, sf_test, torch.float32),
+           "per_x3d_step": per_step_sums(rows, x3d, torch.float32), "cases": cases,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    check(not bad, f"average-pool backward kernel differs from its plain version: {bad}")
     return row
 
 
@@ -6533,31 +6688,25 @@ def run_recording_pools(cfg, state, batch, store):
 
 def deterministic_pair(cfg, state, batch):
     """Two train steps of ``cfg`` from ``state`` on ``batch`` under
-    ``torch.use_deterministic_algorithms(True)`` (no ``warn_only``). If torch
-    refuses an op, the pair runs again with ``warn_only`` and the ops it
-    names are returned beside the pair's distance."""
-    import warnings
-
-    named = []
+    ``torch.use_deterministic_algorithms(True)`` (no ``warn_only``): the
+    losses, whether the gradients are bit-equal and their distance, the pool
+    backward kernels' launches. If torch refuses an op, the op it names and
+    no steps."""
     torch.use_deterministic_algorithms(True)
     try:
         runs = [train_step_run(cfg, state, batch) for _ in range(2)]
     except RuntimeError as e:
         if "deterministic" not in str(e):
             raise
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            runs = [train_step_run(cfg, state, batch) for _ in range(2)]
-        named = sorted({str(w.message).split(" does not have")[0][:120] for w in caught
-                        if "deterministic" in str(w.message)})
+        return {"nondeterministic_ops": [str(e).split(" does not have")[0][:120]]}
     finally:
         torch.use_deterministic_algorithms(False)
     (a, ga), (b, gb) = runs
     return {"losses": [a["loss"], b["loss"]], "same_loss": a["loss"] == b["loss"],
             "grads_bit_equal": all(torch.equal(ga[n], gb[n]) for n in ga),
-            "grad_rel_l2": rel_l2(gb, ga, ga), "nondeterministic_ops": named,
-            "max_pool3d_bwd_launches": a["launches"]["max_pool3d_bwd"]}
+            "grad_rel_l2": rel_l2(gb, ga, ga), "nondeterministic_ops": [],
+            "max_pool3d_bwd_launches": a["launches"]["max_pool3d_bwd"],
+            "avg_pool3d_bwd_launches": a["launches"]["avg_pool3d_bwd"]}
 
 
 class PinnedArgmaxPool(torch.autograd.Function):
@@ -6616,8 +6765,9 @@ def phase_determinism():
     """Under ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
     set before CUDA started, by ``main``): two bf16 MViTv2-S 16x4 train
     steps at 16 clips from one state, and two bf16 SlowFast 4x16 R50 steps
-    at 16 clips: the same loss and bit-equal gradients, or the ops torch
-    names and the pair's distance. Then the flash-core and exact-core
+    at 16 clips: no op refused, the same loss and bit-equal gradients, the
+    max-pool backward kernel launched in both and the average-pool one in
+    SlowFast's (its head). Then the flash-core and exact-core
     MViTv2-S steps from one state (their forwards differ by one ulp in a
     few attention outputs): per max pool the outputs whose argmax differs
     between the two forwards, beside the steps' gradient distance, and the
@@ -6662,11 +6812,13 @@ def phase_determinism():
     emit(out)
     for name in ("mvit", "slowfast"):
         pair = out[name]
-        check(pair["max_pool3d_bwd_launches"] > 0, f"{name}: no max-pool backward launch")
-        check(pair["nondeterministic_ops"] or (pair["same_loss"] and pair["grads_bit_equal"]),
+        check(not pair["nondeterministic_ops"],
+              f"{name} names nondeterministic ops: {pair['nondeterministic_ops']}")
+        check(pair["same_loss"] and pair["grads_bit_equal"],
               f"{name}: deterministic steps differ: {pair}")
-    check(not out["mvit"]["nondeterministic_ops"],
-          f"MViTv2-S names nondeterministic ops: {out['mvit']['nondeterministic_ops']}")
+        check(pair["max_pool3d_bwd_launches"] > 0, f"{name}: no max-pool backward launch")
+    check(out["slowfast"]["avg_pool3d_bwd_launches"] > 0,
+          "slowfast: no average-pool backward launch")
     return out
 
 
@@ -6800,6 +6952,7 @@ def main():
     phase_build()
     kernel = phase_kernel()
     maxpool = phase_maxpool_bwd_kernel()
+    avgpool = phase_avgpool_bwd_kernel()
     phase_fp32()
     phase_slice()
     phase_breakdown()
@@ -6987,6 +7140,26 @@ def main():
         "source": "slowfast_tpu_torch/csrc/max_pool3d_bwd.cu",
         "replaces": "slowfast_tpu/ops/video_conv.py:464",
         "launches": sum(pool_launches.values()), "max_abs_err": maxpool["max_abs_err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
+    })
+    # The average-pool backward (a hand kernel beyond the TPU's: JAX's
+    # avg_pool VJP is plain XLA): per SLOWFAST_4x16_R50 train step at 16
+    # clips, the head's two fp32 pools summed; launches are the train paths'
+    # with a pooling head (the RoI head, the SSL models and multigrid's short
+    # cycle pool by mean).
+    avg_launches = {k: v.get("avg_pool3d_bwd", 0) for k, v in pool_paths.items()}
+    emit({"phase": "avgpool_launches", "by_path": avg_launches,
+          "determinism": {k: determinism[k]["avg_pool3d_bwd_launches"]
+                          for k in ("mvit", "slowfast")}})
+    for path in ("sf_train_slice", "cnn_family.x3d_m.channels_last_3d", "ddp_slice"):
+        check(avg_launches[path] > 0, f"{path}: the average-pool backward kernel never launched")
+    tot = avgpool["per_slowfast_step"]
+    lines.append({
+        "name": "avg_pool3d_bwd", "route": "cuda",
+        "source": "slowfast_tpu_torch/csrc/avg_pool3d_bwd.cu",
+        "replaces": "slowfast_tpu/models/common.py:153",
+        "launches": sum(avg_launches.values()), "max_abs_err": avgpool["max_abs_err"],
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
     })

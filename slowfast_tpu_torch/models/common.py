@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from slowfast_tpu_torch.ops import max_pool
+from slowfast_tpu_torch.ops import avg_pool, max_pool
 
 
 def sum_dtype(dtype):
@@ -249,14 +249,15 @@ def avg_pool3d(x, kernel, stride=None, padding=(0, 0, 0)):
     version, then does too. The padding is explicit zeros: ATen refuses an
     input axis shorter than the kernel even when the padding covers it (an
     MViT avg-mode pool of 3 over 2 frames), and zeros counted in the window
-    are what its ``count_include_pad`` computes.
+    are what its ``count_include_pad`` computes. The pool itself is
+    ``ops/avg_pool.py``'s: ATen's forward, a deterministic backward (a
+    kernel on the card).
     """
     y = to_ncthw(x).to(sum_dtype(x.dtype))
     if any(padding):
         pt, ph, pw = padding
         y = F.pad(y, (pw, pw, ph, ph, pt, pt))
-    y = F.avg_pool3d(y, tuple(kernel), tuple(stride or kernel))
-    return to_nthwc(y).to(x.dtype)
+    return avg_pool.avg_pool3d(to_nthwc(y), kernel, stride or kernel).to(x.dtype)
 
 
 class DropPath(nn.Module):

@@ -277,12 +277,13 @@ def port_state(ssl_type, extra=(), steps_per_epoch=1):
     return cfg, model, opt, ssl, step
 
 
-def test_moco_warmup_over_the_epoch_boundary():
-    """``QUEUE_LEN // TRAIN.BATCH_SIZE`` = 16 warm-up steps, 2 steps an
-    epoch: steps 0 and 1 leave the parameters and momentum bit-equal (the
-    BN statistics, the momentum encoder and the queue move), step 2 (epoch
-    1) updates."""
-    cfg, model, opt, ssl, step = port_state("moco", ["TRAIN.BATCH_SIZE", "4"], steps_per_epoch=2)
+def check_moco_warmup(steps_per_epoch):
+    """``QUEUE_LEN // TRAIN.BATCH_SIZE`` = 16 warm-up steps cut short by the
+    epoch: the steps of epoch 0 leave the parameters and momentum bit-equal
+    (the BN statistics, the momentum encoder and the queue move), the steps
+    after it update."""
+    cfg, model, opt, ssl, step = port_state("moco", ["TRAIN.BATCH_SIZE", "4"],
+                                            steps_per_epoch=steps_per_epoch)
     assert cfg.CONTRASTIVE.QUEUE_LEN // cfg.TRAIN.BATCH_SIZE == 16
     for i in range(3):
         params = [p.detach().clone() for p in model.parameters()]
@@ -292,11 +293,23 @@ def test_moco_warmup_over_the_epoch_boundary():
         step(batch_of(i)[1])
         same = all(torch.equal(a, b) for a, b in zip(params, model.parameters()))
         same_trace = all(torch.equal(a, b) for a, b in zip(trace, opt.trace))
-        assert same == same_trace == (i < 2), i
+        assert same == same_trace == (i < steps_per_epoch), i
         assert not torch.equal(stats, model.state_dict()[
             "backbone.s1.pathway0_stem.bn.running_mean"])
         assert not torch.equal(queue, ssl.queue_x)
     assert ssl.ptr == 3 * B
+
+
+def test_moco_warmup_over_the_epoch_boundary():
+    """2 steps an epoch: steps 0 and 1 are warm-up, step 2 (epoch 1)
+    updates."""
+    check_moco_warmup(2)
+
+
+def test_moco_warmup_of_one_step_epochs():
+    """One step an epoch, as ``chip_smoke.py``'s MoCo slice runs: step 0 is
+    the warm-up, steps 1 and 2 update."""
+    check_moco_warmup(1)
 
 
 def test_swav_prototypes_freeze_and_unit_norm():
